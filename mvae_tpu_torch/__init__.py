@@ -1,0 +1,13 @@
+"""PyTorch / CUDA port of mvae_tpu for one NVIDIA Hopper card (H100).
+
+The JAX package `mvae_tpu` is the reference; this package imports nothing
+of it, keeps its module layout and names, and holds each of its Pallas
+kernels as a CUDA kernel written by hand (`ops/`, `csrc/`). Entry points
+run on the CUDA card unless the caller passes `device="cpu"` (`device.py`).
+
+Ported so far: the CelebA model in eval mode, the eval-mode multi-term ELBO
+(`train.loop.make_eval_step`), the serving endpoints (`serve.Sampler`) and
+the weight carry-across (`utils.weights`). Training comes next.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,59 @@
+"""Model protocol (counterpart of mvae_tpu/models/base.py).
+
+A model is an `nn.Module` that holds its weights and running statistics.
+Public functions keep the JAX package's layouts: images NHWC, posteriors
+stacked (M, B, D) in `modalities` order.
+
+Subclasses define:
+    modalities: tuple[str, ...]          expert order
+    n_latents: int
+    encode(inputs) -> (mu, logvar)       inputs: name -> (B, ...), all present
+    decode(z) -> recons                  z: (N, D); name -> (N, ...) logits
+    recon_loss(name, logits, target) -> (N,) per-sample loss summed over
+        the event dims; target may hold fewer rows (N % Nt == 0, shared)
+    input_spec() -> name -> (event_shape, dtype)
+"""
+
+import torch
+from torch import nn
+
+from mvae_tpu_torch.ops.poe import masked_poe_all_terms
+
+
+class MultimodalVAE(nn.Module):
+    modalities: tuple = ()
+    n_latents: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def recon_losses(self, recons, inputs):
+        """(N, M) per-sample loss, one column per expert."""
+        return torch.stack([self.recon_loss(n, recons[n], inputs[n])
+                            for n in self.modalities], dim=-1)
+
+    def infer(self, inputs):
+        """Fuse the posterior of exactly the modalities in `inputs`, with the
+        prior expert (mnist/model.py:46-64). Absent modalities run through
+        their encoder on zero placeholders and are masked out of the
+        product: one PoE launch with a single mask row.
+
+        Returns (pd_mu, pd_logvar), each (B, D)."""
+        b = next(iter(inputs.values())).shape[0]
+        full = {m: inputs[m] if m in inputs else self.placeholder(m, b)
+                for m in self.modalities}
+        mask = torch.tensor([[1.0 if m in inputs else 0.0
+                              for m in self.modalities]], device=self.device)
+        mu, logvar = self.encode(full)
+        pd_mu, pd_logvar = masked_poe_all_terms(mu, logvar, mask)
+        return pd_mu[0], pd_logvar[0]
+
+    def placeholder(self, name: str, batch: int):
+        """Zero-filled stand-in for an absent modality."""
+        shape, dtype = self.input_spec()[name]
+        return torch.zeros((batch,) + tuple(shape), dtype=dtype,
+                           device=self.device)
+
+    def input_spec(self):
+        raise NotImplementedError

@@ -1,0 +1,128 @@
+"""CelebA MVAE: 64x64 RGB image (DCGAN CNN) + 18 binary attributes (one
+joint expert). Counterpart of mvae_tpu/models/celeba.py, with the
+reference's module names (celeba/model.py:66-190), so a reference-layout
+`state_dict` loads with `strict=True`:
+
+    image_encoder.features   conv 3->32->64->128->256 (4,2,1 x3; 4,1,0),
+                             BN from the 2nd conv, swish
+    image_encoder.classifier fc 256*5*5 -> 512 -> swish -> dropout -> 2L
+    image_decoder.upsample   fc L -> 256*5*5 -> swish
+    image_decoder.hallucinate convT 256->128->64->32->3, BN + swish between
+    attrs_encoder.net        18 -> 512 -> 512 (BN1d + swish) -> 2L
+    attrs_decoder.net        L -> 512 x3 (BN1d + swish) -> 18 logits
+
+Images enter and leave NHWC; inside they run NCHW, so the reference's
+(c, h, w) flatten order needs no permutation. With a compute dtype
+(bfloat16) the conv stacks and the image posterior head run in it; the
+attribute MLPs and the decoder's upsample fc run in f32, as in the JAX
+package (models/celeba.py:100-117).
+"""
+
+import torch
+from torch import nn
+
+from mvae_tpu_torch.core.losses import bce_row_sum
+from mvae_tpu_torch.device import resolve_device
+from mvae_tpu_torch.models.base import MultimodalVAE
+from mvae_tpu_torch.nn.dcgan import ConvStack, DeconvStack, PosteriorHead
+from mvae_tpu_torch.nn.initializers import init_parameters_
+from mvae_tpu_torch.nn.layers import Linear, Swish
+from mvae_tpu_torch.nn.norm import BatchNorm
+
+ENC_SPECS = [(32, 4, 2, 1, False), (64, 4, 2, 1, True),
+             (128, 4, 2, 1, True), (256, 4, 1, 0, True)]   # 64->32->16->8->5
+DEC_SPECS = [(128, 4, 1, 0, True), (64, 4, 2, 1, True),
+             (32, 4, 2, 1, True), (3, 4, 2, 1, False)]     # 5->8->16->32->64
+N_ATTRS = 18
+
+
+def _mlp_bn(dims, d_out, device):
+    """[linear -> BN1d -> swish]* -> linear, as one indexed Sequential."""
+    layers = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        layers += [Linear(a, b, device=device), BatchNorm(b, device=device),
+                   Swish()]
+    layers.append(Linear(dims[-1], d_out, device=device))
+    return nn.Sequential(*layers)
+
+
+class ImageEncoder(nn.Module):
+    def __init__(self, n_latents, compute_dtype, device):
+        super().__init__()
+        self.features = ConvStack(3, ENC_SPECS, compute_dtype=compute_dtype,
+                                  device=device)
+        self.classifier = PosteriorHead(256 * 5 * 5, n_latents,
+                                        compute_dtype=compute_dtype,
+                                        device=device)
+
+    def forward(self, x):                   # x: (B, 3, 64, 64)
+        h = self.features(x)
+        return self.classifier(h.reshape(h.shape[0], -1))
+
+
+class ImageDecoder(nn.Module):
+    def __init__(self, n_latents, compute_dtype, device):
+        super().__init__()
+        self.upsample = nn.Sequential(
+            Linear(n_latents, 256 * 5 * 5, device=device), Swish())
+        self.hallucinate = DeconvStack(256, DEC_SPECS,
+                                       compute_dtype=compute_dtype,
+                                       device=device)
+
+    def forward(self, z):                   # -> (N, 3, 64, 64) f32 logits
+        h = self.upsample(z)
+        return self.hallucinate(h.reshape(-1, 256, 5, 5))
+
+
+class MlpBN(nn.Module):
+    def __init__(self, dims, d_out, device):
+        super().__init__()
+        self.net = _mlp_bn(dims, d_out, device)
+
+    def forward(self, x):
+        return self.net(x.float())
+
+
+class CelebaMVAE(MultimodalVAE):
+    modalities = ("image", "attrs")
+
+    def __init__(self, n_latents: int = 100, compute_dtype=None, *,
+                 device=None, generator=None):
+        """device: None runs on the CUDA card (raises without one), "cpu"
+        on the CPU. generator: CPU torch.Generator for the initial weights
+        (default: seed 0). The model starts in eval mode: train mode is not
+        ported yet."""
+        super().__init__()
+        device = resolve_device(device)
+        self.n_latents = n_latents
+        self.compute_dtype = compute_dtype
+        L = n_latents
+        self.image_encoder = ImageEncoder(L, compute_dtype, device)
+        self.image_decoder = ImageDecoder(L, compute_dtype, device)
+        self.attrs_encoder = MlpBN([N_ATTRS, 512, 512], 2 * L, device)
+        self.attrs_decoder = MlpBN([L, 512, 512, 512], N_ATTRS, device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_parameters_(self, generator)
+        self.eval()
+
+    def input_spec(self):
+        return {"image": ((64, 64, 3), torch.float32),
+                "attrs": ((N_ATTRS,), torch.float32)}
+
+    def encode(self, inputs):
+        L = self.n_latents
+        img = self.image_encoder(inputs["image"].permute(0, 3, 1, 2))
+        att = self.attrs_encoder(inputs["attrs"])
+        mu = torch.stack([img[:, :L], att[:, :L]])
+        logvar = torch.stack([img[:, L:], att[:, L:]])
+        return mu, logvar
+
+    def decode(self, z):
+        img = self.image_decoder(z).permute(0, 2, 3, 1)
+        return {"image": img, "attrs": self.attrs_decoder(z)}
+
+    def recon_loss(self, name, logits, target):
+        lo = logits.reshape(logits.shape[0], -1)
+        ta = target.reshape(target.shape[0], -1)
+        return bce_row_sum(lo, ta)

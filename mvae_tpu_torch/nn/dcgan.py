@@ -1,0 +1,82 @@
+"""Conv stack, deconv stack and posterior head (counterpart of
+mvae_tpu/nn/dcgan.py), as `nn.Sequential`s whose indices are the
+reference's `state_dict` keys (celeba/model.py:66-133):
+
+    encoder features:  [conv -> (BN) -> swish]*
+    posterior head:    fc(512) -> swish -> dropout -> fc(2L)
+    decoder:           [convT -> BN -> swish]* -> convT (logits)
+
+Mixed precision as in the JAX package: each stack casts its input to the
+compute dtype, conv/linear weights are cast at use (nn/dcgan.py:43-50),
+BN math runs in f32 and swish in the compute dtype, the posterior head
+emits f32 (:150-156) and the eval-mode decoder logits are f32 (:124-126).
+
+spec row: (c_out, kernel, stride, pad, use_bn)
+"""
+
+import torch
+from torch import nn
+
+from mvae_tpu_torch.nn.conv import Conv2d, ConvTranspose2d
+from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish
+from mvae_tpu_torch.nn.norm import BatchNorm
+
+
+class ConvStack(nn.Sequential):
+    def __init__(self, c_in, specs, *, compute_dtype=None, device=None):
+        layers = []
+        for c_out, kern, s, pad, bn in specs:
+            layers.append(Conv2d(c_in, c_out, kern, s, pad, device=device))
+            if bn:
+                layers.append(BatchNorm(c_out, device=device))
+            layers.append(Swish())
+            c_in = c_out
+        super().__init__(*layers)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return super().forward(x)
+
+
+class DeconvStack(nn.Sequential):
+    """BN + swish between layers; the final convT emits f32 logits."""
+
+    def __init__(self, c_in, specs, *, compute_dtype=None, device=None):
+        if specs and specs[-1][4]:
+            raise ValueError("deconv stack: the final (logits) layer must "
+                             "not use BN; BN here is always fused with swish")
+        layers = []
+        for i, (c_out, kern, s, pad, bn) in enumerate(specs):
+            layers.append(ConvTranspose2d(c_in, c_out, kern, s, pad,
+                                          device=device))
+            if bn:
+                layers.append(BatchNorm(c_out, device=device))
+            if i != len(specs) - 1:
+                layers.append(Swish())
+            c_in = c_out
+        super().__init__(*layers)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return super().forward(x).float()
+
+
+class PosteriorHead(nn.Sequential):
+    """fc -> swish -> dropout -> fc(2L); output always f32 (mu/logvar feed
+    exp())."""
+
+    def __init__(self, d_in, n_latents, *, hidden=512, dropout=0.1,
+                 compute_dtype=None, device=None):
+        super().__init__(Linear(d_in, hidden, device=device), Swish(),
+                         Dropout(dropout),
+                         Linear(hidden, 2 * n_latents, device=device))
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return super().forward(x).to(torch.float32)

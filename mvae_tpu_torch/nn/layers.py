@@ -1,0 +1,63 @@
+"""Core layers: linear, swish, dropout (counterpart of mvae_tpu/nn/layers.py).
+
+Weights are stored f32 and cast to the input's dtype at use, so a bf16
+activation runs a bf16 matmul while the parameters stay f32 (the JAX
+package's mixed-precision rule, mvae_tpu/nn/dcgan.py:_cast).
+"""
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from mvae_tpu_torch.nn.initializers import kaiming_uniform_bound, uniform_
+
+
+def linear(x, weight, bias=None):
+    """x @ weight.T + bias in x's dtype; weight is torch's (out, in). The
+    product rounds to x's dtype before the bias is added, as `x @ w + b`
+    does in the JAX package (F.linear's fused bias would round once)."""
+    y = F.linear(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def swish(x):
+    """x * sigmoid(x), in x's dtype (mnist/model.py:166-169). The sigmoid is
+    1 / (1 + exp(-x)) with each step rounded to x's dtype: the form JAX
+    lowers `jax.nn.sigmoid` to (lax.logistic has no HLO primitive), so a
+    bf16 swish rounds where the JAX package's does. torch.reciprocal is
+    one kernel where `1 / t` is two (a reciprocal, then a multiply by 1)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((d_out, d_in), device=device))
+        self.bias = nn.Parameter(torch.empty((d_out,), device=device))
+
+    def reset_parameters(self, generator):
+        bound = kaiming_uniform_bound(self.weight.shape[1])
+        uniform_(self.weight, bound, generator)
+        uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)
+
+
+class Swish(nn.Module):
+    def forward(self, x):
+        return swish(x)
+
+
+class Dropout(nn.Module):
+    """Identity in eval mode. Train-mode dropout waits for the training
+    slice of the port, so a module in train mode raises."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if self.training and self.p:
+            raise NotImplementedError("train-mode dropout is not ported yet")
+        return x

@@ -1,0 +1,142 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+The kernels are compiled for Hopper (`sm_90a`) by `nvcc` into one shared
+library with a plain C interface, loaded with `ctypes`. The build happens
+at first use, from the sources in the checkout only, into
+`build/mvae_tpu_torch/` at the repository root; the library's name carries
+a hash of the sources and flags, so an edited source rebuilds. Each source
+compiles in its own `nvcc` process, all started together, and one link
+joins them.
+
+Dispatch rule of every op in `ops/`: a tensor on the CPU goes to the op's
+plain PyTorch version, a CUDA tensor to the kernel, which either launches
+or raises. There is no fallback. `plain_versions()` is the one explicit
+exception: inside it, CUDA tensors go to the plain versions too, so that a
+caller can hold a whole path against its plain form on the card.
+"""
+
+import contextlib
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvae_tpu_torch"
+SOURCES = ("poe.cu", "bce_rowsum.cu", "status.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_force_plain = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Send CUDA tensors to the plain PyTorch versions inside the block."""
+    global _force_plain
+    old, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = old
+
+
+def use_kernel(*tensors) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (run
+    the plain version); raises for a mix or any other device."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return False
+    if types == {"cuda"}:
+        return not _force_plain
+    raise ValueError(f"tensors on devices {sorted(types)}: the ops take "
+                     "all-CPU or all-CUDA inputs")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh", ".h"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"build failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    return logs
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the same sources exists;
+    returns its path. The build log lands beside it."""
+    so = BUILD_DIR / f"libmvae_kernels-{_digest()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o]
+                         for s, o in zip(SOURCES, objs)])
+        part = os.path.join(tmp, so.name)
+        logs += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", *objs, "-o",
+                           part]])
+        os.replace(part, so)
+    so.with_suffix(".log").write_text("\n".join(logs))
+    return so
+
+
+@functools.cache
+def library():
+    """The loaded kernel library, built on first use. `build_seconds` is
+    the wall time of this first call, the build included."""
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(build()))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mvae_poe_fwd.argtypes = [p, p, p, p, p, i, i, ll, p]
+    lib.mvae_poe_fwd.restype = i
+    lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, p, i, i, i, p]
+    lib.mvae_bce_rowsum_fwd.restype = i
+    lib.mvae_error_string.argtypes = [i]
+    lib.mvae_error_string.restype = ctypes.c_char_p
+    lib.build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def check(name: str, code: int):
+    """Raise if a launch entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().mvae_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(cond: bool, name: str, what: str):
+    if not cond:
+        raise ValueError(f"{name}: {what}")

@@ -1,0 +1,78 @@
+"""Masked product of experts for all ELBO terms at once: the CUDA kernel
+`poe_fwd` (csrc/poe.cu), its plain PyTorch version, and the dispatch.
+
+Counterpart of mvae_tpu/ops/poe_pallas.py. Semantics equal the JAX
+package's core/poe.py:masked_product_of_experts applied to each mask row
+(single-eps convention, the N(0, I) prior folded in). Forward only: the
+backward waits for the training slice of the port.
+"""
+
+import torch
+
+from mvae_tpu_torch.ops import _cuda
+
+EPS = 1e-8
+MAX_EXPERTS = 32          # csrc/poe.cu:kMaxExperts
+
+
+def poe_plain(mu, logvar, masks):
+    """Plain version of the kernel, mirroring poe_pallas.py:_kernel.
+
+    mu, logvar: (M, B, D); masks: (T, M) -> (pd_mu, pd_logvar) (T, B, D), f32.
+    """
+    m, b, d = mu.shape
+    mu2 = mu.float().reshape(m, b * d)
+    lv2 = logvar.float().reshape(m, b * d)
+    masks = masks.float()
+    prec = 1.0 / (torch.exp(lv2) + EPS)
+    prior = 1.0 / (1.0 + EPS)
+    den = masks @ prec + prior
+    num = masks @ (mu2 * prec)
+    t = masks.shape[0]
+    return (num / den).reshape(t, b, d), (-torch.log(den)).reshape(t, b, d)
+
+
+def poe_fwd(mu, logvar, masks):
+    """Launch the kernel. mu, logvar: (M, B, D) f32 contiguous CUDA tensors;
+    masks: (T, M) f32 contiguous on the same device."""
+    name = "poe_fwd"
+    req = _cuda.require
+    req(mu.ndim == 3 and logvar.shape == mu.shape, name,
+        f"mu/logvar must share an (M, B, D) shape, got {tuple(mu.shape)} "
+        f"and {tuple(logvar.shape)}")
+    m, b, d = mu.shape
+    req(masks.ndim == 2 and masks.shape[1] == m, name,
+        f"masks must be (T, {m}), got {tuple(masks.shape)}")
+    req(1 <= m <= MAX_EXPERTS, name, f"takes 1..{MAX_EXPERTS} experts")
+    for t in (mu, logvar, masks):
+        req(t.is_cuda and t.device == mu.device, name,
+            "inputs must lie on one CUDA device")
+        req(t.dtype == torch.float32, name, f"takes float32, got {t.dtype}")
+        req(t.is_contiguous(), name, "inputs must be contiguous")
+    n_terms = masks.shape[0]
+    req(n_terms >= 1 and b * d >= 1, name, "empty input")
+    pd_mu = torch.empty((n_terms, b, d), device=mu.device,
+                        dtype=torch.float32)
+    pd_lv = torch.empty_like(pd_mu)
+    lib = _cuda.library()
+    with torch.cuda.device(mu.device):
+        rc = lib.mvae_poe_fwd(mu.data_ptr(), logvar.data_ptr(),
+                              masks.data_ptr(), pd_mu.data_ptr(),
+                              pd_lv.data_ptr(), m, n_terms, b * d,
+                              _cuda.stream(mu.device))
+    _cuda.check(name, rc)
+    poe_fwd.launches += 1
+    return pd_mu, pd_lv
+
+
+poe_fwd.launches = 0
+
+
+def masked_poe_all_terms(mu, logvar, masks):
+    """mu, logvar: (M, B, D); masks: (T, M) -> (pd_mu, pd_logvar) (T, B, D).
+
+    CPU tensors take the plain version, CUDA tensors the kernel.
+    """
+    if _cuda.use_kernel(mu, logvar, masks):
+        return poe_fwd(mu, logvar, masks)
+    return poe_plain(mu, logvar, masks)

@@ -1,0 +1,118 @@
+"""Serving endpoints (counterpart of mvae_tpu/serve.py).
+
+    sampler = Sampler.from_checkpoint("model_best.pth.tar")
+    imgs = sampler.sample(n=64, seed=0)                        # prior
+    imgs = sampler.sample(n=64, condition={"attrs": a})        # conditional
+    mu, logvar = sampler.embed({"image": batch})               # posterior
+    recs = sampler.reconstruct({"image": batch})               # cross-modal
+
+Every endpoint is a deterministic function of (weights, inputs, seed).
+Request sizes are bucketed to the next power of two (pad, then slice), as
+in the JAX package, so a traffic mix sees a few fixed batch shapes.
+Outputs are activated: sigmoid of the logits, images NHWC.
+"""
+
+import torch
+
+from mvae_tpu_torch.device import resolve_device
+from mvae_tpu_torch.models.celeba import CelebaMVAE
+from mvae_tpu_torch.utils.weights import load_reference_checkpoint
+
+
+def _bucket(n: int) -> int:
+    """Next power of two >= n (min 1)."""
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _pad_rows(x, m):
+    """Pad the leading axis to m rows by repeating row 0 (sliced off after
+    the call)."""
+    n = x.shape[0]
+    if n == m:
+        return x
+    return torch.cat([x, x[:1].expand((m - n,) + tuple(x.shape[1:]))])
+
+
+class Sampler:
+    def __init__(self, model, *, device=None):
+        """model: an eval-mode model on `device` (None: the CUDA card,
+        raises without one; "cpu": the CPU)."""
+        device = resolve_device(device)
+        if model.device != device:
+            raise ValueError(f"the model lives on {model.device}, the "
+                             f"sampler was asked to serve on {device}")
+        self.model = model.eval()
+        self.device = device
+
+    @classmethod
+    def from_checkpoint(cls, path, *, device=None, compute_dtype=None):
+        """Serve a reference-layout CelebA `.pth.tar` (what the JAX
+        package's utils/torch_export.py:export_checkpoint writes)."""
+        device = resolve_device(device)
+        sd, meta = load_reference_checkpoint(path, device=device)
+        model = CelebaMVAE(meta["n_latents"], compute_dtype, device=device)
+        model.load_state_dict(sd, strict=True)
+        return cls(model, device=device)
+
+    def _tensor(self, x):
+        return torch.as_tensor(x, device=self.device)
+
+    @torch.inference_mode()
+    def decode_latents(self, z):
+        """Activated decode of latents z (N, D): the tail of both sampling
+        paths."""
+        return {k: torch.sigmoid(v)
+                for k, v in self.model.decode(self._tensor(z)).items()}
+
+    def warmup(self, buckets=(1, 64)):
+        """Run every endpoint once per batch bucket on zero inputs, each
+        conditioned on every single modality, so the kernel library is
+        built and cuDNN has chosen its algorithms before traffic arrives."""
+        spec = self.model.input_spec()
+
+        def zeros(name, n):
+            shape, dtype = spec[name]
+            return torch.zeros((n,) + tuple(shape), dtype=dtype,
+                               device=self.device)
+
+        for m in sorted({_bucket(n) for n in buckets}):
+            self.sample(n=m)
+            for name in sorted(spec):
+                self.sample(n=m, condition={name: zeros(name, 1)})
+                self.embed({name: zeros(name, m)})
+                self.reconstruct({name: zeros(name, m)})
+
+    @torch.inference_mode()
+    def sample(self, n: int = 1, condition: dict = None, seed: int = 0):
+        """n samples of every modality, from the prior or conditioned on a
+        dict of modality arrays with leading batch dim 1. The draw is made
+        at the bucket size from a generator seeded with `seed`."""
+        m = _bucket(n)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        z = torch.randn((m, self.model.n_latents), generator=gen,
+                        device=self.device)
+        if condition:
+            cond = {k: self._tensor(v) for k, v in condition.items()}
+            mu, logvar = self.model.infer(cond)
+            z = mu[0] + z * torch.exp(0.5 * logvar[0])
+        return {k: v[:n] for k, v in self.decode_latents(z).items()}
+
+    @torch.inference_mode()
+    def embed(self, inputs: dict):
+        """Fused posterior (mu, logvar) of the given modalities."""
+        vals = {k: self._tensor(v) for k, v in inputs.items()}
+        n = next(iter(vals.values())).shape[0]
+        m = _bucket(n)
+        mu, logvar = self.model.infer(
+            {k: _pad_rows(v, m) for k, v in vals.items()})
+        return mu[:n], logvar[:n]
+
+    @torch.inference_mode()
+    def reconstruct(self, inputs: dict):
+        """Infer from `inputs`, decode every modality from the posterior
+        mean."""
+        vals = {k: self._tensor(v) for k, v in inputs.items()}
+        n = next(iter(vals.values())).shape[0]
+        m = _bucket(n)
+        mu, _ = self.model.infer({k: _pad_rows(v, m) for k, v in vals.items()})
+        return {k: v[:n] for k, v in self.decode_latents(mu).items()}

@@ -1,0 +1,82 @@
+"""The port's ground rules: it imports nothing of JAX or of the JAX
+package, and its entry points run on the CUDA card unless asked for the
+CPU."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import mvae_tpu_torch
+from mvae_tpu_torch.models.celeba import CelebaMVAE
+from mvae_tpu_torch.serve import Sampler
+from mvae_tpu_torch.train.loop import make_eval_step
+from mvae_tpu_torch.utils.weights import load_reference_checkpoint
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "mvae_tpu_torch"
+MASKS = [[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]]
+LAMBDAS = [[1.0, 10.0]] * 3
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        mvae_tpu_torch.__path__, "mvae_tpu_torch."))
+
+
+def test_import_pulls_in_no_jax_and_no_mvae_tpu():
+    """A fresh interpreter imports the package and every submodule; no
+    jax* module and no mvae_tpu / mvae_tpu.* module gets loaded."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {['mvae_tpu_torch'] + _all_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'mvae_tpu'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sources_name_no_jax_and_no_mvae_tpu_module():
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b"
+                     r"|\bmvae_tpu\.|^\s*(import|from)\s+mvae_tpu\b", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        assert not bad.search(f.read_text()), f
+
+
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CelebaMVAE(8)
+    model = CelebaMVAE(8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_eval_step(model, MASKS, LAMBDAS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Sampler(model)
+    path = tmp_path / "m.pth.tar"
+    torch.save({"state_dict": model.state_dict(), "n_latents": 8}, path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_reference_checkpoint(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Sampler.from_checkpoint(path)
+    assert Sampler.from_checkpoint(path, device="cpu").model.n_latents == 8
+
+
+def test_train_mode_is_refused_until_ported():
+    model = CelebaMVAE(8, device="cpu")
+    assert not model.training
+    model.train()
+    with pytest.raises(NotImplementedError):
+        model.encode({"image": torch.zeros(2, 64, 64, 3),
+                      "attrs": torch.zeros(2, 18)})
