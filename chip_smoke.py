@@ -2,31 +2,42 @@
 """Quickest proof that the PyTorch port (mvae_tpu_torch) runs on one
 NVIDIA GPU: builds the CUDA kernels from `mvae_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the serving
-endpoints and the eval-mode ELBO of the shipped CelebA model at full width,
-and shows that those paths went through the kernels.
+endpoints, the eval-mode ELBO and the training step of the shipped CelebA
+model at full width, and shows that those paths went through the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card, versions, kernel build time
-  2. kernels vs their plain versions at the paths' shapes, with times
+  2. kernels vs their plain versions at the paths' shapes, with times:
+     PoE and BCE; the four BN passes at each of the train step's 11 BN
+     layers (per-step sums too)
   3. serving: Sampler on CelebaMVAE(100) in bf16 (every endpoint)
   4. eval step: B=100, T=3, CLI weights, uint8 device-resident data, bf16
      and f32, kernel path and plain versions timed in turns
-  5. eval checks: kernel path vs the plain versions (posteriors, loss
+  5. train step: the same setting, Adam(1e-4), windows of K=20 steps of
+     make_multi_train_step, kernel path and plain versions in turns, bf16
+     and f32
+  6. eval checks: kernel path vs the plain versions (posteriors, loss
      above its ln 2 floor); f32 card vs CPU (posteriors, decoder logits,
      loss above its floor)
-  6. the kernels line: launches on phases 3-4, error, times, bounds
-Phases 3-4 end with a torch.profiler breakdown of device time per call.
+  7. train checks: one step, kernel path vs plain versions (loss,
+     parameter gradients), bf16 and f32; f32 card vs CPU (TF32 off) on one
+     step with the same noise; the loss of the last window below the
+     first's; running statistics finite and moved
+  8. the kernels line: launches on phases 3-5, error, times, bounds
+Phases 3-5 end with a torch.profiler breakdown of device time per call.
 Weights are random from seed 0, the BN statistics and affine parameters
 too. The last line is {"ok": true, "device": {...}}.
 
 Times come from CUDA events (kernels) or the host clock around work that
-ends in a synchronize (endpoints, steps), on whatever card `nvidia-smi`
-names; the bounds use that card's published memory rate and f32 rate.
+ends in a synchronize (endpoints, steps, windows), on whatever card
+`nvidia-smi` names; the bounds use that card's published memory rate and
+f32 rate.
 """
 
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -38,13 +49,16 @@ import torch
 import torch.nn.functional as F
 
 from mvae_tpu_torch import ops
+from mvae_tpu_torch.core.engine import multi_term_elbo
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
+from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_plain
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.train.loop import (
-    decode_batch, make_eval_step, resolve_decode_dtype)
+    decode_batch, draw_noise, make_eval_step, make_multi_train_step,
+    resolve_decode_dtype)
 
 MASKS = [[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]]
 LAMBDAS = [[1.0, 10.0]] * 3        # experiments/celeba/train.py:21
@@ -60,13 +74,59 @@ STEP_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # the tolerance of the port's module tests
 CARD_TOL = dict(rtol=1e-4, atol=1e-5)
 
+# the train step's BN kernels against their plain versions on the card:
+# sums over up to 102400 elements in another order (compared as means,
+# so the tolerance is per element); f32 y and dx from the same formula
+# with a last-bit difference in exp; in bf16 both round one f32 value, so
+# a rare rounding moves by one bf16 step (2^-8 relative, 2^-7 allowed)
+BN_SUM_TOL = dict(rtol=1e-5, atol=1e-6)
+BN_OUT_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# one train step, kernel path vs plain versions: the loss above its ln 2
+# floor as in the eval checks; each parameter's gradient in relative
+# Frobenius norm: f32 at 1e-4 (the port vs JAX read 5.5e-6 on the CPU);
+# bf16 at 5e-2, as a last-bit change before a bf16 rounding flips it and
+# the flips propagate (the port vs JAX in bf16 read up to 2e-2 mean
+# relative on the CPU); the Linear biases that feed a BN have an exact
+# gradient of 0, both sides return rounding noise, held absolutely
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+GRAD_NOISE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BATCH, N_DATA = 100, 1000    # rows a step; rows of the resident dataset
+TRAIN_K = 20            # steps per window
+LR = 1e-4               # experiments/celeba/train.py: lr 1e-4
+
 KERNELS = {
     "poe_fwd": dict(route="cuda", source="mvae_tpu_torch/csrc/poe.cu",
                     replaces="mvae_tpu/ops/poe_pallas.py:28"),
     "bce_rowsum_fwd": dict(route="cuda",
                            source="mvae_tpu_torch/csrc/bce_rowsum.cu",
                            replaces="mvae_tpu/ops/elbo_pallas.py:21"),
+    "bn_moments": dict(route="cuda", source="mvae_tpu_torch/csrc/bn_swish.cu",
+                       replaces="mvae_tpu/ops/bn_pallas.py:92"),
+    "bn_normalize": dict(route="cuda",
+                         source="mvae_tpu_torch/csrc/bn_swish.cu",
+                         replaces="mvae_tpu/ops/bn_pallas.py:102"),
+    "bn_bwd_partials": dict(route="cuda",
+                            source="mvae_tpu_torch/csrc/bn_swish.cu",
+                            replaces="mvae_tpu/ops/bn_pallas.py:107"),
+    "bn_dx": dict(route="cuda", source="mvae_tpu_torch/csrc/bn_swish.cu",
+                  replaces="mvae_tpu/ops/bn_pallas.py:120"),
 }
+BN_KERNELS = ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx")
+
+# the BN layers of the train step under bf16 compute: (layer, how many
+# such layers, G, N, C, S, dtype). G = 3 terms in the decoders.
+BN_LAYERS = (
+    ("image enc conv2", 1, 1, 100, 64, 256, torch.bfloat16),
+    ("image enc conv3", 1, 1, 100, 128, 64, torch.bfloat16),
+    ("image enc conv4", 1, 1, 100, 256, 25, torch.bfloat16),
+    ("attrs enc BN1d", 2, 1, 100, 512, 1, torch.float32),
+    ("image dec convT1", 1, 3, 100, 128, 64, torch.bfloat16),
+    ("image dec convT2", 1, 3, 100, 64, 256, torch.bfloat16),
+    ("image dec convT3", 1, 3, 100, 32, 1024, torch.bfloat16),
+    ("attrs dec BN1d", 3, 3, 100, 512, 1, torch.float32),
+)
+BN_MAIN_LAYER = "image dec convT3"      # the largest launch
 
 
 def card_peaks(name):
@@ -84,14 +144,17 @@ def card_peaks(name):
 def device_ms(fn, flush, reps=60):
     """Median device time of fn() in ms: CUDA events around each call, the
     calls queued behind a sleep so the host's launch cost stays out, the
-    L2 cache flushed before each call (the path finds its inputs cold)."""
+    L2 cache flushed before each call (the path finds its inputs cold) by
+    reading a 256 MB buffer: the cache then holds clean lines, so the timed
+    call pays no write-back of an earlier call's (or a zeroing flush's)
+    dirty lines."""
     fn()
     torch.cuda.synchronize()
     events = []
     for i in range(reps):
         if i % 10 == 0:
             torch.cuda._sleep(20_000_000)
-        flush.zero_()
+        flush.max()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -156,30 +219,136 @@ def phase_kernels(dev, card, peaks, flush):
                c * (4 * m + t * (4 * m + 4)), main=(t == 3))
 
     f32, bf16 = torch.float32, torch.bfloat16
-    for n, nt, k, tdt, main in ((300, 300, 12288, f32, False),
-                                (300, 300, 12288, bf16, False),
-                                (300, 100, 12288, bf16, True),
-                                (300, 300, 18, f32, False),
-                                (300, 100, 18, f32, False)):
-        x = 3 * torch.randn((n, k), generator=g, device=dev)
+    # (rows, target rows, width, logits dtype, targets dtype, main case):
+    # the eval step's image and attribute rows under bf16 compute (f32
+    # logits) and the train step's image rows (bf16 logits)
+    for n, nt, k, xdt, tdt, main in ((300, 300, 12288, f32, f32, False),
+                                     (300, 300, 12288, f32, bf16, False),
+                                     (300, 100, 12288, f32, bf16, True),
+                                     (300, 100, 12288, bf16, bf16, False),
+                                     (300, 300, 18, f32, f32, False),
+                                     (300, 100, 18, f32, f32, False)):
+        x = (3 * torch.randn((n, k), generator=g, device=dev)).to(xdt)
         tt = torch.rand((nt, k), generator=g, device=dev).to(tdt)
         got = ops.bce_rowsum_fwd(x, tt)
         want = bce_rowsum_plain(x, tt)
-        case = (f"logits ({n},{k}) f32, targets ({nt},{k}) "
-                f"{str(tdt).split('.')[-1]}")
-        # the library call takes one dtype: its targets are upcast to f32
-        # beforehand (twice the bytes of bf16 targets); the nt target rows
+        case = (f"logits ({n},{k}) {str(xdt).split('.')[-1]}, targets "
+                f"({nt},{k}) {str(tdt).split('.')[-1]}")
+        # the library call takes one dtype: bf16 logits and targets are
+        # upcast to f32 beforehand (twice their bytes); the nt target rows
         # broadcast over the n // nt terms, as the kernel reads them
         r = n // nt
-        x3, t3 = x.view(r, nt, k), tt.float().expand(r, nt, k)
+        x3, t3 = x.float().view(r, nt, k), tt.float().expand(r, nt, k)
         report("bce_rowsum_fwd", case, got, want, BCE_TOL,
                device_ms(lambda: ops.bce_rowsum_fwd(x, tt), flush),
                device_ms(lambda: bce_rowsum_plain(x, tt), flush),
                device_ms(lambda: F.binary_cross_entropy_with_logits(
                    x3, t3, reduction="none").sum(-1), flush),
-               n * k * 4 + nt * k * tt.element_size() + n * 4, 9 * n * k,
-               main)
+               n * k * x.element_size() + nt * k * tt.element_size()
+               + n * 4, 9 * n * k, main)
     return rows
+
+
+def phase_bn_kernels(dev, card, peaks, flush):
+    """The four BN passes against their plain versions at every BN layer
+    of the train step, timed, with per-step sums over the 11 layers; the
+    bf16 conv layers again in f32 (the --f32 step), checked, not timed."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = {k: {"max_abs_err": 0.0} for k in BN_KERNELS}
+    per_step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+                for k in BN_KERNELS}
+    cases = [layer + (True,) for layer in BN_LAYERS] + [
+        (name + " (f32)", n, gg, nn, c, sp, torch.float32, False)
+        for name, n, gg, nn, c, sp, dt in BN_LAYERS if dt == torch.bfloat16]
+    for layer, count, gsz, n, c, sp, dt, timed in cases:
+        x4 = (0.5 + 1.5 * torch.randn((gsz, n, c, sp), generator=g,
+                                      device=dev)).to(dt)
+        g4 = torch.randn((gsz, n, c, sp), generator=g, device=dev).to(dt)
+        scale = 1.0 + 0.2 * torch.randn(c, generator=g, device=dev)
+        bias = 0.2 * torch.randn(c, generator=g, device=dev)
+        m = n * sp
+        s_p, q_p = bn_ops.bn_moments_plain(x4)
+        mean, _, invstd, a, b = bn_ops.bn_affine(s_p, q_p, m, scale, bias)
+        sdz_p, sdzx_p = bn_ops.bn_bwd_partials_plain(x4, g4, a, b)
+        _, qc, rc = bn_ops.bn_dx_coeffs(sdz_p, sdzx_p, m, a, mean, invstd)
+        numel, isz, gc = x4.numel(), x4.element_size(), gsz * c
+        # (name, kernel call, plain call, compare as, bytes, operations)
+        passes = (
+            ("bn_moments", lambda: bn_ops.bn_moments(x4),
+             lambda: bn_ops.bn_moments_plain(x4), m,
+             numel * isz + 2 * gc * 4, 3 * numel),
+            ("bn_normalize", lambda: bn_ops.bn_normalize(x4, a, b),
+             lambda: bn_ops.bn_normalize_plain(x4, a, b), None,
+             2 * numel * isz + 2 * gc * 4, 8 * numel),
+            ("bn_bwd_partials", lambda: bn_ops.bn_bwd_partials(x4, g4, a, b),
+             lambda: bn_ops.bn_bwd_partials_plain(x4, g4, a, b), m,
+             2 * numel * isz + 4 * gc * 4, 16 * numel),
+            ("bn_dx", lambda: bn_ops.bn_dx(x4, g4, a, b, a, qc, rc),
+             lambda: bn_ops.bn_dx_plain(x4, g4, a, b, a, qc, rc), None,
+             3 * numel * isz + 5 * gc * 4, 18 * numel))
+        lib = library_calls(x4, g4, scale, bias) if timed else {}
+        for name, kern, plain, per, nbytes, nops in passes:
+            got, want = kern(), plain()
+            if per:             # a pair of (G, C) sums: compare as means
+                got = torch.stack(got) / per
+                want = torch.stack(want) / per
+                tol = BN_SUM_TOL
+            else:
+                tol = BN_OUT_TOL[dt]
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            err = (got.double() - want.double()).abs().max().item()
+            row = rows[name]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            case = (f"{layer}: x ({gsz}, {n}, {c}, {sp}) "
+                    f"{str(dt).split('.')[-1]}")
+            if not timed:
+                print(f"[kernel] {name} {case}: max_abs_err {err} "
+                      f"(checked, not timed)")
+                continue
+            t_k, t_p = device_ms(kern, flush), device_ms(plain, flush)
+            t_lib = device_ms(lib[name], flush)
+            b_ms, b_by = bound(nbytes, nops, peaks)
+            print(f"[kernel] {name} {case}: max_abs_err {err} ms {t_k} "
+                  f"plain_ms {t_p} library_ms {t_lib} bound_ms {b_ms} "
+                  f"({b_by}) x{count} per step | {card}")
+            for key, v in (("ms", t_k), ("plain_ms", t_p),
+                           ("library_ms", t_lib), ("bound_ms", b_ms)):
+                per_step[name][key] += count * v
+            if layer == BN_MAIN_LAYER:
+                row.update(ms=t_k, plain_ms=t_p, library_ms=t_lib,
+                           bound_ms=b_ms, bound_by=b_by, case=case)
+    for name, v in per_step.items():
+        print(f"[kernel] {name} per train step (11 layers): ms {v['ms']} "
+              f"plain_ms {v['plain_ms']} library_ms {v['library_ms']} "
+              f"bound_ms {v['bound_ms']} | {card}")
+    return rows
+
+
+def library_calls(x4, g4, scale, bias):
+    """One PyTorch call (or pair) per BN pass as its yardstick: var_mean
+    over (N, S) for the moments; F.batch_norm(training=True) then F.silu,
+    per group (two calls a group), for normalize; the autograd backward of
+    those calls for both backward passes together."""
+    gsz = x4.shape[0]
+    xs = [x4[i].detach().clone().requires_grad_(True) for i in range(gsz)]
+    w = scale.detach().clone().requires_grad_(True)
+    bb = bias.detach().clone().requires_grad_(True)
+
+    def fwd(inputs, weight, b):
+        return [F.silu(F.batch_norm(xi, None, None, weight, b, training=True))
+                for xi in inputs]
+
+    ys = fwd(xs, w, bb)
+    gs = [g4[i] for i in range(gsz)]
+
+    def bwd():
+        return torch.autograd.grad(ys, xs + [w, bb], gs, retain_graph=True)
+
+    return {"bn_moments": lambda: torch.var_mean(x4, dim=(1, 3),
+                                                 correction=0),
+            "bn_normalize": lambda: fwd([x4[i] for i in range(gsz)],
+                                        scale, bias),
+            "bn_bwd_partials": bwd, "bn_dx": bwd}
 
 
 def expect(cond, what):
@@ -276,9 +445,10 @@ def phase_serving(dev, card):
                       lambda: endpoints["reconstruct|image"](64), card)
 
 
-def eval_data(dev, n_data=1000, batch=100):
+def eval_data(dev, n_data=None, batch=None):
     """A uint8 CelebA-shaped dataset resident on the card, and one batch of
     row indices into it."""
+    n_data, batch = n_data or N_DATA, batch or BATCH
     rng = np.random.default_rng(1)
     data = {"image": torch.from_numpy(rng.integers(
                 0, 256, (n_data, 64, 64, 3), dtype=np.uint8)).to(dev),
@@ -309,6 +479,64 @@ def phase_eval(dev, card, models, data, idx):
               f"(plain versions {times[True]} ms) | {card}")
         profile_breakdown(f"eval {dt} B=100 T=3", lambda: step((data, idx)),
                           card)
+
+
+def train_windows(dev, n_windows):
+    """idxs (K, B) of each window on the card: every step a batch of
+    distinct rows."""
+    rng = np.random.default_rng(3)
+    return [torch.from_numpy(np.stack([rng.permutation(N_DATA)[:BATCH]
+                                       for _ in range(TRAIN_K)])).to(dev)
+            for _ in range(n_windows)]
+
+
+def running_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def phase_train(dev, card, data, out):
+    """The train step at full width, bf16 and f32: windows of K=20 steps
+    of make_multi_train_step (one loss readback a window), kernel path
+    and plain versions in turns after a warm-up pair, then a device-time
+    breakdown per step. Beta 1, as after the CLI's 20 annealing epochs.
+    Records each window's mean loss and the running statistics before
+    training, for the checks."""
+    # a warm-up pair, then K, P, P, K twice (K: kernel path, P: plain)
+    order = (False, True) + (False, True, True, False) * 2
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        model = celeba(dtype, dev, seed=10)
+        stats0 = running_stats(model)
+        multi = make_multi_train_step(
+            model, MASKS, LAMBDAS, lr=LR, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        betas = torch.ones(TRAIN_K, device=dev)
+        windows = train_windows(dev, len(order) + 4)
+        losses, times = [], {False: [], True: []}
+        for i, plain in enumerate(order):
+            with ops.plain_versions() if plain else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                window_losses = multi(data, windows[i], betas)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / TRAIN_K
+            losses.append(window_losses.mean().item())
+            expect(bool(torch.isfinite(window_losses).all()),
+                   f"train {dt}: loss not finite {window_losses}")
+            if i >= 2:
+                times[plain].append(ms)
+        print(f"[train] {dt} B=100 T=3 K={TRAIN_K}: mean loss per window "
+              f"{losses} (K, P | K, P, P, K, K, P, P, K)")
+        print(f"[train] {dt} B=100 T=3 step: {times[False]} ms (plain "
+              f"versions {times[True]} ms), host clock per window / K "
+              f"| {card}")
+        rest = iter(windows[len(order):])
+        profile_breakdown(f"train {dt} B=100 T=3 step (window of "
+                          f"{TRAIN_K})", lambda: multi(data, next(rest),
+                                                       betas),
+                          card, reps=1, wall_reps=2, per=TRAIN_K)
+        out[dtype] = dict(losses=losses, stats0=stats0, model=model)
 
 
 def loss_above_floor(per_term):
@@ -351,7 +579,7 @@ def phase_eval_checks(dev, models, data, idx):
         batch = decode_batch({k: v.index_select(0, idx)
                               for k, v in data.items()},
                              resolve_decode_dtype(model))
-        mu, lv = model.encode(batch)
+        mu, lv, _ = model.encode(batch)
         held(f"{dt} B=100 T=3 posteriors, poe_fwd vs plain",
              torch.cat(ops.masked_poe_all_terms(mu, lv, masks)),
              torch.cat(poe_plain(mu, lv, masks)), **POE_TOL)
@@ -361,12 +589,12 @@ def phase_eval_checks(dev, models, data, idx):
     rows = {k: v[idx[:16]] for k, v in data.items()}
     c_batch = decode_batch({k: v.cpu() for k, v in rows.items()})
     g_batch = decode_batch(rows)
-    (c_mu, c_lv), (g_mu, g_lv) = cpu.encode(c_batch), gpu.encode(g_batch)
+    (c_mu, c_lv, _), (g_mu, g_lv, _) = cpu.encode(c_batch), gpu.encode(g_batch)
     held("float32 B=16 encoder mu, card vs CPU", g_mu, c_mu, **CARD_TOL)
     held("float32 B=16 encoder logvar, card vs CPU", g_lv, c_lv, **CARD_TOL)
     pd_mu, pd_lv = ops.masked_poe_all_terms(c_mu, c_lv, masks.cpu())
     z = pd_mu.reshape(-1, pd_mu.shape[-1])
-    c_rec, g_rec = cpu.decode(z), gpu.decode(z.to(dev))
+    (c_rec, _), (g_rec, _) = cpu.decode(z), gpu.decode(z.to(dev))
     for k in CelebaMVAE.modalities:
         held(f"float32 T*B=48 decoder {k} logits, card vs CPU", g_rec[k],
              c_rec[k], **CARD_TOL)
@@ -377,40 +605,195 @@ def phase_eval_checks(dev, models, data, idx):
          loss_above_floor(g_terms), loss_above_floor(c_terms), 1e-4, 0.0)
 
 
-def profile_breakdown(name, fn, card, reps=5):
+def one_step(model, batch, noise):
+    """One train-mode ELBO and its backward, no update: (per_term,
+    parameter gradients)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    dev = model.device
+    total, aux = multi_term_elbo(
+        model, batch, torch.tensor(MASKS, device=dev),
+        torch.tensor(LAMBDAS, device=dev), 1.0, train=True, noise=noise)
+    total.backward()
+    return aux["per_term"].detach(), {
+        k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def bn_fed_biases(model):
+    """The Linear biases that feed a BatchNorm: their exact gradient is 0."""
+    out = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            for i in range(len(mod) - 1):
+                if (isinstance(mod[i + 1], BatchNorm)
+                        and getattr(mod[i], "bias", None) is not None):
+                    out.add(f"{name}.{i}.bias")
+    return out
+
+
+def grads_held(what, got, want, rtol, noise_atol, noisy):
+    """Every gradient within rtol of want in relative Frobenius norm, the
+    noisy ones (exactly 0 in exact arithmetic) within noise_atol of it."""
+    rel, noise, where = 0.0, 0.0, ""
+    for k, w in want.items():
+        gap = (got[k].double().cpu() - w.double().cpu()).norm().item()
+        if k in noisy:
+            noise = max(noise, gap)
+        elif gap / max(w.double().norm().item(), 1e-30) > rel:
+            rel, where = gap / max(w.double().norm().item(), 1e-30), k
+    print(f"[check] {what}: {len(want)} parameter gradients, max relative "
+          f"gap {rel} ({where}; rtol {rtol}), BN-fed biases max gap {noise} "
+          f"(atol {noise_atol})")
+    expect(rel < rtol and noise < noise_atol, f"{what}: gradients differ")
+
+
+def phase_train_checks(dev, data, idx, trained):
+    """One train step, kernel path vs the plain versions (loss above its
+    ln 2 floor, every parameter gradient) in bf16 and f32; f32 card vs
+    CPU on 16 rows with the same noise; then, from phase 5, the loss
+    falling and the running statistics moved and finite."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        model = celeba(dtype, dev, seed=20)
+        twin = copy.deepcopy(model)
+        batch = decode_batch({k: v.index_select(0, idx)
+                              for k, v in data.items()},
+                             resolve_decode_dtype(model))
+        noise = draw_noise(model, 3, len(idx), torch.Generator(
+            device=dev).manual_seed(5))
+        k_terms, k_grads = one_step(model, batch, noise)
+        with ops.plain_versions():
+            p_terms, p_grads = one_step(twin, batch, noise)
+        held(f"{dt} B=100 train step loss above floor, kernels vs plain",
+             loss_above_floor(k_terms), loss_above_floor(p_terms),
+             STEP_RTOL[dtype], 0.0)
+        grads_held(f"{dt} B=100 train step, kernels vs plain", k_grads,
+                   p_grads, GRAD_RTOL[dtype], GRAD_NOISE_ATOL[dtype],
+                   bn_fed_biases(model))
+
+    gpu = celeba(torch.float32, dev, seed=30)
+    cpu = celeba(torch.float32, "cpu", seed=30)
+    rows = {k: v[idx[:16]] for k, v in data.items()}
+    eps, keep = draw_noise(cpu, 3, len(idx[:16]),
+                           torch.Generator().manual_seed(6))
+    c_terms, c_grads = one_step(cpu, decode_batch(
+        {k: v.cpu() for k, v in rows.items()}), (eps, keep))
+    g_terms, g_grads = one_step(gpu, decode_batch(rows),
+                                (eps.to(dev), keep.to(dev)))
+    held("float32 B=16 train step loss above floor, card vs CPU",
+         loss_above_floor(g_terms), loss_above_floor(c_terms), 1e-4, 0.0)
+    grads_held("float32 B=16 train step, card vs CPU", g_grads, c_grads,
+               GRAD_RTOL[torch.float32], GRAD_NOISE_ATOL[torch.float32],
+               bn_fed_biases(cpu))
+
+    for dtype, run in trained.items():
+        dt = str(dtype).split(".")[-1]
+        first, last = run["losses"][0], run["losses"][-1]
+        print(f"[check] {dt} train: mean loss of window 1 {first}, of "
+              f"window {len(run['losses'])} {last}")
+        expect(last < first, f"{dt} train: the loss did not fall")
+        now = running_stats(run["model"])
+        for k, v in now.items():
+            expect(bool(torch.isfinite(v).all()), f"{dt} {k} not finite")
+            expect(not torch.equal(v, run["stats0"][k]),
+                   f"{dt} {k} did not move")
+        print(f"[check] {dt} train: {len(now)} running statistics finite "
+              f"and moved")
+
+
+# kernel families of the profile lines, first match wins
+FAMILIES = (
+    ("poe_fwd", lambda k: "poe_fwd_kernel" in k),
+    ("bce_rowsum_fwd", lambda k: "bce_rowsum_kernel" in k),
+    ("bn_moments", lambda k: "bn_moments_kernel" in k),
+    ("bn_normalize", lambda k: "bn_normalize_kernel" in k),
+    ("bn_bwd_partials", lambda k: "bn_bwd_partials_kernel" in k),
+    ("bn_dx", lambda k: "bn_dx_kernel" in k),
+    ("adam (foreach)", lambda k: "multi_tensor_apply" in k),
+    ("conv (cuDNN)", lambda k: ("xmma" in k and "gemm_" not in k)
+     or "cudnn" in k or "conv" in k.lower() or "dgrad" in k
+     or "wgrad" in k),
+    ("gemm (cuBLAS)", lambda k: "gemm" in k.lower()),
+    ("reduce", lambda k: "reduce" in k.lower()),
+    ("elementwise / copy", lambda k: "elementwise" in k
+     or "copy" in k.lower()),
+)
+
+
+def profile_breakdown(name, fn, card, reps=5, wall_reps=20, per=1):
     """Device time per call by kernel family (torch.profiler, CUPTI), the
     launches per call, and the device's idle share against the call's
-    median wall time without the profiler."""
+    median wall time without the profiler; a call of `per` steps is
+    reported per step."""
     from torch.profiler import ProfilerActivity, profile
-    wall = host_ms(fn)
+    wall = host_ms(fn, reps=wall_reps) / per
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    groups = {}
+    groups, other = {}, {}
     launches = 0
     for e in prof.key_averages():
         if e.key.startswith("cudaLaunchKernel"):
             launches += e.count
         us = e.self_device_time_total
-        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+        # a user annotation (Optimizer.step#Adam.step) spans kernels that
+        # are counted on their own
+        if (us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
-        k = e.key
-        fam = ("poe_fwd" if "poe_fwd_kernel" in k else
-               "bce_rowsum_fwd" if "bce_rowsum_kernel" in k else
-               "conv (cuDNN)" if ("xmma" in k and "gemm_" not in k) or
-               "cudnn" in k or "conv" in k.lower() else
-               "gemm (cuBLAS)" if "gemm" in k.lower() else
-               "elementwise / copy" if "elementwise" in k or "copy" in k.lower()
-               else "other")
-        groups[fam] = groups.get(fam, 0.0) + us / 1e3 / reps
+        ms = us / 1e3 / reps / per
+        fam = next((f for f, hit in FAMILIES if hit(e.key)), "other")
+        groups[fam] = groups.get(fam, 0.0) + ms
+        if fam == "other":
+            other[e.key[:70]] = other.get(e.key[:70], 0.0) + ms
     dev_ms = sum(groups.values())
     parts = ", ".join(f"{k} {v}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
+    top = "; ".join(f"{k} {v}" for k, v in
+                    sorted(other.items(), key=lambda kv: -kv[1])[:4])
+    what = "per step" if per > 1 else "per call"
     print(f"[profile] {name}: wall {wall} ms, device {dev_ms} ms (idle "
-          f"share {1 - dev_ms / wall}), {launches / reps} launches per call;"
-          f" device ms by family: {parts} | {card}")
+          f"share {1 - dev_ms / wall}), {launches / reps / per} launches "
+          f"{what}; device ms by family: {parts}; largest in other: {top} "
+          f"| {card}")
+
+
+def run(dev, card, peaks):
+    """Phases 2-7; returns the kernel rows of phase 2 and the launches of
+    phases 3-5."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = phase_kernels(dev, card, peaks, flush)
+    rows.update(phase_bn_kernels(dev, card, peaks, flush))
+    del flush
+
+    models = {dt: celeba(dt, dev) for dt in (torch.bfloat16, torch.float32)}
+    data, idx = eval_data(dev)
+    trained = {}
+    # each path with the counts set to 0 just before it, read just after;
+    # the kernels each path must have launched
+    must = {"serve": ("poe_fwd",),
+            "eval": ("poe_fwd", "bce_rowsum_fwd"),
+            "train": tuple(KERNELS)}
+    launches = {}
+    for phase, fn in (
+            ("serve", lambda: phase_serving(dev, card)),
+            ("eval", lambda: phase_eval(dev, card, models, data, idx)),
+            ("train", lambda: phase_train(dev, card, data, trained))):
+        ops.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        print(f"[launches] {phase}: {counts}")
+        for k in must[phase]:
+            expect(counts[k] > 0, f"{phase} ran no {k}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    phase_eval_checks(dev, models, data, idx)
+    phase_train_checks(dev, data, idx, trained)
+
+    return rows, launches
 
 
 def main():
@@ -433,28 +816,7 @@ def main():
     print(f"[build] kernels built and loaded in {lib.build_seconds} s")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    rows = phase_kernels(dev, card, peaks, flush)
-    del flush
-
-    models = {dt: celeba(dt, dev) for dt in (torch.bfloat16, torch.float32)}
-    data, idx = eval_data(dev)
-    launches = {}
-    for phase, fn in (
-            ("serve", lambda: phase_serving(dev, card)),
-            ("eval", lambda: phase_eval(dev, card, models, data, idx))):
-        ops.reset_launch_counts()
-        fn()
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        print(f"[launches] {phase}: {counts}")
-        expect(counts["poe_fwd"] > 0, f"{phase} ran no poe_fwd")
-        if phase == "eval":
-            expect(counts["bce_rowsum_fwd"] > 0, "eval ran no bce_rowsum_fwd")
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-    phase_eval_checks(dev, models, data, idx)
+    rows, launches = run(dev, card, peaks)
 
     line = [{"name": k, **KERNELS[k], "launches": launches[k],
              "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],

@@ -3,12 +3,10 @@
 import torch
 
 
-def reparametrize(mu, logvar, *, train: bool, generator=None):
-    """mu + eps * exp(0.5 * logvar) in training, with eps drawn from
-    `generator` (a torch.Generator on mu's device); mu in eval
-    (mnist/model.py:29-35)."""
-    if not train:
+def reparametrize(mu, logvar, eps=None):
+    """mu + eps * exp(0.5 * logvar) in training, with the standard normal
+    noise eps (mu's shape) drawn by the caller; mu in eval, when eps is
+    None (mnist/model.py:29-35)."""
+    if eps is None:
         return mu
-    eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                      dtype=mu.dtype)
     return mu + eps * torch.exp(0.5 * logvar)

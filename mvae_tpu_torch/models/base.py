@@ -7,8 +7,16 @@ stacked (M, B, D) in `modalities` order.
 Subclasses define:
     modalities: tuple[str, ...]          expert order
     n_latents: int
-    encode(inputs) -> (mu, logvar)       inputs: name -> (B, ...), all present
-    decode(z) -> recons                  z: (N, D); name -> (N, ...) logits
+    encode(inputs, keep_mask=None) -> (mu, logvar, moments)
+        inputs: name -> (B, ...), all present; keep_mask: the dropout's, in
+        train mode; moments: modality -> [nn.norm.Moments] of the encoder's
+        train-mode BN calls (empty lists in eval mode)
+    decode(z, groups=1) -> (recons, moments)
+        z: (N, D); recons: name -> (N, ...) logits; groups: sets of
+        train-mode BN statistics over consecutive row blocks (the ELBO
+        terms); moments: [nn.norm.Moments] of the decoders' BN calls
+    keep_mask_shape(batch) -> the shape of encode's keep_mask
+    dropout_rate: float                  the rate of that dropout
     recon_loss(name, logits, target) -> (N,) per-sample loss summed over
         the event dims; target may hold fewer rows (N % Nt == 0, shared)
     input_spec() -> name -> (event_shape, dtype)
@@ -28,6 +36,9 @@ class MultimodalVAE(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    def modality_index(self, name: str) -> int:
+        return self.modalities.index(name)
+
     def recon_losses(self, recons, inputs):
         """(N, M) per-sample loss, one column per expert."""
         return torch.stack([self.recon_loss(n, recons[n], inputs[n])
@@ -45,7 +56,7 @@ class MultimodalVAE(nn.Module):
                 for m in self.modalities}
         mask = torch.tensor([[1.0 if m in inputs else 0.0
                               for m in self.modalities]], device=self.device)
-        mu, logvar = self.encode(full)
+        mu, logvar, _ = self.encode(full)
         pd_mu, pd_logvar = masked_poe_all_terms(mu, logvar, mask)
         return pd_mu[0], pd_logvar[0]
 

@@ -16,6 +16,12 @@ Images enter and leave NHWC; inside they run NCHW, so the reference's
 (bfloat16) the conv stacks and the image posterior head run in it; the
 attribute MLPs and the decoder's upsample fc run in f32, as in the JAX
 package (models/celeba.py:100-117).
+
+Train mode (`model.train()`): BN with batch statistics, fused with its
+swish; the image head's dropout (rate 0.1) takes a keep-mask from the
+caller; decode keeps `groups` sets of BN statistics over consecutive
+blocks of rows (the ELBO terms). encode and decode return the batch
+moments their BNs made, for the engine's EMA commit.
 """
 
 import torch
@@ -27,7 +33,8 @@ from mvae_tpu_torch.models.base import MultimodalVAE
 from mvae_tpu_torch.nn.dcgan import ConvStack, DeconvStack, PosteriorHead
 from mvae_tpu_torch.nn.initializers import init_parameters_
 from mvae_tpu_torch.nn.layers import Linear, Swish
-from mvae_tpu_torch.nn.norm import BatchNorm
+from mvae_tpu_torch.nn.norm import (
+    BatchNorm, BNSwishSequential, pop_moments, set_bn_groups)
 
 ENC_SPECS = [(32, 4, 2, 1, False), (64, 4, 2, 1, True),
              (128, 4, 2, 1, True), (256, 4, 1, 0, True)]   # 64->32->16->8->5
@@ -43,7 +50,7 @@ def _mlp_bn(dims, d_out, device):
         layers += [Linear(a, b, device=device), BatchNorm(b, device=device),
                    Swish()]
     layers.append(Linear(dims[-1], d_out, device=device))
-    return nn.Sequential(*layers)
+    return BNSwishSequential(*layers)
 
 
 class ImageEncoder(nn.Module):
@@ -55,9 +62,9 @@ class ImageEncoder(nn.Module):
                                         compute_dtype=compute_dtype,
                                         device=device)
 
-    def forward(self, x):                   # x: (B, 3, 64, 64)
+    def forward(self, x, keep_mask=None):   # x: (B, 3, 64, 64)
         h = self.features(x)
-        return self.classifier(h.reshape(h.shape[0], -1))
+        return self.classifier(h.reshape(h.shape[0], -1), keep_mask)
 
 
 class ImageDecoder(nn.Module):
@@ -90,8 +97,7 @@ class CelebaMVAE(MultimodalVAE):
                  device=None, generator=None):
         """device: None runs on the CUDA card (raises without one), "cpu"
         on the CPU. generator: CPU torch.Generator for the initial weights
-        (default: seed 0). The model starts in eval mode: train mode is not
-        ported yet."""
+        (default: seed 0). The model starts in eval mode."""
         super().__init__()
         device = resolve_device(device)
         self.n_latents = n_latents
@@ -110,17 +116,30 @@ class CelebaMVAE(MultimodalVAE):
         return {"image": ((64, 64, 3), torch.float32),
                 "attrs": ((N_ATTRS,), torch.float32)}
 
-    def encode(self, inputs):
+    @property
+    def dropout_rate(self) -> float:
+        return self.image_encoder.classifier[2].p
+
+    def keep_mask_shape(self, batch: int):
+        return (batch, self.image_encoder.classifier[0].weight.shape[0])
+
+    def encode(self, inputs, keep_mask=None):
         L = self.n_latents
-        img = self.image_encoder(inputs["image"].permute(0, 3, 1, 2))
+        img = self.image_encoder(inputs["image"].permute(0, 3, 1, 2),
+                                 keep_mask)
         att = self.attrs_encoder(inputs["attrs"])
         mu = torch.stack([img[:, :L], att[:, :L]])
         logvar = torch.stack([img[:, L:], att[:, L:]])
-        return mu, logvar
+        return mu, logvar, {"image": pop_moments(self.image_encoder),
+                            "attrs": pop_moments(self.attrs_encoder)}
 
-    def decode(self, z):
+    def decode(self, z, groups: int = 1):
+        decoders = (self.image_decoder, self.attrs_decoder)
+        for d in decoders:
+            set_bn_groups(d, groups)
         img = self.image_decoder(z).permute(0, 2, 3, 1)
-        return {"image": img, "attrs": self.attrs_decoder(z)}
+        recons = {"image": img, "attrs": self.attrs_decoder(z)}
+        return recons, [m for d in decoders for m in pop_moments(d)]
 
     def recon_loss(self, name, logits, target):
         lo = logits.reshape(logits.shape[0], -1)

@@ -11,6 +11,13 @@ compute dtype, conv/linear weights are cast at use (nn/dcgan.py:43-50),
 BN math runs in f32 and swish in the compute dtype, the posterior head
 emits f32 (:150-156) and the eval-mode decoder logits are f32 (:124-126).
 
+Train mode (the JAX package's Pallas BN path, nn/norm.py:145-157): each
+BN runs fused with the swish after it, in f32 and rounded once to the
+compute dtype (nn/norm.py:BNSwishSequential); the head's dropout takes a
+keep-mask from the caller; under a compute dtype the decoder logits stay
+in it (nn/dcgan.py:124-126, the JAX package's default), and the losses
+upcast them.
+
 spec row: (c_out, kernel, stride, pad, use_bn)
 """
 
@@ -19,10 +26,10 @@ from torch import nn
 
 from mvae_tpu_torch.nn.conv import Conv2d, ConvTranspose2d
 from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish
-from mvae_tpu_torch.nn.norm import BatchNorm
+from mvae_tpu_torch.nn.norm import BatchNorm, BNSwishSequential
 
 
-class ConvStack(nn.Sequential):
+class ConvStack(BNSwishSequential):
     def __init__(self, c_in, specs, *, compute_dtype=None, device=None):
         layers = []
         for c_out, kern, s, pad, bn in specs:
@@ -40,14 +47,12 @@ class ConvStack(nn.Sequential):
         return super().forward(x)
 
 
-class DeconvStack(nn.Sequential):
-    """BN + swish between layers; the final convT emits f32 logits."""
+class DeconvStack(BNSwishSequential):
+    """BN + swish between layers; the final convT emits the logits: f32,
+    or the compute dtype in train mode."""
 
     def __init__(self, c_in, specs, *, compute_dtype=None, device=None):
-        if specs and specs[-1][4]:
-            raise ValueError("deconv stack: the final (logits) layer must "
-                             "not use BN; BN here is always fused with swish")
-        layers = []
+        layers = []     # BNSwishSequential refuses a BN with no swish after it
         for i, (c_out, kern, s, pad, bn) in enumerate(specs):
             layers.append(ConvTranspose2d(c_in, c_out, kern, s, pad,
                                           device=device))
@@ -62,7 +67,8 @@ class DeconvStack(nn.Sequential):
     def forward(self, x):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        return super().forward(x).float()
+        logits = super().forward(x)
+        return logits if self.training else logits.float()
 
 
 class PosteriorHead(nn.Sequential):
@@ -76,7 +82,9 @@ class PosteriorHead(nn.Sequential):
                          Linear(hidden, 2 * n_latents, device=device))
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
+    def forward(self, x, keep_mask=None):
+        """keep_mask: (N, hidden) bool, the dropout's, in train mode."""
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        return super().forward(x).to(torch.float32)
+        fc, act, drop, out = self
+        return out(drop(act(fc(x)), keep_mask)).to(torch.float32)

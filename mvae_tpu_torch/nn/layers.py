@@ -49,15 +49,28 @@ class Swish(nn.Module):
         return swish(x)
 
 
+def dropout(x, keep_mask, rate: float):
+    """where(keep_mask, x / keep, 0) in x's dtype, keep = 1 - rate
+    (nn/layers.py:28-33). keep is rounded to x's dtype first, as JAX's
+    weakly typed scalar is, so a bf16 x is divided by bf16(0.9)."""
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    return torch.where(keep_mask, x / keep, 0.0)
+
+
 class Dropout(nn.Module):
-    """Identity in eval mode. Train-mode dropout waits for the training
-    slice of the port, so a module in train mode raises."""
+    """Identity in eval mode. In train mode it takes the keep-mask (a bool
+    tensor of x's shape) from the caller: the port draws no random numbers
+    inside the model, so the noise can be fed from anywhere (the train
+    step's generator, or the JAX package's draws in the tests)."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
 
-    def forward(self, x):
-        if self.training and self.p:
-            raise NotImplementedError("train-mode dropout is not ported yet")
-        return x
+    def forward(self, x, keep_mask=None):
+        if not (self.training and self.p):
+            return x
+        if keep_mask is None:
+            raise ValueError("train-mode dropout takes its keep-mask from "
+                             "the caller")
+        return dropout(x, keep_mask, self.p)

@@ -1,18 +1,32 @@
 """BatchNorm with explicit running statistics, torch semantics (counterpart
-of mvae_tpu/nn/norm.py:56-102,129-160), eval branch.
+of mvae_tpu/nn/norm.py:56-160).
 
 Eval mode normalizes with the running statistics, eps 1e-5. The math runs
 in f32 whatever the input's dtype, and the result returns in the input's
 dtype; the Swish that follows every BN in the reference nets then runs in
-that dtype (nn/norm.py:158-160). Train-mode batch statistics and the EMA
-update wait for the training slice of the port, so a module in train mode
-raises.
+that dtype (nn/norm.py:158-160).
+
+Train mode runs the fused BN + swish op (ops/bn.py:bn_swish_train, the
+JAX package's Pallas path, nn/norm.py:145-157) with `groups` sets of batch
+statistics, and so also applies the swish that follows it:
+`BNSwishSequential` then skips that Swish. The forward never touches the
+running buffers. It keeps its batch moments on the module; the model's
+encode/decode collect them (`pop_moments`) and the engine commits the EMA
+(core/engine.py:commit_ema_states), momentum 0.1, with the unbiased
+variance, n = the rows and positions of one group.
 """
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
+from mvae_tpu_torch.nn.layers import Swish
+from mvae_tpu_torch.ops.bn import bn_swish_train
+
 EPS = 1e-5
+# torch's default; commit_ema_states assumes every BN uses it
+BN_MOMENTUM = 0.1
 
 
 def batchnorm_eval(x, mean, var, scale, bias, eps: float = EPS):
@@ -24,9 +38,19 @@ def batchnorm_eval(x, mean, var, scale, bias, eps: float = EPS):
     return y.to(x.dtype)
 
 
+class Moments(NamedTuple):
+    """One train-mode BN call's batch statistics, for the EMA commit."""
+    bn: "BatchNorm"
+    mean: torch.Tensor      # (G, C) f32, biased
+    var: torch.Tensor       # (G, C) f32, biased
+    n: int                  # elements a group and channel: rows * positions
+
+
 class BatchNorm(nn.Module):
     """Keys and buffers of torch's BatchNorm1d/2d (weight, bias,
-    running_mean, running_var, num_batches_tracked), channel axis 1."""
+    running_mean, running_var, num_batches_tracked), channel axis 1.
+    `groups`: how many sets of batch statistics a train-mode call keeps,
+    over consecutive blocks of rows (the decoders' ELBO terms)."""
 
     def __init__(self, c: int, *, device=None):
         super().__init__()
@@ -36,6 +60,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty((c,), device=device))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
+        self.groups = 1
+        self.moments = None
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
@@ -46,7 +72,51 @@ class BatchNorm(nn.Module):
         self.num_batches_tracked.zero_()
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported yet")
-        return batchnorm_eval(x, self.running_mean, self.running_var,
-                              self.weight, self.bias)
+        """Eval: BN alone. Train: swish(BN(x)) with batch statistics."""
+        if not self.training:
+            return batchnorm_eval(x, self.running_mean, self.running_var,
+                                  self.weight, self.bias)
+        y, mean, var = bn_swish_train(x, self.weight, self.bias, self.groups)
+        self.moments = Moments(self, mean, var,
+                               x.numel() // (self.groups * x.shape[1]))
+        return y
+
+
+class BNSwishSequential(nn.Sequential):
+    """nn.Sequential whose train-mode BatchNorms apply the Swish that
+    follows them (the fused op), so that Swish is skipped. The indices,
+    and so the reference's state_dict keys, stay those of the plain
+    [..., BN, Swish, ...] stack."""
+
+    def __init__(self, *layers):
+        super().__init__(*layers)
+        for i, layer in enumerate(layers):
+            if isinstance(layer, BatchNorm) and not (
+                    i + 1 < len(layers) and isinstance(layers[i + 1], Swish)):
+                raise ValueError("every BatchNorm is fused with the Swish "
+                                 "that follows it; this one has none")
+
+    def forward(self, x):
+        fused = False
+        for layer in self:
+            if not (fused and isinstance(layer, Swish)):
+                x = layer(x)
+            fused = self.training and isinstance(layer, BatchNorm)
+        return x
+
+
+def set_bn_groups(module: nn.Module, groups: int):
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.groups = groups
+
+
+def pop_moments(module: nn.Module) -> list:
+    """The Moments of the train-mode BN calls under `module` since the last
+    pop, in module order; clears them. Empty in eval mode."""
+    out = []
+    for m in module.modules():
+        if isinstance(m, BatchNorm) and m.moments is not None:
+            out.append(m.moments)
+            m.moments = None
+    return out

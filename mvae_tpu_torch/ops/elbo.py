@@ -4,8 +4,8 @@
 Counterpart of mvae_tpu/ops/elbo_pallas.py, with one extension: the target
 rows may be fewer than the logit rows (N = G * Nt) and are then shared by
 each group of Nt logit rows, so the eval step's T*B decoded rows read the
-B target rows without a repeated copy. Forward only: the backward waits for
-the training slice of the port.
+B target rows without a repeated copy. The backward is the JAX package's
+closed form (elbo_pallas.py:_bwd) in plain PyTorch, used on both devices.
 """
 
 import torch
@@ -63,10 +63,40 @@ def bce_rowsum_fwd(logits, targets):
 bce_rowsum_fwd.launches = 0
 
 
+def bce_rowsum_bwd_plain(g, logits, targets, need_targets=False):
+    """Closed-form gradients of the row sums for the upstream gradient g
+    (N,): g * (sigmoid(x) - t) for the logits, in f32 and returned in the
+    logits' dtype, and, if asked, -g * x for the targets, summed over the
+    N // Nt groups of rows that share a target row, in the targets' dtype
+    (else None). Mirrors elbo_pallas.py:_bwd."""
+    n, k = logits.shape
+    nt = targets.shape[0]
+    x = logits.float().reshape(n // nt, nt, k)
+    g3 = g.float().reshape(n // nt, nt, 1)
+    gx = (g3 * (torch.sigmoid(x) - targets.float())).reshape(n, k)
+    gt = None
+    if need_targets:
+        gt = (-(g3 * x)).sum(0).to(targets.dtype)
+    return gx.to(logits.dtype), gt
+
+
+class _BceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, targets):
+        ctx.save_for_backward(logits, targets)
+        if _cuda.use_kernel(logits, targets):
+            return bce_rowsum_fwd(logits, targets)
+        return bce_rowsum_plain(logits, targets)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets = ctx.saved_tensors
+        return bce_rowsum_bwd_plain(g, logits, targets,
+                                    ctx.needs_input_grad[1])
+
+
 def bce_sum(logits, targets):
     """logits: (N, K), targets: (Nt, K), N % Nt == 0 -> (N,) row-summed
-    stable BCE in f32. CPU tensors take the plain version, CUDA tensors
-    the kernel."""
-    if _cuda.use_kernel(logits, targets):
-        return bce_rowsum_fwd(logits, targets)
-    return bce_rowsum_plain(logits, targets)
+    stable BCE in f32, differentiable in both. CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    return _BceSum.apply(logits, targets)

@@ -3,8 +3,9 @@
 
 Counterpart of mvae_tpu/ops/poe_pallas.py. Semantics equal the JAX
 package's core/poe.py:masked_product_of_experts applied to each mask row
-(single-eps convention, the N(0, I) prior folded in). Forward only: the
-backward waits for the training slice of the port.
+(single-eps convention, the N(0, I) prior folded in). The backward is the
+JAX package's closed form (poe_pallas.py:_bwd) in plain PyTorch, used on
+both devices: the TPU version has no backward kernel either.
 """
 
 import torch
@@ -68,11 +69,48 @@ def poe_fwd(mu, logvar, masks):
 poe_fwd.launches = 0
 
 
+def poe_bwd_plain(mu, logvar, masks, g_mu, g_lv):
+    """Closed-form gradients (d_mu, d_logvar), each (M, B, D) f32, of the
+    fused posteriors' upstream gradients g_mu, g_lv (T, B, D); mirrors
+    poe_pallas.py:_bwd. The masks take no gradient."""
+    m, b, d = mu.shape
+    t = masks.shape[0]
+    mu2 = mu.float().reshape(m, b * d)
+    lv2 = logvar.float().reshape(m, b * d)
+    masks = masks.float()
+    g_mu = g_mu.float().reshape(t, b * d)
+    g_lv = g_lv.float().reshape(t, b * d)
+    prec = 1.0 / (torch.exp(lv2) + EPS)
+    den = masks @ prec + 1.0 / (1.0 + EPS)
+    num = masks @ (mu2 * prec)
+    d_num = g_mu / den
+    d_den = -(g_mu * num) / (den * den) - g_lv / den
+    back = masks.t() @ d_num
+    d_mu = back * prec
+    d_prec = back * mu2 + masks.t() @ d_den
+    d_lv = d_prec * (-(prec * prec) * torch.exp(lv2))
+    return d_mu.reshape(m, b, d), d_lv.reshape(m, b, d)
+
+
+class _MaskedPoE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mu, logvar, masks):
+        ctx.save_for_backward(mu, logvar, masks)
+        if _cuda.use_kernel(mu, logvar, masks):
+            return poe_fwd(mu, logvar, masks)
+        return poe_plain(mu, logvar, masks)
+
+    @staticmethod
+    def backward(ctx, g_mu, g_lv):
+        mu, logvar, masks = ctx.saved_tensors
+        d_mu, d_lv = poe_bwd_plain(mu, logvar, masks, g_mu, g_lv)
+        return d_mu.to(mu.dtype), d_lv.to(logvar.dtype), None
+
+
 def masked_poe_all_terms(mu, logvar, masks):
-    """mu, logvar: (M, B, D); masks: (T, M) -> (pd_mu, pd_logvar) (T, B, D).
+    """mu, logvar: (M, B, D); masks: (T, M) -> (pd_mu, pd_logvar) (T, B, D),
+    differentiable in mu and logvar.
 
     CPU tensors take the plain version, CUDA tensors the kernel.
     """
-    if _cuda.use_kernel(mu, logvar, masks):
-        return poe_fwd(mu, logvar, masks)
-    return poe_plain(mu, logvar, masks)
+    return _MaskedPoE.apply(mu, logvar, masks)

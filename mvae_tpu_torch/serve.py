@@ -61,8 +61,8 @@ class Sampler:
     def decode_latents(self, z):
         """Activated decode of latents z (N, D): the tail of both sampling
         paths."""
-        return {k: torch.sigmoid(v)
-                for k, v in self.model.decode(self._tensor(z)).items()}
+        recons, _ = self.model.decode(self._tensor(z))
+        return {k: torch.sigmoid(v) for k, v in recons.items()}
 
     def warmup(self, buckets=(1, 64)):
         """Run every endpoint once per batch bucket on zero inputs, each

@@ -1,5 +1,5 @@
-"""Eval step and input decode (counterpart of mvae_tpu/train/loop.py:16-51,
-239-262)."""
+"""Train and eval steps and the input decode (counterpart of
+mvae_tpu/train/loop.py:16-51, 63-125, 146-212, 239-262)."""
 
 import torch
 
@@ -25,10 +25,25 @@ def resolve_decode_dtype(model, decode_dtype=None):
     return torch.float32
 
 
+def _check_device(model, device, what):
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"the model lives on {model.device}, the {what} "
+                         f"was asked to run on {device}")
+    return device
+
+
+def _gather(batch, device_data):
+    if device_data:
+        data, idx = batch
+        return {k: v.index_select(0, idx) for k, v in data.items()}
+    return batch
+
+
 def make_eval_step(model, term_masks, term_lambdas, *, device=None,
                    device_data: bool = False, decode_dtype=None):
     """Eval: beta = 1, z = mu, running BN statistics, no dropout (reference
-    test(): mnist/train.py:229-253).
+    test(): mnist/train.py:229-253). Each call puts the model in eval mode.
 
     device: None runs on the CUDA card (raises without one), "cpu" on the
     CPU; the model must already live there.
@@ -38,10 +53,7 @@ def make_eval_step(model, term_masks, term_lambdas, *, device=None,
 
     Step signature: eval_step(batch) -> (total, per_term (T,)).
     """
-    device = resolve_device(device)
-    if model.device != device:
-        raise ValueError(f"the model lives on {model.device}, the eval step "
-                         f"was asked to run on {device}")
+    device = _check_device(model, device, "eval step")
     masks = torch.as_tensor(term_masks, dtype=torch.float32, device=device)
     lambdas = torch.as_tensor(term_lambdas, dtype=torch.float32,
                               device=device)
@@ -49,12 +61,95 @@ def make_eval_step(model, term_masks, term_lambdas, *, device=None,
 
     @torch.inference_mode()
     def eval_step(batch):
-        if device_data:
-            data, idx = batch
-            batch = {k: v.index_select(0, idx) for k, v in data.items()}
-        batch = decode_batch(batch, decode_dt)
+        model.eval()
+        batch = decode_batch(_gather(batch, device_data), decode_dt)
         total, aux = multi_term_elbo(model, batch, masks, lambdas, 1.0,
                                      train=False)
         return total, aux["per_term"]
 
     return eval_step
+
+
+def draw_noise(model, n_terms: int, batch: int, generator):
+    """The train step's noise from `generator` (a torch.Generator on the
+    model's device): eps (T, B, D) standard normal for the reparametrization
+    and the encoder dropout's keep-mask, Bernoulli(1 - rate) as
+    `jax.random.bernoulli` draws it (uniform < keep)."""
+    dev = model.device
+    eps = torch.randn((n_terms, batch, model.n_latents), generator=generator,
+                      device=dev)
+    keep = 1.0 - model.dropout_rate
+    u = torch.rand(model.keep_mask_shape(batch), generator=generator,
+                   device=dev)
+    return eps, u < keep
+
+
+def make_train_step(model, term_masks, term_lambdas, *, lr: float,
+                    generator, device=None, device_data: bool = False):
+    """One training step: the train-mode multi-term ELBO, its backward, an
+    Adam update and the BN running-statistics commit.
+
+    Adam is torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8), the same
+    update as optax.adam (m_hat / (sqrt(v_hat) + eps)), its state in f32;
+    the step owns it (`train_step.optimizer`). generator: the
+    torch.Generator on the model's device that the noise is drawn from.
+    device and device_data as in make_eval_step. Each call puts the model
+    in train mode.
+
+    Step signature: train_step(batch, beta, noise=None) -> (loss, per_term
+    (T,)), detached tensors on the device, read by nobody. noise = (eps,
+    keep_mask) replaces the draw (tests feed the JAX package's).
+    """
+    device = _check_device(model, device, "train step")
+    masks = torch.as_tensor(term_masks, dtype=torch.float32, device=device)
+    lambdas = torch.as_tensor(term_lambdas, dtype=torch.float32,
+                              device=device)
+    decode_dt = resolve_decode_dtype(model)
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+
+    def train_step(batch, beta, noise=None):
+        model.train()
+        batch = decode_batch(_gather(batch, device_data), decode_dt)
+        if noise is None:
+            b = next(iter(batch.values())).shape[0]
+            noise = draw_noise(model, masks.shape[0], b, generator)
+        optimizer.zero_grad(set_to_none=True)
+        total, aux = multi_term_elbo(model, batch, masks, lambdas, beta,
+                                     train=True, noise=noise)
+        total.backward()
+        optimizer.step()
+        return total.detach(), aux["per_term"].detach()
+
+    train_step.optimizer = optimizer
+    return train_step
+
+
+def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
+                          generator, device=None):
+    """K training steps per call over the device-resident dataset, with one
+    loss buffer to read back (train/loop.py:146-212).
+
+    Step signature: multi_step(data, idxs (K, B), betas (K,), noise=None)
+    -> losses (K,), a tensor on the device that the caller reads once.
+    data: name -> the whole dataset on the device (uint8 images); each
+    step gathers its rows with index_select and decodes them in the
+    model's decode dtype. noise: optional (eps (K, T, B, D), keep_mask
+    (K, B, H)) in place of the generator's draws.
+
+    The K steps run as K eager steps; capturing the window as one CUDA
+    graph is a later speed item.
+    """
+    step = make_train_step(model, term_masks, term_lambdas, lr=lr,
+                           generator=generator, device=device,
+                           device_data=True)
+
+    def multi_step(data, idxs, betas, noise=None):
+        losses = []
+        for k in range(idxs.shape[0]):
+            nk = None if noise is None else (noise[0][k], noise[1][k])
+            losses.append(step((data, idxs[k]), betas[k], nk)[0])
+        return torch.stack(losses)
+
+    multi_step.optimizer = step.optimizer
+    return multi_step

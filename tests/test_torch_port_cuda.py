@@ -5,16 +5,23 @@ of JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
 """
 
+import contextlib
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from mvae_tpu_torch import ops
+from mvae_tpu_torch.core.engine import multi_term_elbo
 from mvae_tpu_torch.models.celeba import CelebaMVAE
+from mvae_tpu_torch.nn.norm import BatchNorm
+from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_plain
 from mvae_tpu_torch.serve import Sampler
-from mvae_tpu_torch.train.loop import make_eval_step
+from mvae_tpu_torch.train.loop import (
+    decode_batch, draw_noise, make_eval_step, make_multi_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +30,17 @@ LAMBDAS = [[1.0, 10.0]] * 3
 # kernel vs plain version, both f32: sums taken in another order
 POE_TOL = dict(rtol=1e-5, atol=1e-6)
 BCE_TOL = dict(rtol=1e-5, atol=1e-4)
+# BN passes: the per-(g, c) sums over up to 102400 elements in another
+# order, compared as means; y and dx from the same f32 formula (a last-bit
+# difference in exp); in bf16 both round one f32 value, so a rare
+# rounding moves by one bf16 step (2^-8 relative)
+BN_SUM_TOL = dict(rtol=1e-5, atol=1e-6)
+BN_OUT_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# the BN layers of the CelebA train step at B=100: (G, N, C, S)
+BN_SHAPES = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
+             (1, 100, 512, 1), (3, 100, 128, 64), (3, 100, 64, 256),
+             (3, 100, 32, 1024), (3, 100, 512, 1)]
 
 
 @pytest.fixture
@@ -95,10 +113,11 @@ def test_eval_step_goes_through_the_kernels(cuda):
     step = make_eval_step(model, MASKS, LAMBDAS)
     ops.reset_launch_counts()
     total, per_term = step(batch)
-    assert ops.launch_counts() == {"poe_fwd": 1, "bce_rowsum_fwd": 2}
+    want = {k: 0 for k in ops.KERNELS} | {"poe_fwd": 1, "bce_rowsum_fwd": 2}
+    assert ops.launch_counts() == want
     with ops.plain_versions():
         p_total, p_terms = step(batch)
-    assert ops.launch_counts() == {"poe_fwd": 1, "bce_rowsum_fwd": 2}
+    assert ops.launch_counts() == want
     torch.testing.assert_close(per_term, p_terms, rtol=1e-4, atol=0)
     torch.testing.assert_close(total, p_total, rtol=1e-4, atol=0)
     cpu = CelebaMVAE(8, device="cpu")
@@ -112,4 +131,156 @@ def test_embed_is_one_poe_launch(cuda):
     ops.reset_launch_counts()
     mu, _ = sampler.embed({"attrs": np.zeros((3, 18), np.float32)})
     assert mu.shape == (3, 8) and mu.is_cuda
-    assert ops.launch_counts() == {"poe_fwd": 1, "bce_rowsum_fwd": 0}
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS} | {"poe_fwd": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_kernels_match_plain(cuda, shape, dtype):
+    """Each of the four BN passes against its plain version at every BN
+    shape of the train step, both dtypes (S = 25 and S = 1 take the
+    scalar path, the rest the 16-byte one)."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    gsz, n, c, sp = shape
+    x4 = (0.5 + 1.5 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    g4 = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=g, device=cuda)
+    bias = 0.2 * torch.randn(c, generator=g, device=cuda)
+    m = n * sp
+    before = ops.launch_counts()
+    s_k = torch.stack(bn_ops.bn_moments(x4)) / m
+    s_p = torch.stack(bn_ops.bn_moments_plain(x4))
+    torch.testing.assert_close(s_k, s_p / m, **BN_SUM_TOL)
+    mean, _, invstd, a, b = bn_ops.bn_affine(s_p[0], s_p[1], m, scale, bias)
+    torch.testing.assert_close(bn_ops.bn_normalize(x4, a, b).float(),
+                               bn_ops.bn_normalize_plain(x4, a, b).float(),
+                               **BN_OUT_TOL[dtype])
+    p_k = torch.stack(bn_ops.bn_bwd_partials(x4, g4, a, b)) / m
+    p_p = torch.stack(bn_ops.bn_bwd_partials_plain(x4, g4, a, b))
+    torch.testing.assert_close(p_k, p_p / m, **BN_SUM_TOL)
+    _, q, r = bn_ops.bn_dx_coeffs(p_p[0], p_p[1], m, a, mean, invstd)
+    torch.testing.assert_close(
+        bn_ops.bn_dx(x4, g4, a, b, a, q, r).float(),
+        bn_ops.bn_dx_plain(x4, g4, a, b, a, q, r).float(),
+        **BN_OUT_TOL[dtype])
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for k in ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx"):
+        assert after[k] == before[k] + 1, k
+
+
+def test_bn_op_autograd_on_the_card_matches_plain(cuda):
+    """bn_swish_train through its kernels: y, the moments and the
+    gradients of x, scale and bias against the same call on the plain
+    versions, f32, G = 3 (the decoder's grouping)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((3 * 6, 32, 8, 8), generator=g, device=cuda)
+    ct = torch.randn(x.shape, generator=g, device=cuda)
+    outs = []
+    for plain in (False, True):
+        xi = x.clone().requires_grad_(True)
+        w = torch.ones(32, device=cuda, requires_grad=True)
+        b = torch.zeros(32, device=cuda, requires_grad=True)
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            y, mean, var = ops.bn_swish_train(xi, w, b, groups=3)
+            y.backward(ct)
+        outs.append((y, mean, var, xi.grad, w.grad, b.grad))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_poe_and_bce_carry_gradients_on_the_card(cuda):
+    """The kernels' outputs are part of the autograd graph, and the
+    gradients equal those of the plain versions (the backward is the same
+    closed form; the forward is the kernel)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    mu = torch.randn((2, 5, 8), generator=g, device=cuda)
+    lv = torch.randn((2, 5, 8), generator=g, device=cuda)
+    masks = torch.tensor(MASKS, device=cuda)
+    x = torch.randn((6, 12288), generator=g, device=cuda).bfloat16()
+    t = torch.rand((2, 12288), generator=g, device=cuda).bfloat16()
+    grads = []
+    for plain in (False, True):
+        m_ = mu.clone().requires_grad_(True)
+        l_ = lv.clone().requires_grad_(True)
+        x_ = x.clone().requires_grad_(True)
+        before = ops.launch_counts()
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            pd_mu, pd_lv = ops.masked_poe_all_terms(m_, l_, masks)
+            rows = ops.bce_sum(x_, t)
+        launched = ops.launch_counts() != before
+        assert launched != plain
+        assert pd_mu.requires_grad and pd_lv.requires_grad
+        assert rows.requires_grad
+        (pd_mu.sum() + (pd_lv * pd_mu).sum() + rows.sum()).backward()
+        grads.append((m_.grad, l_.grad, x_.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert grads[0][2].dtype == torch.bfloat16
+
+
+def _one_step(model, batch, noise):
+    model.train()
+    model.zero_grad(set_to_none=True)
+    dev = model.device
+    total, _ = multi_term_elbo(model, batch, torch.tensor(MASKS, device=dev),
+                               torch.tensor(LAMBDAS, device=dev), 1.0,
+                               train=True, noise=noise)
+    total.backward()
+    return total.detach(), {k: p.grad.clone()
+                            for k, p in model.named_parameters()}
+
+
+def test_train_step_goes_through_all_six_kernels(cuda):
+    """One train-mode ELBO and its backward on the card: 1 PoE, 2 BCE
+    launches and each BN pass once a BN layer (11), and every parameter
+    gradient within 1e-4 of the plain versions' in relative norm (f32,
+    TF32 off). The Linear biases that feed a BN have an exact gradient of
+    0; both sides give rounding noise, held within 1e-4 absolutely."""
+    model = CelebaMVAE(8, device=cuda)
+    twin = copy.deepcopy(model)
+    batch = decode_batch(_batch(cuda))
+    noise = draw_noise(model, 3, 4,
+                       torch.Generator(device=cuda).manual_seed(1))
+    ops.reset_launch_counts()
+    total, grads = _one_step(model, batch, noise)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "poe_fwd": 1, "bce_rowsum_fwd": 2, "bn_moments": 11,
+        "bn_normalize": 11, "bn_bwd_partials": 11, "bn_dx": 11}
+    with ops.plain_versions():
+        p_total, p_grads = _one_step(twin, batch, noise)
+    assert ops.launch_counts()["bn_dx"] == 11
+    torch.testing.assert_close(total, p_total, rtol=1e-5, atol=0)
+    noisy = {f"{name}.{i}.bias" for name, mod in model.named_modules()
+             if isinstance(mod, torch.nn.Sequential)
+             for i in range(len(mod) - 1)
+             if isinstance(mod[i + 1], BatchNorm)
+             and getattr(mod[i], "bias", None) is not None}
+    assert len(noisy) == 5
+    for k, want in p_grads.items():
+        gap = (grads[k] - want).norm().item()
+        if k in noisy:
+            assert gap < 1e-4, (k, gap)
+        else:
+            assert gap < 1e-4 * want.norm().item(), (k, gap)
+
+
+def test_multi_train_step_on_the_card(cuda):
+    """K = 3 steps in bf16 from the device-resident uint8 data: a (3,)
+    finite loss tensor on the card, moved parameters and running
+    statistics."""
+    model = CelebaMVAE(8, torch.bfloat16, device=cuda)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    multi = make_multi_train_step(
+        model, MASKS, LAMBDAS, lr=1e-4,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    data = _batch(cuda, b=10)
+    idxs = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 0, 1]],
+                        device=cuda)
+    losses = multi(data, idxs, torch.ones(3, device=cuda))
+    assert losses.shape == (3,) and losses.is_cuda
+    assert torch.isfinite(losses).all()
+    for k, v in model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert not torch.equal(v, before[k]), k

@@ -137,13 +137,16 @@ def test_encode_and_decode(models):
     mu, lv, _ = jm.encode(params, state,
                           {k: jnp.asarray(v) for k, v in batch.items()},
                           None, False)
-    p_mu, p_lv = pm.encode({k: torch.from_numpy(v) for k, v in batch.items()})
+    p_mu, p_lv, moments = pm.encode(
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert moments == {"image": [], "attrs": []}      # eval mode: none
     assert p_mu.shape == (2, 3, L)
     _close(p_mu, mu)
     _close(p_lv, lv)
     z = np.random.default_rng(6).normal(size=(3, L)).astype(np.float32)
     want, _ = jm.decode(params, state, jnp.asarray(z), None, False)
-    got = pm.decode(torch.from_numpy(z))
+    got, moments = pm.decode(torch.from_numpy(z))
+    assert moments == []
     for k in ("image", "attrs"):
         assert got[k].shape == want[k].shape
         _close(got[k], want[k])
@@ -187,7 +190,7 @@ def _bf16_outputs(case, jm, params, state, pb, pf):
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     if case == "encode":
         mu, lv, _ = jm.encode(params, state, jb, None, False)
-        (bm, bl), (fm, fl) = pb.encode(tb), pf.encode(tb)
+        (bm, bl, _), (fm, fl, _) = pb.encode(tb), pf.encode(tb)
         return {f"{k} {m}": (want[i], got_b[i], got_f[i])
                 for i, k in enumerate(("image", "attrs"))
                 for m, want, got_b, got_f in (("mu", mu, bm, fm),
@@ -205,7 +208,7 @@ def _bf16_outputs(case, jm, params, state, pb, pf):
     if case == "decode":
         z = np.random.default_rng(40).normal(size=(3, L)).astype(np.float32)
         want, _ = jm.decode(params, state, jnp.asarray(z), None, False)
-        got_b, got_f = (m.decode(torch.from_numpy(z)) for m in (pb, pf))
+        got_b, got_f = (m.decode(torch.from_numpy(z))[0] for m in (pb, pf))
         return {k: (want[k], got_b[k], got_f[k]) for k in ("image", "attrs")}
     names = case.split()[1].split(",")                 # "infer a,b"
     want = jm.infer(params, state, {k: jb[k] for k in names})

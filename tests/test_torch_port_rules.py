@@ -13,9 +13,11 @@ import pytest
 import torch
 
 import mvae_tpu_torch
+from mvae_tpu_torch.core.engine import multi_term_elbo
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.serve import Sampler
-from mvae_tpu_torch.train.loop import make_eval_step
+from mvae_tpu_torch.train.loop import (
+    make_eval_step, make_multi_train_step, make_train_step)
 from mvae_tpu_torch.utils.weights import load_reference_checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,6 +64,9 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
     model = CelebaMVAE(8, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_eval_step(model, MASKS, LAMBDAS)
+    for make in (make_train_step, make_multi_train_step):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(model, MASKS, LAMBDAS, lr=1e-4, generator=None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Sampler(model)
     path = tmp_path / "m.pth.tar"
@@ -74,9 +79,22 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
 
 
 def test_train_mode_is_refused_until_ported():
+    """Train mode is ported; what it still refuses is to run without its
+    noise: the port draws no random numbers inside the model or the
+    engine, so a train-mode forward without the dropout keep-mask, or a
+    train-mode ELBO without (eps, keep_mask), raises, as does an ELBO
+    whose `train` disagrees with the model's mode."""
     model = CelebaMVAE(8, device="cpu")
     assert not model.training
     model.train()
-    with pytest.raises(NotImplementedError):
-        model.encode({"image": torch.zeros(2, 64, 64, 3),
-                      "attrs": torch.zeros(2, 18)})
+    batch = {"image": torch.zeros(2, 64, 64, 3), "attrs": torch.zeros(2, 18)}
+    with pytest.raises(ValueError, match="keep-mask"):
+        model.encode(batch)
+    masks, lambdas = torch.tensor(MASKS), torch.tensor(LAMBDAS)
+    with pytest.raises(ValueError, match="noise"):
+        multi_term_elbo(model, batch, masks, lambdas, train=True)
+    with pytest.raises(ValueError, match="train mode"):
+        multi_term_elbo(model, batch, masks, lambdas, train=False)
+    mu, _, moments = model.encode(
+        batch, torch.ones(model.keep_mask_shape(2), dtype=torch.bool))
+    assert mu.shape == (2, 2, 8) and len(moments["image"]) == 3
