@@ -2,8 +2,9 @@
 """Quickest proof that the PyTorch port (mvae_tpu_torch) runs on one
 NVIDIA GPU: builds the CUDA kernels from `mvae_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the serving
-endpoints, the eval-mode ELBO and the training step of the shipped CelebA
-model at full width, and shows that those paths went through the kernels.
+endpoints, the eval-mode ELBO, the training step and the training CLI of
+the shipped CelebA model at full width, and shows that those paths went
+through the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -11,21 +12,28 @@ Phases (any failure exits non-zero; nothing is caught):
   1. card, versions, kernel build time
   2. kernels vs their plain versions at the paths' shapes, with times:
      PoE and BCE; the four BN passes at each of the train step's 11 BN
-     layers (per-step sums too)
+     layers; conv2d_moments at the encoder's 3 BN'd convs, bf16 and f32
+     (per-step sums too)
   3. serving: Sampler on CelebaMVAE(100) in bf16 (every endpoint)
   4. eval step: B=100, T=3, CLI weights, uint8 device-resident data, bf16
      and f32, kernel path and plain versions timed in turns
   5. train step: the same setting, Adam(1e-4), windows of K=20 steps of
-     make_multi_train_step, kernel path and plain versions in turns, bf16
-     and f32
+     make_multi_train_step, kernel path and plain versions in turns, then
+     the encoder's fused route (conv2d_moments, the default) and its
+     unfused route in turns, bf16 and f32
   6. eval checks: kernel path vs the plain versions (posteriors, loss
      above its ln 2 floor); f32 card vs CPU (posteriors, decoder logits,
      loss above its floor)
+  6b. the training CLI: `experiments/celeba/train.py:main` on the
+     synthetic CelebA set, CelebaMVAE(100) bf16, 2 epochs into a temporary
+     directory, --resume for a third, then Sampler.from_checkpoint on
+     model_best.pth.tar answers one request
   7. train checks: one step, kernel path vs plain versions (loss,
-     parameter gradients), bf16 and f32; f32 card vs CPU (TF32 off) on one
-     step with the same noise; the loss of the last window below the
-     first's; running statistics finite and moved
-  8. the kernels line: launches on phases 3-5, error, times, bounds
+     parameter gradients), bf16 and f32; fused vs unfused encoder route
+     (loss, gradients, the encoder BNs' running statistics); f32 card vs
+     CPU (TF32 off) on one step with the same noise; the loss of the last
+     window below the first's; running statistics finite and moved
+  8. the kernels line: launches on phases 3-5 and 6b, error, times, bounds
 Phases 3-5 end with a torch.profiler breakdown of device time per call.
 Weights are random from seed 0, the BN statistics and affine parameters
 too. The last line is {"ok": true, "device": {...}}.
@@ -33,15 +41,19 @@ too. The last line is {"ok": true, "device": {...}}.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (endpoints, steps, windows), on whatever card
 `nvidia-smi` names; the bounds use that card's published memory rate and
-f32 rate.
+its f32 rate, or for the bf16 convolutions its bf16 tensor-core rate.
 """
 
 import contextlib
 import copy
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,12 +62,15 @@ import torch.nn.functional as F
 
 from mvae_tpu_torch import ops
 from mvae_tpu_torch.core.engine import multi_term_elbo
+from mvae_tpu_torch.experiments.celeba import train as celeba_cli
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
+from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_plain
 from mvae_tpu_torch.serve import Sampler
+from mvae_tpu_torch.train.checkpoint import BEST, CKPT
 from mvae_tpu_torch.train.loop import (
     decode_batch, draw_noise, make_eval_step, make_multi_train_step,
     resolve_decode_dtype)
@@ -90,7 +105,27 @@ BN_OUT_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # relative on the CPU); the Linear biases that feed a BN have an exact
 # gradient of 0, both sides return rounding noise, held absolutely
 GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# conv2d_moments against its plain version (cuDNN, TF32 off): f32 y sums
+# up to 2048 products in another order; bf16 y rounds an f32 accumulator
+# once on both sides, so a rare y sits one bf16 step apart (2^-7
+# relative); the sums compared as means over the B*OH*OW pixels, a few
+# such steps moving a bf16 mean by far less than 1e-4
+CONV_Y_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+CONV_SUM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+                torch.bfloat16: dict(rtol=1e-4, atol=1e-4)}
+# the encoder BNs' running statistics after one step, fused vs unfused
+# route: in f32 the same batch moments from sums in another order; in bf16
+# the second and third convs read another input, as the fused route's
+# swish rounds in JAX's five bf16 steps and the BN kernel's once from f32
+# (a CPU rehearsal at B=100 read 8.4e-5 at most)
+EMA_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
+           torch.bfloat16: dict(rtol=1e-3, atol=5e-4)}
 GRAD_NOISE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# one train step, the encoder's fused route vs its unfused one, at
+# GRAD_RTOL: the fused route's BN backward folds y's cotangent with the
+# moments' in f32 and rounds once, as the BN kernel's dx does
+# (ops/convbn.py)
 BATCH, N_DATA = 100, 1000    # rows a step; rows of the resident dataset
 TRAIN_K = 20            # steps per window
 LR = 1e-4               # experiments/celeba/train.py: lr 1e-4
@@ -111,11 +146,17 @@ KERNELS = {
                             replaces="mvae_tpu/ops/bn_pallas.py:107"),
     "bn_dx": dict(route="cuda", source="mvae_tpu_torch/csrc/bn_swish.cu",
                   replaces="mvae_tpu/ops/bn_pallas.py:120"),
+    "conv2d_moments": dict(route="cuda",
+                           source="mvae_tpu_torch/csrc/conv_moments.cu",
+                           replaces="mvae_tpu/ops/convbn_pallas.py:116"),
 }
 BN_KERNELS = ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx")
 
 # the BN layers of the train step under bf16 compute: (layer, how many
-# such layers, G, N, C, S, dtype). G = 3 terms in the decoders.
+# such layers, G, N, C, S, dtype). G = 3 terms in the decoders. The
+# encoder's three conv BNs take the BN kernels only on the unfused route
+# (conv_moments=False); the default route folds their moments into
+# conv2d_moments (ENC_CONV_BN).
 BN_LAYERS = (
     ("image enc conv2", 1, 1, 100, 64, 256, torch.bfloat16),
     ("image enc conv3", 1, 1, 100, 128, 64, torch.bfloat16),
@@ -127,18 +168,27 @@ BN_LAYERS = (
     ("attrs dec BN1d", 3, 3, 100, 512, 1, torch.float32),
 )
 BN_MAIN_LAYER = "image dec convT3"      # the largest launch
+ENC_CONV_BN = ("image enc conv2", "image enc conv3", "image enc conv4")
+# the encoder's BN'd convs at B=100: (layer, B, C_in, H, C_out, stride,
+# padding)
+CONV_LAYERS = (("image enc conv2", 100, 32, 32, 64, 2, 1),
+               ("image enc conv3", 100, 64, 16, 128, 2, 1),
+               ("image enc conv4", 100, 128, 8, 256, 1, 0))
+CONV_MAIN = ("image enc conv2", torch.bfloat16)
+CLI_EPOCHS = 2          # then --resume for one more
 
 
 def card_peaks(name):
-    """(memory bytes/s, f32 non-tensor FLOP/s): published dense peaks of
-    the card, SXM unless the name says otherwise."""
+    """(memory bytes/s, f32 non-tensor FLOP/s, bf16 dense tensor-core
+    FLOP/s): published peaks of the card, SXM unless the name says
+    otherwise."""
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "H100 NVL" in name:
-        return 3.9e12, 60e12
+        return 3.9e12, 60e12, 835e12
     if "H200" in name:
-        return 4.8e12, 67e12
-    return 3.35e12, 67e12
+        return 4.8e12, 67e12, 989e12
+    return 3.35e12, 67e12, 989e12
 
 
 def device_ms(fn, flush, reps=60):
@@ -178,8 +228,11 @@ def host_ms(fn, reps=20):
     return statistics.median(out)
 
 
-def bound(nbytes, nops, peaks):
-    t_bytes, t_ops = nbytes / peaks[0] * 1e3, nops / peaks[1] * 1e3
+def bound(nbytes, nops, peaks, rate=None):
+    """The least ms for nbytes at the memory rate and nops at `rate` (the
+    f32 rate unless given)."""
+    rate = peaks[1] if rate is None else rate
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, nops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -251,12 +304,14 @@ def phase_kernels(dev, card, peaks, flush):
 
 def phase_bn_kernels(dev, card, peaks, flush):
     """The four BN passes against their plain versions at every BN layer
-    of the train step, timed, with per-step sums over the 11 layers; the
-    bf16 conv layers again in f32 (the --f32 step), checked, not timed."""
+    of the train step, timed, with per-step sums over the 8 layers of the
+    default route and the 11 of the unfused one; the bf16 conv layers
+    again in f32 (the --f32 step), checked, not timed."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {k: {"max_abs_err": 0.0} for k in BN_KERNELS}
-    per_step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-                for k in BN_KERNELS}
+    per_step = {route: {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                bound_ms=0.0) for k in BN_KERNELS}
+                for route in ("default", "unfused")}
     cases = [layer + (True,) for layer in BN_LAYERS] + [
         (name + " (f32)", n, gg, nn, c, sp, torch.float32, False)
         for name, n, gg, nn, c, sp, dt in BN_LAYERS if dt == torch.bfloat16]
@@ -311,17 +366,79 @@ def phase_bn_kernels(dev, card, peaks, flush):
             print(f"[kernel] {name} {case}: max_abs_err {err} ms {t_k} "
                   f"plain_ms {t_p} library_ms {t_lib} bound_ms {b_ms} "
                   f"({b_by}) x{count} per step | {card}")
-            for key, v in (("ms", t_k), ("plain_ms", t_p),
-                           ("library_ms", t_lib), ("bound_ms", b_ms)):
-                per_step[name][key] += count * v
+            for route in per_step:
+                if route == "default" and layer in ENC_CONV_BN:
+                    continue
+                for key, v in (("ms", t_k), ("plain_ms", t_p),
+                               ("library_ms", t_lib), ("bound_ms", b_ms)):
+                    per_step[route][name][key] += count * v
             if layer == BN_MAIN_LAYER:
                 row.update(ms=t_k, plain_ms=t_p, library_ms=t_lib,
                            bound_ms=b_ms, bound_by=b_by, case=case)
-    for name, v in per_step.items():
-        print(f"[kernel] {name} per train step (11 layers): ms {v['ms']} "
-              f"plain_ms {v['plain_ms']} library_ms {v['library_ms']} "
-              f"bound_ms {v['bound_ms']} | {card}")
+    for route, layers in (("default", 8), ("unfused", 11)):
+        for name, v in per_step[route].items():
+            print(f"[kernel] {name} per train step, {route} route ({layers}"
+                  f" layers): ms {v['ms']} plain_ms {v['plain_ms']} "
+                  f"library_ms {v['library_ms']} bound_ms {v['bound_ms']} "
+                  f"| {card}")
     return rows
+
+
+def phase_conv_kernels(dev, card, peaks, flush):
+    """conv2d_moments against its plain version at the encoder's three BN'd
+    convs, bf16 (the default step) and f32 (--f32), timed, with per-step
+    sums. The library yardstick is two calls, F.conv2d then torch.var_mean
+    of its output: no one PyTorch call computes the conv and its moments."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    row = {"max_abs_err": 0.0}
+    for dt in (torch.bfloat16, torch.float32):
+        per_step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for layer, b, c_in, h, c_out, stride, pad in CONV_LAYERS:
+            x = (2 * torch.rand((b, c_in, h, h), generator=g,
+                                device=dev)).to(dt)
+            w = (torch.randn((c_out, c_in, 4, 4), generator=g, device=dev)
+                 / (16 * c_in) ** 0.5).to(dt)
+            y, s, q = convbn.conv2d_moments_fwd(x, w, stride, pad)
+            py, ps, pq = convbn.conv2d_moments_plain(x, w, stride, pad)
+            torch.testing.assert_close(y.float(), py.float(),
+                                       **CONV_Y_TOL[dt])
+            pixels = y.numel() // c_out
+            got, want = torch.stack((s, q)) / pixels, torch.stack(
+                (ps, pq)) / pixels
+            torch.testing.assert_close(got, want, **CONV_SUM_TOL[dt])
+            err = max((y.double() - py.double()).abs().max().item(),
+                      (got.double() - want.double()).abs().max().item())
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            t_k = device_ms(lambda: convbn.conv2d_moments_fwd(
+                x, w, stride, pad), flush)
+            t_p = device_ms(lambda: convbn.conv2d_moments_plain(
+                x, w, stride, pad), flush)
+            t_lib = device_ms(lambda: torch.var_mean(F.conv2d(
+                x, w, stride=stride, padding=pad), dim=(0, 2, 3),
+                correction=0), flush)
+            isz = x.element_size()
+            nbytes = (x.numel() + w.numel() + y.numel()) * isz + 2 * c_out * 4
+            nops = 2 * y.numel() * c_in * 16 + 3 * y.numel()
+            b_ms, b_by = bound(nbytes, nops, peaks,
+                               peaks[2] if dt == torch.bfloat16 else None)
+            case = (f"{layer}: x ({b}, {c_in}, {h}, {h}) -> y ({b}, {c_out}"
+                    f", {y.shape[2]}, {y.shape[3]}) {str(dt).split('.')[-1]}")
+            print(f"[kernel] conv2d_moments {case}: max_abs_err {err} ms "
+                  f"{t_k} plain_ms {t_p} library_ms {t_lib} (F.conv2d + "
+                  f"torch.var_mean, two calls) bound_ms {b_ms} ({b_by}) | "
+                  f"{card}")
+            for key, v in (("ms", t_k), ("plain_ms", t_p),
+                           ("library_ms", t_lib), ("bound_ms", b_ms)):
+                per_step[key] += v
+            if (layer, dt) == CONV_MAIN:
+                row.update(ms=t_k, plain_ms=t_p, library_ms=t_lib,
+                           bound_ms=b_ms, bound_by=b_by, case=case)
+        print(f"[kernel] conv2d_moments per train step, "
+              f"{str(dt).split('.')[-1]} (3 layers): ms {per_step['ms']} "
+              f"plain_ms {per_step['plain_ms']} library_ms "
+              f"{per_step['library_ms']} bound_ms {per_step['bound_ms']} "
+              f"| {card}")
+    return {"conv2d_moments": row}
 
 
 def library_calls(x4, g4, scale, bias):
@@ -495,14 +612,26 @@ def running_stats(model):
             if k.endswith(("running_mean", "running_var"))}
 
 
+def timed_window(multi, data, idxs, betas):
+    """(losses of one window, its host ms per step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window_losses = multi(data, idxs, betas)
+    torch.cuda.synchronize()
+    return window_losses, (time.perf_counter() - t0) * 1e3 / TRAIN_K
+
+
 def phase_train(dev, card, data, out):
     """The train step at full width, bf16 and f32: windows of K=20 steps
     of make_multi_train_step (one loss readback a window), kernel path
-    and plain versions in turns after a warm-up pair, then a device-time
-    breakdown per step. Beta 1, as after the CLI's 20 annealing epochs.
-    Records each window's mean loss and the running statistics before
-    training, for the checks."""
-    # a warm-up pair, then K, P, P, K twice (K: kernel path, P: plain)
+    and plain versions in turns after a warm-up pair, then the encoder's
+    fused route (conv2d_moments; the default) and its unfused route in
+    turns, each from a copy of the trained model, then a device-time
+    breakdown per step of each route. Beta 1, as after the CLI's 20
+    annealing epochs. Records each window's mean loss and the running
+    statistics before training, for the checks."""
+    # a warm-up pair, then K, P, P, K twice (K: kernel path, P: plain);
+    # the routes likewise (F: fused, U: unfused)
     order = (False, True) + (False, True, True, False) * 2
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
@@ -512,15 +641,12 @@ def phase_train(dev, card, data, out):
             model, MASKS, LAMBDAS, lr=LR, device=dev,
             generator=torch.Generator(device=dev).manual_seed(0))
         betas = torch.ones(TRAIN_K, device=dev)
-        windows = train_windows(dev, len(order) + 4)
+        windows = iter(train_windows(dev, 2 * len(order) + 6))
         losses, times = [], {False: [], True: []}
         for i, plain in enumerate(order):
             with ops.plain_versions() if plain else contextlib.nullcontext():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                window_losses = multi(data, windows[i], betas)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3 / TRAIN_K
+                window_losses, ms = timed_window(multi, data, next(windows),
+                                                 betas)
             losses.append(window_losses.mean().item())
             expect(bool(torch.isfinite(window_losses).all()),
                    f"train {dt}: loss not finite {window_losses}")
@@ -531,12 +657,127 @@ def phase_train(dev, card, data, out):
         print(f"[train] {dt} B=100 T=3 step: {times[False]} ms (plain "
               f"versions {times[True]} ms), host clock per window / K "
               f"| {card}")
-        rest = iter(windows[len(order):])
-        profile_breakdown(f"train {dt} B=100 T=3 step (window of "
-                          f"{TRAIN_K})", lambda: multi(data, next(rest),
-                                                       betas),
-                          card, reps=1, wall_reps=2, per=TRAIN_K)
+
+        routes = {}
+        for fused in (True, False):
+            m = copy.deepcopy(model)
+            m.image_encoder.features.conv_moments = fused
+            routes[fused] = make_multi_train_step(
+                m, MASKS, LAMBDAS, lr=LR, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(1))
+        r_times = {True: [], False: []}
+        for i, unfused in enumerate(order):
+            window_losses, ms = timed_window(routes[not unfused], data,
+                                             next(windows), betas)
+            expect(bool(torch.isfinite(window_losses).all()),
+                   f"train {dt} route: loss not finite {window_losses}")
+            if i >= 2:
+                r_times[not unfused].append(ms)
+        print(f"[train] {dt} B=100 T=3 step, encoder route: fused "
+              f"(conv2d_moments) {r_times[True]} ms, unfused {r_times[False]}"
+              f" ms, in turns F, U, U, F twice, host clock per window / K "
+              f"| {card}")
+        for fused, label in ((True, "fused"), (False, "unfused")):
+            profile_breakdown(
+                f"train {dt} B=100 T=3 step, {label} encoder route (window "
+                f"of {TRAIN_K})",
+                lambda: routes[fused](data, next(windows), betas), card,
+                reps=1, wall_reps=1, per=TRAIN_K)
         out[dtype] = dict(losses=losses, stats0=stats0, model=model)
+
+
+# the reference's log lines (train/loop.py:log_train, log_epoch, log_test)
+# and the driver's throughput line
+LOG_LINE = re.compile(
+    r"^(Train Epoch: \d+ \[\d+/\d+ \(\d+%\)\]\tLoss: -?\d+\.\d{6}\t"
+    r"Annealing-Factor: \d\.\d{3}|====> Epoch: \d+\tLoss: -?\d+\.\d{4}"
+    r"|====> Test Loss: -?\d+\.\d{4}|====> Throughput: \d+\.\d{2} "
+    r"steps/sec)$")
+
+
+class TimedLines(io.TextIOBase):
+    """A stdout that passes the text on and keeps each finished line with
+    the host time it was finished at."""
+
+    def __init__(self, sink):
+        self.sink, self.part, self.lines = sink, "", []
+
+    def write(self, text):
+        self.sink.write(text)
+        *done, self.part = (self.part + text).split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        self.sink.flush()
+
+
+def phase_cli(dev, card):
+    """The training CLI on the card: experiments/celeba/train.py:main on
+    the synthetic CelebA set (2000 train and 500 val rows, the loader's
+    defaults), CelebaMVAE(100) in bf16 (the CLI's defaults), CLI_EPOCHS
+    epochs, annealing 1, windows of 10; then --resume of its checkpoint
+    for one more epoch; then model_best.pth.tar served by Sampler. Checks
+    the log lines, the files, the epoch the resume starts at, and a
+    finite test loss; prints the throughput and each epoch's wall time."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        out_dir = os.path.join(tmp, "models")
+        argv = ["--annealing-epochs", "1", "--log-interval", "10",
+                "--out-dir", out_dir, "--data-dir", os.path.join(tmp, "data")]
+        rec = TimedLines(sys.stdout)
+        with contextlib.redirect_stdout(rec):
+            rec.lines.append((time.perf_counter(), "[cli] start"))
+            celeba_cli.main(argv + ["--epochs", str(CLI_EPOCHS)])
+            rec.lines.append((time.perf_counter(), "[cli] resume"))
+            celeba_cli.main(argv + ["--epochs", str(CLI_EPOCHS + 1),
+                                    "--resume", os.path.join(out_dir, CKPT)])
+        for name in (CKPT, BEST):
+            expect(os.path.isfile(os.path.join(out_dir, name)),
+                   f"cli: no {name}")
+        lines = [line for _, line in rec.lines]
+        logs = [line for line in lines if LOG_LINE.match(line)]
+        epochs = list(range(1, CLI_EPOCHS + 2))
+        for e in epochs:
+            expect(sum(line.startswith(f"Train Epoch: {e} [") for line in
+                       logs) == 2, f"cli: epoch {e} has not 2 train lines")
+            expect(f"====> Epoch: {e}\t" in "\n".join(logs),
+                   f"cli: no epoch line for epoch {e}")
+        tests = [float(line.split()[-1]) for line in logs
+                 if line.startswith("====> Test Loss")]
+        expect(len(tests) == len(epochs) and all(np.isfinite(tests)),
+               f"cli: test losses {tests}")
+        i = lines.index("[cli] resume")
+        expect(any(line.startswith("resumed from ") and
+                   line.endswith(f"at epoch {CLI_EPOCHS}")
+                   for line in lines[i:]), "cli: no resume line")
+        first = next(line for line in lines[i:]
+                     if line.startswith("Train Epoch"))
+        expect(first.startswith(f"Train Epoch: {CLI_EPOCHS + 1} [0/"),
+               f"cli: resumed at {first!r}")
+        throughput = [line for line in logs if "Throughput" in line]
+        expect(len(throughput) == CLI_EPOCHS - 1, "cli: throughput lines")
+        # an epoch's training: from the line before its first train line
+        # (the pipeline line or the last epoch's test loss) to its epoch line
+        train_s, start = [], None
+        for t, line in rec.lines:
+            if line.startswith(("input pipeline", "====> Test Loss")):
+                start = t
+            elif line.startswith("====> Epoch"):
+                train_s.append(t - start)
+        print(f"[cli] CelebaMVAE(100) bf16 B=100, 20 steps an epoch: "
+              f"{throughput} ; epoch training wall s {train_s} (epochs "
+              f"{epochs}; epoch 1 and the resumed epoch {CLI_EPOCHS + 1} "
+              f"include the warm-up) | {card}")
+
+        sampler = Sampler.from_checkpoint(os.path.join(out_dir, BEST),
+                                          compute_dtype=torch.bfloat16)
+        images = torch.rand((8, 64, 64, 3), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(7))
+        check_images(sampler.reconstruct({"image": images}), 8)
+        print(f"[cli] {BEST} served one reconstruct request of 8 rows; test "
+              f"losses {tests}")
 
 
 def loss_above_floor(per_term):
@@ -631,31 +872,50 @@ def bn_fed_biases(model):
     return out
 
 
-def grads_held(what, got, want, rtol, noise_atol, noisy):
-    """Every gradient within rtol of want in relative Frobenius norm, the
-    noisy ones (exactly 0 in exact arithmetic) within noise_atol of it."""
-    rel, noise, where = 0.0, 0.0, ""
+def grad_gaps(got, want, noisy):
+    """(relative Frobenius gap of each gradient not in noisy, largest
+    first; the largest absolute gap of those in noisy)."""
+    rel, noise = [], 0.0
     for k, w in want.items():
         gap = (got[k].double().cpu() - w.double().cpu()).norm().item()
         if k in noisy:
             noise = max(noise, gap)
-        elif gap / max(w.double().norm().item(), 1e-30) > rel:
-            rel, where = gap / max(w.double().norm().item(), 1e-30), k
-    print(f"[check] {what}: {len(want)} parameter gradients, max relative "
-          f"gap {rel} ({where}; rtol {rtol}), BN-fed biases max gap {noise} "
-          f"(atol {noise_atol})")
-    expect(rel < rtol and noise < noise_atol, f"{what}: gradients differ")
+        else:
+            rel.append((gap / max(w.double().norm().item(), 1e-30), k))
+    return sorted(rel, reverse=True), noise
+
+
+def grads_held(what, got, want, rtol, noise_atol, noisy):
+    """Every gradient within rtol of want in relative Frobenius norm, the
+    noisy ones (exactly 0 in exact arithmetic) within noise_atol of it."""
+    rel, noise = grad_gaps(got, want, noisy)
+    print(f"[check] {what}: {len(want)} parameter gradients, largest "
+          f"relative gaps {rel[:3]} (rtol {rtol}), BN-fed biases max gap "
+          f"{noise} (atol {noise_atol})")
+    expect(rel[0][0] < rtol and noise < noise_atol,
+           f"{what}: gradients differ")
+
+
+def encoder_bn_stats(model):
+    f = model.image_encoder.features
+    return {f"features.{i}.{k}": getattr(f[i], k) for i in (3, 6, 9)
+            for k in ("running_mean", "running_var")}
 
 
 def phase_train_checks(dev, data, idx, trained):
     """One train step, kernel path vs the plain versions (loss above its
-    ln 2 floor, every parameter gradient) in bf16 and f32; f32 card vs
-    CPU on 16 rows with the same noise; then, from phase 5, the loss
+    ln 2 floor, every parameter gradient) in bf16 and f32; the same step
+    on the encoder's unfused route against the fused one (loss,
+    gradients, the encoder BNs' committed running statistics); f32 card
+    vs CPU on 16 rows with the same noise; then, from phase 5, the loss
     falling and the running statistics moved and finite."""
+    route_grads = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
         model = celeba(dtype, dev, seed=20)
         twin = copy.deepcopy(model)
+        unfused = copy.deepcopy(model)
+        unfused.image_encoder.features.conv_moments = False
         batch = decode_batch({k: v.index_select(0, idx)
                               for k, v in data.items()},
                              resolve_decode_dtype(model))
@@ -670,6 +930,30 @@ def phase_train_checks(dev, data, idx, trained):
         grads_held(f"{dt} B=100 train step, kernels vs plain", k_grads,
                    p_grads, GRAD_RTOL[dtype], GRAD_NOISE_ATOL[dtype],
                    bn_fed_biases(model))
+        counts = ops.launch_counts()
+        u_terms, u_grads = one_step(unfused, batch, noise)
+        expect(ops.launch_counts()["conv2d_moments"]
+               == counts["conv2d_moments"], "the unfused route launched "
+               "conv2d_moments")
+        held(f"{dt} B=100 train step loss above floor, fused vs unfused "
+             f"encoder route", loss_above_floor(k_terms),
+             loss_above_floor(u_terms), STEP_RTOL[dtype], 0.0)
+        grads_held(f"{dt} B=100 train step, fused vs unfused encoder route",
+                   k_grads, u_grads, GRAD_RTOL[dtype],
+                   GRAD_NOISE_ATOL[dtype], bn_fed_biases(model))
+        u_stats = encoder_bn_stats(unfused)
+        for k, v in encoder_bn_stats(model).items():
+            held(f"{dt} encoder BN {k} after one step, fused vs unfused",
+                 v, u_stats[k], **EMA_TOL[dtype])
+        route_grads[dtype] = {"fused": k_grads, "unfused": u_grads}
+    # a reading, not a check: how far each bf16 route's gradients lie from
+    # the f32 step's on the same weights, batch rows and noise
+    want = route_grads[torch.float32]["unfused"]
+    for route, grads in route_grads[torch.bfloat16].items():
+        rel, _ = grad_gaps(grads, want, bn_fed_biases(model))
+        print(f"[reading] bfloat16 B=100 train step, {route} encoder route "
+              f"vs the float32 step: largest relative gradient gaps "
+              f"{rel[:3]}")
 
     gpu = celeba(torch.float32, dev, seed=30)
     cpu = celeba(torch.float32, "cpu", seed=30)
@@ -709,6 +993,7 @@ FAMILIES = (
     ("bn_normalize", lambda k: "bn_normalize_kernel" in k),
     ("bn_bwd_partials", lambda k: "bn_bwd_partials_kernel" in k),
     ("bn_dx", lambda k: "bn_dx_kernel" in k),
+    ("conv2d_moments", lambda k: "conv_moments" in k),
     ("adam (foreach)", lambda k: "multi_tensor_apply" in k),
     ("conv (cuDNN)", lambda k: ("xmma" in k and "gemm_" not in k)
      or "cudnn" in k or "conv" in k.lower() or "dgrad" in k
@@ -762,10 +1047,11 @@ def profile_breakdown(name, fn, card, reps=5, wall_reps=20, per=1):
 
 def run(dev, card, peaks):
     """Phases 2-7; returns the kernel rows of phase 2 and the launches of
-    phases 3-5."""
+    phases 3-5 and 6b."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, card, peaks, flush)
     rows.update(phase_bn_kernels(dev, card, peaks, flush))
+    rows.update(phase_conv_kernels(dev, card, peaks, flush))
     del flush
 
     models = {dt: celeba(dt, dev) for dt in (torch.bfloat16, torch.float32)}
@@ -775,12 +1061,13 @@ def run(dev, card, peaks):
     # the kernels each path must have launched
     must = {"serve": ("poe_fwd",),
             "eval": ("poe_fwd", "bce_rowsum_fwd"),
-            "train": tuple(KERNELS)}
+            "train": tuple(KERNELS), "cli": tuple(KERNELS)}
     launches = {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
             ("eval", lambda: phase_eval(dev, card, models, data, idx)),
-            ("train", lambda: phase_train(dev, card, data, trained))):
+            ("train", lambda: phase_train(dev, card, data, trained)),
+            ("cli", lambda: phase_cli(dev, card))):
         ops.reset_launch_counts()
         fn()
         torch.cuda.synchronize()
@@ -811,7 +1098,8 @@ def main():
     peaks = card_peaks(name)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}; peaks {peaks[0] / 1e12} TB/s, "
-          f"{peaks[1] / 1e12} f32 TFLOP/s")
+          f"{peaks[1] / 1e12} f32 TFLOP/s, {peaks[2] / 1e12} bf16 "
+          f"tensor-core TFLOP/s")
     lib = ops.library()
     print(f"[build] kernels built and loaded in {lib.build_seconds} s")
     torch.backends.cudnn.allow_tf32 = False

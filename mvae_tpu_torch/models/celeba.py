@@ -21,7 +21,12 @@ Train mode (`model.train()`): BN with batch statistics, fused with its
 swish; the image head's dropout (rate 0.1) takes a keep-mask from the
 caller; decode keeps `groups` sets of BN statistics over consecutive
 blocks of rows (the ELBO terms). encode and decode return the batch
-moments their BNs made, for the engine's EMA commit.
+moments their BNs made, for the engine's EMA commit. With `conv_moments`
+(the default) the image encoder's three BN'd convs take the fused route in
+train mode: the conv2d_moments kernel and the BN from its sums
+(nn/dcgan.py). In the JAX package that route is opt-in
+(MVAE_CONVBN_PALLAS=1); here it is the CUDA path of the op, and
+`conv_moments=False` gives the unfused one.
 """
 
 import torch
@@ -54,10 +59,10 @@ def _mlp_bn(dims, d_out, device):
 
 
 class ImageEncoder(nn.Module):
-    def __init__(self, n_latents, compute_dtype, device):
+    def __init__(self, n_latents, compute_dtype, conv_moments, device):
         super().__init__()
         self.features = ConvStack(3, ENC_SPECS, compute_dtype=compute_dtype,
-                                  device=device)
+                                  conv_moments=conv_moments, device=device)
         self.classifier = PosteriorHead(256 * 5 * 5, n_latents,
                                         compute_dtype=compute_dtype,
                                         device=device)
@@ -94,16 +99,18 @@ class CelebaMVAE(MultimodalVAE):
     modalities = ("image", "attrs")
 
     def __init__(self, n_latents: int = 100, compute_dtype=None, *,
-                 device=None, generator=None):
+                 conv_moments: bool = True, device=None, generator=None):
         """device: None runs on the CUDA card (raises without one), "cpu"
         on the CPU. generator: CPU torch.Generator for the initial weights
-        (default: seed 0). The model starts in eval mode."""
+        (default: seed 0). conv_moments: the encoder's fused conv + BN
+        moments route in train mode. The model starts in eval mode."""
         super().__init__()
         device = resolve_device(device)
         self.n_latents = n_latents
         self.compute_dtype = compute_dtype
         L = n_latents
-        self.image_encoder = ImageEncoder(L, compute_dtype, device)
+        self.image_encoder = ImageEncoder(L, compute_dtype, conv_moments,
+                                          device)
         self.image_decoder = ImageDecoder(L, compute_dtype, device)
         self.attrs_encoder = MlpBN([N_ATTRS, 512, 512], 2 * L, device)
         self.attrs_decoder = MlpBN([L, 512, 512, 512], N_ATTRS, device)

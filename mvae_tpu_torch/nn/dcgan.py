@@ -18,6 +18,13 @@ keep-mask from the caller; under a compute dtype the decoder logits stay
 in it (nn/dcgan.py:124-126, the JAX package's default), and the losses
 upcast them.
 
+The encoder's fused route (`ConvStack(conv_moments=True)`, train mode
+only, nn/dcgan.py:62-72): a conv followed by a BatchNorm, at a shape the
+op takes, runs as ops/convbn.py:conv2d_moments, whose output comes with
+its batch-moment sums, and nn/norm.py:bn_swish_from_moments, so no pass of
+the BN reads the conv's output again for its statistics. The port's convs
+have no bias, as the op requires.
+
 spec row: (c_out, kernel, stride, pad, use_bn)
 """
 
@@ -26,11 +33,17 @@ from torch import nn
 
 from mvae_tpu_torch.nn.conv import Conv2d, ConvTranspose2d
 from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish
-from mvae_tpu_torch.nn.norm import BatchNorm, BNSwishSequential
+from mvae_tpu_torch.nn.norm import (
+    BatchNorm, BNSwishSequential, bn_swish_from_moments)
+from mvae_tpu_torch.ops.convbn import conv2d_moments, supported
 
 
 class ConvStack(BNSwishSequential):
-    def __init__(self, c_in, specs, *, compute_dtype=None, device=None):
+    """[conv -> (BN) -> swish]*; conv_moments: the fused route in train
+    mode (see the module docstring)."""
+
+    def __init__(self, c_in, specs, *, compute_dtype=None,
+                 conv_moments=False, device=None):
         layers = []
         for c_out, kern, s, pad, bn in specs:
             layers.append(Conv2d(c_in, c_out, kern, s, pad, device=device))
@@ -40,11 +53,27 @@ class ConvStack(BNSwishSequential):
             c_in = c_out
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
+        self.conv_moments = conv_moments
 
     def forward(self, x):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        return super().forward(x)
+        if not (self.training and self.conv_moments):
+            return super().forward(x)
+        layers = iter(self)                 # [conv, (BN), Swish] blocks
+        for conv in layers:
+            nxt = next(layers)
+            k = conv.weight.shape[-1]
+            if isinstance(nxt, BatchNorm) and supported(
+                    tuple(x.shape), k, conv.stride, conv.padding):
+                y, s, q = conv2d_moments(x, conv.weight.to(x.dtype),
+                                         conv.stride, conv.padding)
+                x = bn_swish_from_moments(nxt, y, s, q, x.dtype)
+            else:                           # a train-mode BN applies the
+                x = nxt(conv(x))            # swish too
+            if isinstance(nxt, BatchNorm):
+                next(layers)                # the Swish, applied above
+        return x
 
 
 class DeconvStack(BNSwishSequential):

@@ -14,6 +14,11 @@ running buffers. It keeps its batch moments on the module; the model's
 encode/decode collect them (`pop_moments`) and the engine commits the EMA
 (core/engine.py:commit_ema_states), momentum 0.1, with the unbiased
 variance, n = the rows and positions of one group.
+
+`bn_swish_from_moments` is the train-mode BN + swish of a conv whose batch
+moments came with its output (ops/convbn.py:conv2d_moments, the encoder's
+fused route; nn/norm.py:105-126 in the JAX package): plain PyTorch, since
+the JAX package writes it in jnp.
 """
 
 from typing import NamedTuple
@@ -21,7 +26,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from mvae_tpu_torch.nn.layers import Swish
+from mvae_tpu_torch.nn.layers import Swish, swish
 from mvae_tpu_torch.ops.bn import bn_swish_train
 
 EPS = 1e-5
@@ -80,6 +85,30 @@ class BatchNorm(nn.Module):
         self.moments = Moments(self, mean, var,
                                x.numel() // (self.groups * x.shape[1]))
         return y
+
+
+def bn_swish_from_moments(bn: "BatchNorm", y, s, q, dtype):
+    """swish(BN(y)) with the batch statistics of y from its sums.
+
+    y: (B, C, H, W) in the compute dtype `dtype`, or its values in f32;
+    s, q: (C,) f32, the sum and the sum of squares of y over
+    (B, H, W). As batchnorm_swish_from_moments computes it: mean = s/n,
+    var = max(q/n - mean^2, 0), z = y.f32 * a + (bias - mean * a) with
+    a = scale / sqrt(var + eps), rounded to `dtype`, then swish in that
+    dtype. The gradient flows through s and q (into the conv op's backward
+    fold). The moments land on `bn` for the EMA commit, as a train-mode
+    BatchNorm call leaves them.
+
+    The encoder passes y in f32, as conv2d_moments returns it, so that its
+    gradient reaches the fold unrounded (see ops/convbn.py)."""
+    n = y.numel() // y.shape[1]
+    mean = s / n
+    var = torch.clamp(q / n - mean * mean, min=0.0)
+    a = torch.reciprocal(torch.sqrt(var + EPS)) * bn.weight
+    shape = (1, -1) + (1,) * (y.ndim - 2)
+    z = y.float() * a.view(shape) + (bn.bias - mean * a).view(shape)
+    bn.moments = Moments(bn, mean.detach()[None], var.detach()[None], n)
+    return swish(z.to(dtype))
 
 
 class BNSwishSequential(nn.Sequential):

@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvae_tpu_torch"
-SOURCES = ("poe.cu", "bce_rowsum.cu", "bn_swish.cu", "status.cu")
+SOURCES = ("poe.cu", "bce_rowsum.cu", "bn_swish.cu", "conv_moments.cu",
+           "status.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -124,8 +125,10 @@ def library():
     lib.mvae_bn_normalize.argtypes = [p, i, p, p, p, i, i, i, i, p]
     lib.mvae_bn_bwd_partials.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p]
     lib.mvae_bn_dx.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.mvae_conv_moments.argtypes = [p, p, i, p, p] + [i] * 10 + [p]
     for fn in (lib.mvae_bn_moments, lib.mvae_bn_normalize,
-               lib.mvae_bn_bwd_partials, lib.mvae_bn_dx):
+               lib.mvae_bn_bwd_partials, lib.mvae_bn_dx,
+               lib.mvae_conv_moments):
         fn.restype = i
     lib.mvae_error_string.argtypes = [i]
     lib.mvae_error_string.restype = ctypes.c_char_p

@@ -1,1 +1,2 @@
-"""Eval step of the port (the train step comes with the training slice)."""
+"""Training of the port: the train and eval steps, the epoch driver and
+its `.pth.tar` checkpoints."""

@@ -1,5 +1,5 @@
-"""Train and eval steps and the input decode (counterpart of
-mvae_tpu/train/loop.py:16-51, 63-125, 146-212, 239-262)."""
+"""Train and eval steps, the input decode and the driver's logging
+(counterpart of mvae_tpu/train/loop.py:16-51, 63-125, 146-300)."""
 
 import torch
 
@@ -153,3 +153,40 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
 
     multi_step.optimizer = step.optimizer
     return multi_step
+
+
+class AverageMeter:
+    """Running mean for logging (mnist/train.py:97-112)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        val = float(val)
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+
+def log_train(epoch, batch_idx, batch_size, n_examples, n_batches, avg_loss,
+              beta):
+    """The reference's log line (mnist/train.py:221-224)."""
+    print('Train Epoch: {} [{}/{} ({:.0f}%)]\tLoss: {:.6f}\t'
+          'Annealing-Factor: {:.3f}'.format(
+              epoch, batch_idx * batch_size, n_examples,
+              100.0 * batch_idx / n_batches, avg_loss, beta))
+
+
+def log_epoch(epoch, avg_loss):
+    print('====> Epoch: {}\tLoss: {:.4f}'.format(epoch, avg_loss))
+
+
+def log_test(avg_loss):
+    print('====> Test Loss: {:.4f}'.format(avg_loss))

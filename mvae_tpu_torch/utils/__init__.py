@@ -1,1 +1,2 @@
-"""Utilities of the port: the weight carry-across."""
+"""Utilities of the port: the weight carry-across, the CLI parser and the
+profiler hook."""

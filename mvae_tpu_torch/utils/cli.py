@@ -1,0 +1,79 @@
+"""The train CLI's argument parser (counterpart of mvae_tpu/utils/cli.py:
+7-65): the reference's flag surface with the JAX package's defaults, without
+--cuda (the port runs on the card unless --device says otherwise) and
+--exact-decode (it decodes real images with PIL, the exact path, always),
+plus --device.
+
+Flags of the JAX package's distributed and host-streaming paths stay on
+the parser so that a command line written for it is understood, and
+`parse_train_args` refuses them: multi-process runs, the mesh and
+--no-device-data are not ported yet.
+"""
+
+import argparse
+
+NOT_PORTED = ("no_device_data", "distributed", "coordinator", "process_id",
+              "n_processes")
+
+
+def train_parser(*, n_latents, epochs, annealing_epochs, lr, batch_size=100,
+                 lambda_flags=(("lambda-image", 1.0), ("lambda-text", 10.0)),
+                 bf16_default=False):
+    p = argparse.ArgumentParser()
+    p.add_argument('--n-latents', type=int, default=n_latents,
+                   help=f'size of the latent embedding [default: {n_latents}]')
+    p.add_argument('--batch-size', type=int, default=batch_size, metavar='N')
+    p.add_argument('--epochs', type=int, default=epochs, metavar='N')
+    p.add_argument('--annealing-epochs', type=int, default=annealing_epochs,
+                   metavar='N')
+    p.add_argument('--lr', type=float, default=lr, metavar='LR')
+    p.add_argument('--log-interval', type=int, default=10, metavar='N',
+                   help='steps per logging window (one loss readback)')
+    for name, default in lambda_flags:
+        p.add_argument(f'--{name}', type=float, default=default)
+    p.add_argument('--device', type=str, default=None,
+                   help='torch device to train on [default: the CUDA card; '
+                        'raises without one]; "cpu" runs the plain PyTorch '
+                        'versions of the kernels')
+    p.add_argument('--data-dir', type=str, default='./data')
+    p.add_argument('--out-dir', type=str, default='./trained_models')
+    p.add_argument('--resume', type=str, default=None,
+                   help='a checkpoint.pth.tar to resume (or a params-only '
+                        '.pth.tar to warm-start from)')
+    p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--profile-dir', type=str, default=None,
+                   help='write a torch.profiler trace of the second '
+                        'logging window')
+    p.add_argument('--bf16', action='store_true', default=bf16_default,
+                   help='bfloat16 compute for the conv and expert stacks '
+                        '(params, BN statistics and losses stay f32)'
+                        + (' [default for this experiment]'
+                           if bf16_default else ''))
+    p.add_argument('--f32', dest='bf16', action='store_false',
+                   help='float32 compute (the reference numerics)')
+    p.add_argument('--download', action='store_true', default=False,
+                   help='print where the dataset files go; nothing is '
+                        'fetched')
+    p.add_argument('--no-device-data', action='store_true', default=False,
+                   help='not ported yet (host streaming): refused')
+    p.add_argument('--distributed', action='store_true', default=False,
+                   help='not ported yet (multi-process): refused')
+    p.add_argument('--coordinator', type=str, default=None,
+                   help='not ported yet (multi-process): refused')
+    p.add_argument('--process-id', type=int, default=None,
+                   help='not ported yet (multi-process): refused')
+    p.add_argument('--n-processes', type=int, default=None,
+                   help='not ported yet (multi-process): refused')
+    return p
+
+
+def parse_train_args(parser, argv=None):
+    """Parse argv; exit through parser.error on a flag of a path that is
+    not ported yet."""
+    args = parser.parse_args(argv)
+    for name in NOT_PORTED:
+        if getattr(args, name) not in (None, False):
+            parser.error(f"--{name.replace('_', '-')} is not ported yet: "
+                         "the port trains on one device, with the dataset "
+                         "resident on it")
+    return args

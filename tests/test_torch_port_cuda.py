@@ -17,6 +17,7 @@ from mvae_tpu_torch.core.engine import multi_term_elbo
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
+from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_plain
 from mvae_tpu_torch.serve import Sampler
@@ -37,6 +38,18 @@ BCE_TOL = dict(rtol=1e-5, atol=1e-4)
 BN_SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 BN_OUT_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
               torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# conv2d_moments against its plain version (cuDNN, TF32 off): f32 y sums
+# up to 2048 products in another order; bf16 y rounds an f32 accumulator
+# once on both sides, so a rare y sits one bf16 step apart (2^-7
+# relative); the sums compared as means over the B*OH*OW pixels
+CONV_Y_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+CONV_SUM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+                torch.bfloat16: dict(rtol=1e-4, atol=1e-4)}
+# the encoder's BN'd convs at B=100: (B, C_in, H, C_out, stride, padding),
+# and a ragged one (pixels, channels and K off the kernel's tiles)
+CONV_SHAPES = [(100, 32, 32, 64, 2, 1), (100, 64, 16, 128, 2, 1),
+               (100, 128, 8, 256, 1, 0), (3, 3, 6, 8, 2, 1)]
 # the BN layers of the CelebA train step at B=100: (G, N, C, S)
 BN_SHAPES = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
              (1, 100, 512, 1), (3, 100, 128, 64), (3, 100, 64, 256),
@@ -94,6 +107,67 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="experts"):
         m = torch.zeros((33, 2, 3), device=cuda)
         ops.poe_fwd(m, m, torch.ones((1, 33), device=cuda))
+
+
+def _conv_inputs(cuda, shape, dtype, seed=0):
+    b, c_in, h, c_out, _, _ = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (2 * torch.rand((b, c_in, h, h), generator=g, device=cuda)).to(dtype)
+    w = (torch.randn((c_out, c_in, 4, 4), generator=g, device=cuda)
+         / (16 * c_in) ** 0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_moments_kernel_matches_plain(cuda, shape, dtype):
+    """y, sum y and sum y^2 against the plain version (F.conv2d, then the
+    sums of the rounded y), one launch."""
+    x, w = _conv_inputs(cuda, shape, dtype)
+    stride, pad = shape[4:]
+    n = ops.conv2d_moments_fwd.launches
+    y, s, q = convbn.conv2d_moments_fwd(x, w, stride, pad)
+    torch.cuda.synchronize()
+    assert ops.conv2d_moments_fwd.launches == n + 1
+    py, ps, pq = convbn.conv2d_moments_plain(x, w, stride, pad)
+    assert y.dtype == dtype and y.shape == py.shape
+    torch.testing.assert_close(y.float(), py.float(), **CONV_Y_TOL[dtype])
+    pixels = y.numel() // y.shape[1]
+    torch.testing.assert_close(torch.stack((s, q)) / pixels,
+                               torch.stack((ps, pq)) / pixels,
+                               **CONV_SUM_TOL[dtype])
+
+
+def test_conv_moments_carries_gradients_on_the_card(cuda):
+    """The op's outputs on the kernel are part of the autograd graph; dx
+    and dw of a loss through all three equal the plain versions' (the same
+    stock backward on a dy folded from y's within tolerance of each
+    other), f32."""
+    x, w = _conv_inputs(cuda, CONV_SHAPES[1], torch.float32, seed=3)
+    grads = []
+    for plain in (False, True):
+        xi, wi = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        before = ops.conv2d_moments_fwd.launches
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            y, s, q = ops.conv2d_moments(xi, wi, 2, 1)
+        assert (ops.conv2d_moments_fwd.launches != before) != plain
+        assert y.requires_grad and s.requires_grad and q.requires_grad
+        (y.square().mean() + s.mean() * 1e-3 + q.mean() * 1e-4).backward()
+        grads.append((xi.grad, wi.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_conv_moments_wrapper_rejects_what_it_does_not_take(cuda):
+    x, w = _conv_inputs(cuda, CONV_SHAPES[1], torch.float32)
+    with pytest.raises(ValueError, match="4x4 kernels"):
+        convbn.conv2d_moments_fwd(x[:, :, :15, :15].contiguous(), w, 2, 1)
+    with pytest.raises(ValueError, match="4x4 kernels"):
+        convbn.conv2d_moments_fwd(x, w, 2, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        convbn.conv2d_moments_fwd(x, w.bfloat16(), 2, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        convbn.conv2d_moments_fwd(x.transpose(2, 3), w, 2, 1)
 
 
 def _batch(cuda, b=4):
@@ -231,9 +305,10 @@ def _one_step(model, batch, noise):
                             for k, p in model.named_parameters()}
 
 
-def test_train_step_goes_through_all_six_kernels(cuda):
+def test_train_step_goes_through_all_seven_kernels(cuda):
     """One train-mode ELBO and its backward on the card: 1 PoE, 2 BCE
-    launches and each BN pass once a BN layer (11), and every parameter
+    launches, conv2d_moments once for each of the encoder's 3 BN'd convs,
+    each BN pass once for each of the other 8 BN layers, and every parameter
     gradient within 1e-4 of the plain versions' in relative norm (f32,
     TF32 off). The Linear biases that feed a BN have an exact gradient of
     0; both sides give rounding noise, held within 1e-4 absolutely."""
@@ -246,11 +321,12 @@ def test_train_step_goes_through_all_six_kernels(cuda):
     total, grads = _one_step(model, batch, noise)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "poe_fwd": 1, "bce_rowsum_fwd": 2, "bn_moments": 11,
-        "bn_normalize": 11, "bn_bwd_partials": 11, "bn_dx": 11}
+        "poe_fwd": 1, "bce_rowsum_fwd": 2, "bn_moments": 8,
+        "bn_normalize": 8, "bn_bwd_partials": 8, "bn_dx": 8,
+        "conv2d_moments": 3}
     with ops.plain_versions():
         p_total, p_grads = _one_step(twin, batch, noise)
-    assert ops.launch_counts()["bn_dx"] == 11
+    assert ops.launch_counts()["bn_dx"] == 8
     torch.testing.assert_close(total, p_total, rtol=1e-5, atol=0)
     noisy = {f"{name}.{i}.bias" for name, mod in model.named_modules()
              if isinstance(mod, torch.nn.Sequential)

@@ -54,9 +54,14 @@ def jax_celeba(n_latents=L, compute_dtype=None, seed=0):
     return model, params, state
 
 
-def port_celeba(params, state, n_latents=L, compute_dtype=None):
-    """The port's CelebaMVAE on the CPU holding the JAX weights."""
-    model = CelebaMVAE(n_latents, compute_dtype, device="cpu")
+def port_celeba(params, state, n_latents=L, compute_dtype=None,
+                conv_moments=False):
+    """The port's CelebaMVAE on the CPU holding the JAX weights. In train
+    mode it takes the JAX package's default route unless `conv_moments`:
+    the fused conv + BN-moments route is opt-in there, and the tests of it
+    (test_torch_port_convbn.py) patch the JAX side onto it."""
+    model = CelebaMVAE(n_latents, compute_dtype, conv_moments=conv_moments,
+                       device="cpu")
     sd = {k: torch.tensor(v)
           for k, v in state_dict_from_jax(params, state).items()}
     model.load_state_dict(sd, strict=True)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import mvae_tpu_torch
+import mvae_tpu_torch.experiments.celeba.train as celeba_cli
 from mvae_tpu_torch.core.engine import multi_term_elbo
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.serve import Sampler
@@ -47,6 +48,16 @@ def test_import_pulls_in_no_jax_and_no_mvae_tpu():
     assert res.returncode == 0, res.stderr
 
 
+def test_import_rule_covers_the_trainer():
+    """The walk above reaches the data loaders, the driver, the checkpoint
+    code and the CLI."""
+    mods = set(_all_modules())
+    for name in ("data.pipeline", "data.celeba", "train.driver",
+                 "train.checkpoint", "utils.cli", "utils.profiling",
+                 "experiments.celeba.train", "ops.convbn"):
+        assert f"mvae_tpu_torch.{name}" in mods, name
+
+
 def test_sources_name_no_jax_and_no_mvae_tpu_module():
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b"
                      r"|\bmvae_tpu\.|^\s*(import|from)\s+mvae_tpu\b", re.M)
@@ -76,6 +87,33 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Sampler.from_checkpoint(path)
     assert Sampler.from_checkpoint(path, device="cpu").model.n_latents == 8
+
+
+def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
+                                                           capsys, tmp_path):
+    """The CLI resolves its device before it loads data: on a host without
+    a card it raises unless --device cpu, and it refuses the flags of the
+    paths that are not ported and the JAX CLI's --cuda and --exact-decode,
+    which would do nothing here."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loads = []
+    monkeypatch.setattr(celeba_cli, "load_celeba",
+                        lambda *a, **k: loads.append(a) or 1 / 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        celeba_cli.main(["--out-dir", str(tmp_path)])
+    assert loads == []
+    with pytest.raises(ZeroDivisionError):
+        celeba_cli.main(["--device", "cpu", "--out-dir", str(tmp_path)])
+    assert len(loads) == 1
+    for flag in (["--no-device-data"], ["--distributed"],
+                 ["--coordinator", "localhost:1"], ["--n-processes", "2"]):
+        with pytest.raises(SystemExit):
+            celeba_cli.main(["--device", "cpu"] + flag)
+        assert "not ported yet" in capsys.readouterr().err
+    for flag in ("--cuda", "--exact-decode"):
+        with pytest.raises(SystemExit):
+            celeba_cli.main(["--device", "cpu", flag])
+        assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_train_mode_is_refused_until_ported():
