@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught):
   2. kernels vs their plain versions at the paths' shapes, with times:
      PoE and BCE; the four BN passes at each of the train step's 11 BN
      layers; conv2d_moments at the encoder's 3 BN'd convs, bf16 and f32
-     (per-step sums too)
+     (per-step sums too); conv2d_moments and bn_bwd_partials launched
+     twice give bit-identical results
   3. serving: Sampler on CelebaMVAE(100) in bf16 (every endpoint)
   4. eval step: B=100, T=3, CLI weights, uint8 device-resident data, bf16
      and f32, kernel path and plain versions timed in turns
@@ -128,6 +129,7 @@ GRAD_NOISE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # (ops/convbn.py)
 BATCH, N_DATA = 100, 1000    # rows a step; rows of the resident dataset
 TRAIN_K = 20            # steps per window
+PROFILE_K = 5           # ... of the windows that run under the profiler
 LR = 1e-4               # experiments/celeba/train.py: lr 1e-4
 
 KERNELS = {
@@ -342,6 +344,10 @@ def phase_bn_kernels(dev, card, peaks, flush):
              lambda: bn_ops.bn_dx_plain(x4, g4, a, b, a, qc, rc), None,
              3 * numel * isz + 5 * gc * 4, 18 * numel))
         lib = library_calls(x4, g4, scale, bias) if timed else {}
+        for got, want in zip(bn_ops.bn_bwd_partials(x4, g4, a, b),
+                             bn_ops.bn_bwd_partials(x4, g4, a, b)):
+            expect(torch.equal(got, want), f"bn_bwd_partials {layer}: two "
+                   "launches differ")
         for name, kern, plain, per, nbytes, nops in passes:
             got, want = kern(), plain()
             if per:             # a pair of (G, C) sums: compare as means
@@ -399,6 +405,10 @@ def phase_conv_kernels(dev, card, peaks, flush):
             w = (torch.randn((c_out, c_in, 4, 4), generator=g, device=dev)
                  / (16 * c_in) ** 0.5).to(dt)
             y, s, q = convbn.conv2d_moments_fwd(x, w, stride, pad)
+            for got, want in zip(convbn.conv2d_moments_fwd(x, w, stride, pad),
+                                 (y, s, q)):
+                expect(torch.equal(got, want), f"conv2d_moments {layer}: two "
+                       "launches differ")
             py, ps, pq = convbn.conv2d_moments_plain(x, w, stride, pad)
             torch.testing.assert_close(y.float(), py.float(),
                                        **CONV_Y_TOL[dt])
@@ -627,7 +637,8 @@ def phase_train(dev, card, data, out):
     and plain versions in turns after a warm-up pair, then the encoder's
     fused route (conv2d_moments; the default) and its unfused route in
     turns, each from a copy of the trained model, then a device-time
-    breakdown per step of each route. Beta 1, as after the CLI's 20
+    breakdown per step of each route (on shorter windows: the profiler's
+    own work grows with the events it keeps). Beta 1, as after the CLI's 20
     annealing epochs. Records each window's mean loss and the running
     statistics before training, for the checks."""
     # a warm-up pair, then K, P, P, K twice (K: kernel path, P: plain);
@@ -680,9 +691,10 @@ def phase_train(dev, card, data, out):
         for fused, label in ((True, "fused"), (False, "unfused")):
             profile_breakdown(
                 f"train {dt} B=100 T=3 step, {label} encoder route (window "
-                f"of {TRAIN_K})",
-                lambda: routes[fused](data, next(windows), betas), card,
-                reps=1, wall_reps=1, per=TRAIN_K)
+                f"of {PROFILE_K})",
+                lambda: routes[fused](data, next(windows)[:PROFILE_K],
+                                      betas[:PROFILE_K]), card,
+                reps=1, wall_reps=1, per=PROFILE_K)
         out[dtype] = dict(losses=losses, stats0=stats0, model=model)
 
 
@@ -991,7 +1003,7 @@ FAMILIES = (
     ("bce_rowsum_fwd", lambda k: "bce_rowsum_kernel" in k),
     ("bn_moments", lambda k: "bn_moments_kernel" in k),
     ("bn_normalize", lambda k: "bn_normalize_kernel" in k),
-    ("bn_bwd_partials", lambda k: "bn_bwd_partials_kernel" in k),
+    ("bn_bwd_partials", lambda k: "bn_bwd_partials" in k),
     ("bn_dx", lambda k: "bn_dx_kernel" in k),
     ("conv2d_moments", lambda k: "conv_moments" in k),
     ("adam (foreach)", lambda k: "multi_tensor_apply" in k),
@@ -1045,14 +1057,30 @@ def profile_breakdown(name, fn, card, reps=5, wall_reps=20, per=1):
           f"| {card}")
 
 
+_START = time.perf_counter()
+
+
+def lap(what):
+    """Where the run's time goes: seconds since the script started."""
+    print(f"[time] {what}: {time.perf_counter() - _START} s since the start")
+
+
 def run(dev, card, peaks):
     """Phases 2-7; returns the kernel rows of phase 2 and the launches of
     phases 3-5 and 6b."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    # what device_ms reads for a launch with next to no work: every kernel
+    # time below carries about this much
+    x1 = torch.zeros((1, 1, 8, 1), device=dev)
+    a1 = torch.ones((1, 8), device=dev)
+    print(f"[kernel] floor: bn_bwd_partials on a (1, 1, 8, 1) view reads "
+          f"{device_ms(lambda: bn_ops.bn_bwd_partials(x1, x1, a1, a1), flush)}"
+          f" ms | {card}")
     rows = phase_kernels(dev, card, peaks, flush)
     rows.update(phase_bn_kernels(dev, card, peaks, flush))
     rows.update(phase_conv_kernels(dev, card, peaks, flush))
     del flush
+    lap("kernels against their plain versions")
 
     models = {dt: celeba(dt, dev) for dt in (torch.bfloat16, torch.float32)}
     data, idx = eval_data(dev)
@@ -1073,13 +1101,14 @@ def run(dev, card, peaks):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         print(f"[launches] {phase}: {counts}")
+        lap(phase)
         for k in must[phase]:
             expect(counts[k] > 0, f"{phase} ran no {k}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     phase_eval_checks(dev, models, data, idx)
     phase_train_checks(dev, data, idx, trained)
-
+    lap("checks, the whole run")
     return rows, launches
 
 
@@ -1102,6 +1131,7 @@ def main():
           f"tensor-core TFLOP/s")
     lib = ops.library()
     print(f"[build] kernels built and loaded in {lib.build_seconds} s")
+    lap("start and build")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows, launches = run(dev, card, peaks)

@@ -123,9 +123,9 @@ def library():
     lib.mvae_bce_rowsum_fwd.restype = i
     lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p]
     lib.mvae_bn_normalize.argtypes = [p, i, p, p, p, i, i, i, i, p]
-    lib.mvae_bn_bwd_partials.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p]
+    lib.mvae_bn_bwd_partials.argtypes = [p, p, i, p, p, p, p] + [i] * 10 + [p]
     lib.mvae_bn_dx.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
-    lib.mvae_conv_moments.argtypes = [p, p, i, p, p] + [i] * 10 + [p]
+    lib.mvae_conv_moments.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
     for fn in (lib.mvae_bn_moments, lib.mvae_bn_normalize,
                lib.mvae_bn_bwd_partials, lib.mvae_bn_dx,
                lib.mvae_conv_moments):

@@ -24,12 +24,19 @@ so they are marked non-differentiable: the backward's g_mean and g_var
 terms of bn_pallas.py:_vjp_bwd are zero and drop out of P, Q and R.
 """
 
+import functools
+
 import torch
 
 from mvae_tpu_torch.ops import _cuda
 
 EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
+PARTIALS_TARGET_BLOCKS = 4 * 132    # bn_bwd_partials: 4 blocks an SM (H100)
+PARTIALS_THREADS = 256              # a block, at most
+PARTIALS_UNROLL = 2                 # rows a thread has in flight
+MAX_CLUSTER = 8                     # blocks that share a plane: one cluster
+COLUMNS_WIDE, COLUMNS_DEEP = 32, 8  # the columns mapping: channels x row lanes
 
 
 def _per_channel(v):
@@ -129,19 +136,74 @@ def bn_normalize(x4, a, b):
     return y
 
 
+def _pow2_at_least(v: int, cap: int) -> int:
+    t = 1
+    while t < cap and t < v:
+        t *= 2
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_partials_launch(g: int, n: int, c: int, s: int, itemsize: int,
+                        aligned: bool = True) -> dict:
+    """How bn_bwd_partials is launched on a (G, N, C, S) view: every block
+    sums `rows` consecutive rows of its planes; the `splits` blocks that
+    share planes (grid.y) are one thread block cluster, at most
+    MAX_CLUSTER, whose first block adds their sums in rank order.
+
+    columns = 1 (runs of S shorter than 16 bytes, S = 1 for BatchNorm1d):
+    a block is COLUMNS_WIDE consecutive channels of a group by COLUMNS_DEEP
+    row lanes, each lane with PARTIALS_UNROLL rows in flight; grid
+    (G * ceil(C / COLUMNS_WIDE), splits).
+    columns = 0: a block is one plane's rows [y * rows, (y + 1) * rows),
+    `tpr` threads along a row's chunks of `vec` elements (16 bytes where S
+    holds whole chunks and the tensors are `aligned`, else one element)
+    and threads / tpr down the rows; grid (G * C, splits). The block is
+    the largest that still leaves PARTIALS_TARGET_BLOCKS blocks (else the
+    one with the most blocks), and its rows are what its threads hold in
+    flight at once where the cluster allows."""
+    least = -(-n // MAX_CLUSTER)
+    if s * itemsize < 16:
+        rows = max(least, min(n, COLUMNS_DEEP * PARTIALS_UNROLL))
+        splits = -(-n // rows)
+        return dict(columns=1, vec=1, splits=splits, rows=rows,
+                    threads=COLUMNS_WIDE * COLUMNS_DEEP, tpr=COLUMNS_WIDE,
+                    grid=(g * -(-c // COLUMNS_WIDE), splits))
+    v = 16 // itemsize
+    vec = v if (s % v == 0 and aligned) else 1
+    per_row = s // vec
+    planes = g * c
+    best = None
+    for threads in (PARTIALS_THREADS, 128, 64, 32):
+        tpr = _pow2_at_least(per_row, threads)
+        rows = max(least, min(n, threads // tpr * PARTIALS_UNROLL))
+        splits = -(-n // rows)
+        key = (min(planes * splits, PARTIALS_TARGET_BLOCKS), threads)
+        if best is None or key > best[0]:
+            best = (key, dict(columns=0, vec=vec, splits=splits, rows=rows,
+                              threads=threads, tpr=tpr,
+                              grid=(planes, splits)))
+    return best[1]
+
+
 def bn_bwd_partials(x4, g4, a, b):
     """Launch the backward partials kernel -> (sum dz, sum dz * x), each
     (G, C) f32; g4 matches x4."""
     name = "bn_bwd_partials"
     _check(name, x4, a, b, g4=g4)
     gsz, _, c, _ = x4.shape
+    lay = bwd_partials_launch(
+        *_dims(x4), x4.element_size(),
+        x4.data_ptr() % 16 == 0 and g4.data_ptr() % 16 == 0)
     sdz = torch.empty((gsz, c), device=x4.device, dtype=torch.float32)
     sdzx = torch.empty_like(sdz)
     with torch.cuda.device(x4.device):
         rc = _cuda.library().mvae_bn_bwd_partials(
             x4.data_ptr(), g4.data_ptr(), int(x4.dtype == torch.bfloat16),
             a.data_ptr(), b.data_ptr(), sdz.data_ptr(), sdzx.data_ptr(),
-            *_dims(x4), _cuda.stream(x4.device))
+            *_dims(x4), lay["columns"], lay["vec"], lay["splits"],
+            lay["rows"], lay["threads"], lay["tpr"],
+            _cuda.stream(x4.device))
     _cuda.check(name, rc)
     bn_bwd_partials.launches += 1
     return sdz, sdzx

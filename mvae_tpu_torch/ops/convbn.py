@@ -31,14 +31,24 @@ the unfused route's BN does, whose dx cancels in f32 and rounds once.
 `y.to(x.dtype)` gives y in x's dtype exactly.
 """
 
+import functools
+
 import torch
 from torch.nn import functional as F
 
 from mvae_tpu_torch.ops import _cuda
 
 KERNEL = 4
-TILE_M = 64         # output pixels a block (csrc/conv_moments.cu: kTileM)
+TILE_M = 64         # output pixels a block: the M of one wgmma
+STAGES = 4          # depth of the kernel's ring of K slices
+SLICE_BYTES = 128   # a weight row of one K slice (the swizzle's width)
+F32_TILE_N = 64
+SM_COUNT = 132      # the tiling is chosen for an H100
+MAX_SMEM = 232448   # dynamic shared memory a block can have
 _DTYPES = (torch.float32, torch.bfloat16)
+# launch_geometry's entries that csrc/conv_moments.cu takes, in its order
+_GEOMETRY_ARGS = ("tiles", "tile_m", "bn", "atoms", "stages", "rs", "ch", "lp",
+                  "vec", "a_stage", "smem")
 
 
 def supported(x_shape, k: int, stride: int, padding: int) -> bool:
@@ -56,6 +66,63 @@ def supported(x_shape, k: int, stride: int, padding: int) -> bool:
 
 def out_hw(n: int, stride: int, padding: int) -> int:
     return (n + 2 * padding - KERNEL) // stride + 1
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(b: int, c_in: int, h: int, w: int, c_out: int,
+                    stride: int, padding: int, itemsize: int) -> dict:
+    """How the kernel is launched on a supported shape, everything
+    csrc/conv_moments.cu is told beyond the tensors' sizes.
+
+    A block owns `tile_m` consecutive output pixels by `bn` channels (grid
+    `tiles` x `n_tiles`) and walks K in stages of `atoms` slices of
+    SLICE_BYTES a weight row, `kc` input channels in all. For a channel it
+    stages the input rows its pixels' windows touch: counted over the batch
+    as padded rows
+    v = b*(H + 2p) + ih + p they are consecutive, at most `rows` of them
+    for any tile. A staged row is `rs` elements (its data after `lp` zero
+    elements, so that 16-byte copies land aligned; the next row's zeros
+    are its right padding), a staged channel `ch` elements, a stage's A
+    tile `a_stage` bytes; `vec` says whether rows of x are whole 16-byte
+    chunks (else they are staged element by element). `table` is the
+    number of entries of the block's copy table, `smem` the dynamic shared
+    memory in bytes, `part` the shape of the per-tile partial sums the
+    kernel writes (sum y and sum y^2, a row a tile)."""
+    oh, ow = out_hw(h, stride, padding), out_hw(w, stride, padding)
+    m, vh = b * oh * ow, h + 2 * padding
+    tiles = -(-m // TILE_M)
+    epc = 16 // itemsize
+    if itemsize == 4:
+        bn, atoms = F32_TILE_N, 1
+    else:
+        # wide tiles while they still give every SM a block and a half; a
+        # long K (16 slices or more) takes two slices a stage
+        bn = 64 if (c_out > 32
+                    and 2 * tiles * -(-c_out // 64) >= 3 * SM_COUNT) else 32
+        atoms = 2 if c_in * 16 * itemsize >= 16 * SLICE_BYTES else 1
+    kc = atoms * SLICE_BYTES // (16 * itemsize)
+    n_tiles = -(-c_out // bn)
+
+    def rows_of(tile):
+        r0 = tile * TILE_M // ow
+        r1 = (min((tile + 1) * TILE_M, m) - 1) // ow
+        v0 = r0 // oh * vh + r0 % oh * stride
+        return r1 // oh * vh + r1 % oh * stride + KERNEL - v0
+
+    rows = max(rows_of(t) for t in range(tiles))
+    vec = w % epc == 0
+    lp = epc if padding else 0
+    rs = w + lp if vec else -(-(w + lp) // 2) * 2
+    ch = -(-(rows * rs) // epc) * epc + epc
+    a_stage = -(-(kc * ch * itemsize) // 16) * 16 + 16
+    ring = STAGES * (atoms * bn * SLICE_BYTES + a_stage)
+    cs = bn * (TILE_M + 4) * 4
+    table = rows * (w // epc if vec else 1)
+    return dict(tile_m=TILE_M, bn=bn, tiles=tiles, n_tiles=n_tiles,
+                stages=STAGES, atoms=atoms, kc=kc, rows=rows, rs=rs, ch=ch,
+                lp=lp, vec=int(vec), a_stage=a_stage, table=table,
+                smem=1024 + max(ring, cs) + 8 * table,
+                part=(2, tiles, c_out))
 
 
 def conv2d_moments_plain(x, w, stride: int, padding: int):
@@ -83,6 +150,12 @@ def _check(name, x, w, stride, padding):
         req(t.is_cuda and t.device == x.device, name,
             "inputs must lie on one CUDA device")
         req(t.is_contiguous(), name, "inputs must be contiguous")
+    geo = launch_geometry(*x.shape, w.shape[0], stride, padding,
+                          x.element_size())
+    req(geo["smem"] <= MAX_SMEM, name,
+        f"a tile of x {tuple(x.shape)} needs {geo['smem']} bytes of shared "
+        f"memory, above {MAX_SMEM}")
+    return geo
 
 
 def conv2d_moments_fwd(x, w, stride: int, padding: int):
@@ -90,19 +163,20 @@ def conv2d_moments_fwd(x, w, stride: int, padding: int):
     dtype (f32 or bf16), contiguous, on a CUDA device -> (y NCHW in x's
     dtype, s (C_out,) f32, q (C_out,) f32)."""
     name = "conv2d_moments"
-    _check(name, x, w, stride, padding)
+    geo = _check(name, x, w, stride, padding)
     b, c_in, h, wd = (int(d) for d in x.shape)
     c_out = int(w.shape[0])
     oh, ow = out_hw(h, stride, padding), out_hw(wd, stride, padding)
-    tiles = -(-(b * oh * ow) // TILE_M)
+    # the kernel copies 16 bytes at a time from 16-byte boundaries
+    x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
     y = torch.empty((b, c_out, oh, ow), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, tiles, c_out), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty(geo["part"], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _cuda.library().mvae_conv_moments(
             x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
             y.data_ptr(), part.data_ptr(), b, c_in, h, wd, c_out, stride,
-            padding, oh, ow, tiles, _cuda.stream(x.device))
+            padding, oh, ow, *(geo[k] for k in _GEOMETRY_ARGS),
+            _cuda.stream(x.device))
     _cuda.check(name, rc)
     conv2d_moments_fwd.launches += 1
     s, q = part.sum(dim=1)      # the per-tile partials, in a fixed order

@@ -1,0 +1,200 @@
+"""The launch geometry of the port's two redesigned kernels, held on the CPU:
+what ops/convbn.py:launch_geometry and ops/bn.py:bwd_partials_launch hand to
+csrc/conv_moments.cu and csrc/bn_swish.cu. The kernels themselves run only
+on a card (tests/test_torch_port_cuda.py); their addressing is repeated here
+in numpy, so that a geometry the kernel would read out of bounds, or a tile
+that misses a pixel, fails here."""
+
+import numpy as np
+import pytest
+import torch
+
+from mvae_tpu_torch.ops import bn as bn_ops
+from mvae_tpu_torch.ops import convbn
+
+SM_COUNT = 132
+MAX_SMEM = 232448
+# (B, C_in, H, C_out, stride, padding): CelebA's three BN'd encoder convs
+CELEBA = [(100, 32, 32, 64, 2, 1), (100, 64, 16, 128, 2, 1),
+          (100, 128, 8, 256, 1, 0)]
+# ragged and small: B = 1, M below one tile, C_out off the tile, rows of x
+# that are not whole 16-byte chunks, C_in off the K slice
+RAGGED = [(1, 32, 32, 64, 2, 1), (3, 3, 6, 8, 2, 1), (2, 16, 10, 40, 2, 1),
+          (5, 3, 4, 96, 1, 0), (7, 16, 7, 40, 1, 0), (1, 5, 12, 8, 1, 0),
+          (9, 6, 24, 33, 2, 1)]
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _geometry(shape, dtype):
+    b, c_in, h, c_out, stride, pad = shape
+    return convbn.launch_geometry(b, c_in, h, h, c_out, stride, pad,
+                                  torch.empty((), dtype=dtype).element_size())
+
+
+def _stage(geo, x, tile, c0, stride, pad):
+    """One stage's A tile as the kernel fills it (csrc/conv_moments.cu:
+    tile_of, build_table, stage_a): (first padded row, flat array of kc *
+    ch elements), zero wherever the kernel writes nothing."""
+    b, c_in, h, w = x.shape
+    oh = convbn.out_hw(h, stride, pad)
+    ow = convbn.out_hw(w, stride, pad)
+    m, vh = b * oh * ow, h + 2 * pad
+    r0 = tile * geo["tile_m"] // ow
+    r1 = (min((tile + 1) * geo["tile_m"], m) - 1) // ow
+    v0 = r0 // oh * vh + r0 % oh * stride
+    rows = r1 // oh * vh + r1 % oh * stride + 4 - v0
+    assert rows <= geo["rows"]
+    buf = np.zeros(geo["kc"] * geo["ch"], x.dtype)
+    for c in range(geo["kc"]):
+        if c0 + c >= c_in:
+            continue
+        for r in range(rows):
+            bb, ih = divmod(v0 + r, vh)
+            ih -= pad
+            if 0 <= ih < h:
+                at = c * geo["ch"] + r * geo["rs"] + geo["lp"]
+                assert at + w <= (c + 1) * geo["ch"]
+                buf[at:at + w] = x[bb, c0 + c, ih]
+    return v0, buf
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CELEBA + RAGGED)
+def test_conv_stage_holds_every_window(shape, dtype):
+    """Every element (pixel, ci, kh, kw) of the implicit im2col matrix is
+    read from the staged tile at the offset the kernel computes
+    (window_offset + ci * ch + kh * rs + kw), inside the stage, and equals
+    the zero-padded x there; the bf16 fragment's second 4-byte word stays
+    inside the stage too."""
+    b, c_in, h, c_out, stride, pad = shape
+    geo = _geometry(shape, dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    rng = np.random.default_rng(sum(shape))
+    x = rng.integers(1, 1000, (b, c_in, h, h)).astype(np.float32)
+    xp = np.pad(x, ((0, 0), (0, 0), (pad, pad), (pad, pad)))
+    oh = ow = convbn.out_hw(h, stride, pad)
+    m, vh = b * oh * ow, h + 2 * pad
+    assert geo["a_stage"] >= geo["kc"] * geo["ch"] * itemsize + 16
+    assert geo["rs"] % 2 == 0 and geo["ch"] % (16 // itemsize) == 0
+    tiles = sorted({0, geo["tiles"] // 2, geo["tiles"] - 1})
+    for tile in tiles:
+        for c0 in {0, (c_in - 1) // geo["kc"] * geo["kc"]}:
+            v0, buf = _stage(geo, x, tile, c0, stride, pad)
+            for mi in range(geo["tile_m"]):
+                pix = min(tile * geo["tile_m"] + mi, m - 1)
+                bb, r = divmod(pix, oh * ow)
+                py, px = divmod(r, ow)
+                off = ((bb * vh + py * stride - v0) * geo["rs"]
+                       + px * stride + geo["lp"] - pad)
+                for c in range(min(geo["kc"], c_in - c0)):
+                    for kh in range(4):
+                        at = off + c * geo["ch"] + kh * geo["rs"]
+                        assert at >= c * geo["ch"]
+                        assert at + 5 <= geo["a_stage"] // itemsize
+                        np.testing.assert_array_equal(
+                            buf[at:at + 4],
+                            xp[bb, c0 + c, py * stride + kh,
+                               px * stride:px * stride + 4])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CELEBA + RAGGED)
+def test_conv_grid_covers_the_output_once(shape, dtype):
+    """tiles x n_tiles blocks of tile_m pixels x bn channels cover M x C_out
+    exactly once; the shared memory fits a block; the scratch is what
+    conv2d_moments_fwd allocates."""
+    b, c_in, h, c_out, stride, pad = shape
+    geo = _geometry(shape, dtype)
+    oh = convbn.out_hw(h, stride, pad)
+    m = b * oh * oh
+    cover = np.zeros((m, c_out), np.int32)
+    for t in range(geo["tiles"]):
+        for n in range(geo["n_tiles"]):
+            cover[t * geo["tile_m"]:(t + 1) * geo["tile_m"],
+                  n * geo["bn"]:(n + 1) * geo["bn"]] += 1
+    assert (cover == 1).all()
+    assert (geo["tiles"] - 1) * geo["tile_m"] < m
+    assert (geo["n_tiles"] - 1) * geo["bn"] < c_out
+    assert geo["smem"] <= MAX_SMEM
+    # a row of partial sums a tile, for sum y and for sum y^2
+    assert geo["part"] == (2, geo["tiles"], c_out)
+    # the stages, the epilogue's tile over them, the table, the alignment
+    ring = geo["stages"] * (geo["atoms"] * geo["bn"] * 128 + geo["a_stage"])
+    cs = geo["bn"] * (geo["tile_m"] + 4) * 4
+    assert geo["smem"] >= 1024 + max(ring, cs) + 8 * geo["table"]
+    assert geo["stages"] >= 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CELEBA)
+def test_conv_fills_the_card_at_celeba_shapes(shape, dtype):
+    """At B = 100 every layer gets a block for each SM at least (bf16 a
+        block and a half), copies whole 16-byte chunks, and all its blocks
+        fit the card at once by their shared memory."""
+    geo = _geometry(shape, dtype)
+    blocks = geo["tiles"] * geo["n_tiles"]
+    assert blocks >= SM_COUNT
+    assert geo["vec"] == 1
+    assert blocks <= SM_COUNT * (MAX_SMEM // geo["smem"])
+    if dtype == torch.bfloat16:
+        assert 2 * blocks >= 3 * SM_COUNT
+        assert geo["bn"] in (32, 64) and geo["atoms"] in (1, 2)
+
+
+def test_conv_geometry_is_what_the_wrapper_refuses_by():
+    """A shape whose tile cannot fit a block's shared memory is refused by
+    the wrapper's check, not handed on."""
+    geo = convbn.launch_geometry(1, 1, 4, 60000, 1, 1, 0, 4)
+    assert geo["smem"] > MAX_SMEM
+
+
+# (G, N, C, S): the 8 + 3 BN layers of the CelebA train step, then ragged
+BN_CELEBA = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
+             (1, 100, 512, 1), (3, 100, 128, 64), (3, 100, 64, 256),
+             (3, 100, 32, 1024), (3, 100, 512, 1)]
+BN_RAGGED = [(1, 1, 7, 1), (2, 5, 40, 3), (1, 33, 50, 1), (2, 3, 4, 25),
+             (1, 1000, 8, 16), (1, 2, 3, 200)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BN_CELEBA + BN_RAGGED)
+def test_bn_bwd_partials_rows_in_exactly_one_block(shape, dtype):
+    """Every row of every plane lies in exactly one block, no block is
+    empty, splits <= N and fit one cluster, and the columns mapping is
+    chosen exactly when a run of S is shorter than 16 bytes."""
+    g, n, c, s = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    lay = bn_ops.bwd_partials_launch(g, n, c, s, itemsize)
+    cover = np.zeros(n, np.int32)
+    for y in range(lay["splits"]):
+        lo, hi = y * lay["rows"], min(n, (y + 1) * lay["rows"])
+        assert lo < hi
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    assert 1 <= lay["splits"] <= min(n, bn_ops.MAX_CLUSTER)
+    assert lay["columns"] == int(s * itemsize < 16)
+    assert lay["grid"][1] == lay["splits"]
+    if lay["columns"]:
+        assert lay["grid"][0] * bn_ops.COLUMNS_WIDE >= g * c
+        assert lay["threads"] == bn_ops.COLUMNS_WIDE * bn_ops.COLUMNS_DEEP
+    else:
+        assert lay["grid"][0] == g * c
+        assert lay["vec"] in (1, 16 // itemsize) and s % lay["vec"] == 0
+        t, tpr = lay["threads"], lay["tpr"]
+        assert 32 <= t <= bn_ops.PARTIALS_THREADS and t % 32 == 0
+        assert tpr & (tpr - 1) == 0 and t % tpr == 0
+
+
+@pytest.mark.parametrize("shape", [s for s in BN_CELEBA if s[3] > 1])
+def test_bn_bwd_partials_fills_the_card_at_celeba_shapes(shape):
+    """The decoder and encoder maps of the train step (bf16) get at least
+    two blocks an SM, and 16-byte loads where S holds whole chunks."""
+    g, n, c, s = shape
+    lay = bn_ops.bwd_partials_launch(g, n, c, s, 2)
+    assert lay["grid"][0] * lay["grid"][1] >= 2 * SM_COUNT
+    assert lay["vec"] == (8 if s % 8 == 0 else 1)
+
+
+def test_bn_bwd_partials_unaligned_tensors_load_by_element():
+    lay = bn_ops.bwd_partials_launch(3, 100, 32, 1024, 2, aligned=False)
+    assert lay["vec"] == 1 and lay["columns"] == 0
