@@ -13,24 +13,31 @@ Phases (any failure exits non-zero; nothing is caught):
   2. kernels vs their plain versions at the paths' shapes, with times:
      PoE and BCE; the four BN passes at each of the train step's 11 BN
      layers; conv2d_moments at the encoder's 3 BN'd convs, bf16 and f32
-     (per-step sums too); conv2d_moments and bn_bwd_partials launched
-     twice give bit-identical results
+     (per-step sums too); conv2d_moments, bn_normalize, bn_bwd_partials
+     and bn_dx launched twice give bit-identical results. Each kernel is
+     timed two ways: device_ms (one launch between events, the L2 flushed
+     before it: carries the measuring floor of the `[kernel] floor` line)
+     and back_to_back_ms (R launches between one pair of events, each on
+     its own copy of the inputs: the floor out)
   3. serving: Sampler on CelebaMVAE(100) in bf16 (every endpoint)
   4. eval step: B=100, T=3, CLI weights, uint8 device-resident data, bf16
      and f32, kernel path and plain versions timed in turns
   5. train step: the same setting, Adam(1e-4), windows of K=20 steps of
-     make_multi_train_step, kernel path and plain versions in turns, then
-     the encoder's fused route (conv2d_moments, the default) and its
-     unfused route in turns, bf16 and f32
+     make_multi_train_step, kernel path and plain versions in turns (the
+     default, unfused encoder route), then the encoder's fused route
+     (conv2d_moments, opt-in) and its unfused route in turns, bf16 and
+     f32
   6. eval checks: kernel path vs the plain versions (posteriors, loss
      above its ln 2 floor); f32 card vs CPU (posteriors, decoder logits,
      loss above its floor)
   6b. the training CLI: `experiments/celeba/train.py:main` on the
-     synthetic CelebA set, CelebaMVAE(100) bf16, 2 epochs into a temporary
-     directory, --resume for a third, then Sampler.from_checkpoint on
+     synthetic CelebA set, CelebaMVAE(100) bf16, 2 epochs on the fused
+     route (--conv-moments) into a temporary directory, --resume for a
+     third on the default route, then Sampler.from_checkpoint on
      model_best.pth.tar answers one request
-  7. train checks: one step, kernel path vs plain versions (loss,
-     parameter gradients), bf16 and f32; fused vs unfused encoder route
+  7. train checks: one step on the fused route, kernel path vs plain
+     versions (loss, parameter gradients: all seven kernels), bf16 and
+     f32; fused vs unfused encoder route
      (loss, gradients, the encoder BNs' running statistics); f32 card vs
      CPU (TF32 off) on one step with the same noise; the loss of the last
      window below the first's; running statistics finite and moved
@@ -157,7 +164,7 @@ BN_KERNELS = ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx")
 # the BN layers of the train step under bf16 compute: (layer, how many
 # such layers, G, N, C, S, dtype). G = 3 terms in the decoders. The
 # encoder's three conv BNs take the BN kernels only on the unfused route
-# (conv_moments=False); the default route folds their moments into
+# (the default); the fused route (conv_moments=True) folds their moments into
 # conv2d_moments (ENC_CONV_BN).
 BN_LAYERS = (
     ("image enc conv2", 1, 1, 100, 64, 256, torch.bfloat16),
@@ -217,6 +224,48 @@ def device_ms(fn, flush, reps=60):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+BATCH_BYTES = 100 * 2 ** 20   # back_to_back_ms: the copies, where
+BATCH_LAUNCHES = (8, 256)      # ... these launches a batch allow
+SLEEP_CYCLES_PER_S = 2e9       # above the card's clock: a sleep long enough
+
+
+def back_to_back_ms(fn, args, flush, reps=5):
+    """Median device time a launch of fn(*args) without the measuring
+    floor: R launches back to back between one pair of CUDA events, each
+    on its own copy of the tensors in args (outputs kept until the batch
+    ends). The L2 is flushed before each batch and each copy is read by
+    one launch only, so no launch finds its inputs in L2, whatever R. R
+    is the launches whose copies come to BATCH_BYTES (twice the L2), within
+    BATCH_LAUNCHES: a small input's batch stops at the upper bound, short
+    of BATCH_BYTES. The batch is queued behind a sleep twice as long as the
+    host takes to queue it."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if torch.is_tensor(a))
+    lo, hi = BATCH_LAUNCHES
+    r = min(hi, max(lo, -(-BATCH_BYTES // nbytes)))
+    copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+              for _ in range(r)]
+    keep = [fn(*c) for c in copies]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keep = [fn(*c) for c in copies]
+    torch.cuda.synchronize()
+    queue_s = time.perf_counter() - t0
+    out = []
+    for _ in range(reps):
+        del keep
+        flush.max()
+        torch.cuda._sleep(int(2 * queue_s * SLEEP_CYCLES_PER_S))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        keep = [fn(*c) for c in copies]
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / r)
+    return statistics.median(out)
+
+
 def host_ms(fn, reps=20):
     """Median wall time of fn() + synchronize, in ms."""
     fn()
@@ -243,20 +292,21 @@ def phase_kernels(dev, card, peaks, flush):
     g = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    def report(name, case, got, want, tol, t_k, t_p, t_lib, nbytes, nops,
-               main):
+    def report(name, case, got, want, tol, t_k, t_b2b, t_p, t_lib, nbytes,
+               nops, main):
         torch.testing.assert_close(got, want, **tol)
         err = (got - want).abs().max().item()
         rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
         b_ms, b_by = bound(nbytes, nops, peaks)
         print(f"[kernel] {name} {case}: max_abs_err {err} max_rel_err {rel} "
-              f"ms {t_k} plain_ms {t_p} library_ms {t_lib} bound_ms {b_ms} "
-              f"({b_by}) | {card}")
+              f"ms {t_k} back_to_back_ms {t_b2b} plain_ms {t_p} library_ms "
+              f"{t_lib} bound_ms {b_ms} ({b_by}) | {card}")
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if main:
-            row.update(ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
-                       bound_by=b_by, case=case)
+            row.update(ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
+                       library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                       case=case)
 
     d = 100
     for t, b in ((1, 1), (1, 64), (3, 100)):
@@ -269,6 +319,7 @@ def phase_kernels(dev, card, peaks, flush):
         c, m = b * d, 2
         report("poe_fwd", f"T={t} M=2 B={b} D={d}", got, want, POE_TOL,
                device_ms(lambda: ops.poe_fwd(mu, lv, masks), flush),
+               back_to_back_ms(ops.poe_fwd, (mu, lv, masks), flush),
                device_ms(lambda: poe_plain(mu, lv, masks), flush), None,
                4 * (2 * m * c + t * m + 2 * t * c),
                c * (4 * m + t * (4 * m + 4)), main=(t == 3))
@@ -296,6 +347,7 @@ def phase_kernels(dev, card, peaks, flush):
         x3, t3 = x.float().view(r, nt, k), tt.float().expand(r, nt, k)
         report("bce_rowsum_fwd", case, got, want, BCE_TOL,
                device_ms(lambda: ops.bce_rowsum_fwd(x, tt), flush),
+               back_to_back_ms(ops.bce_rowsum_fwd, (x, tt), flush),
                device_ms(lambda: bce_rowsum_plain(x, tt), flush),
                device_ms(lambda: F.binary_cross_entropy_with_logits(
                    x3, t3, reduction="none").sum(-1), flush),
@@ -306,14 +358,18 @@ def phase_kernels(dev, card, peaks, flush):
 
 def phase_bn_kernels(dev, card, peaks, flush):
     """The four BN passes against their plain versions at every BN layer
-    of the train step, timed, with per-step sums over the 8 layers of the
-    default route and the 11 of the unfused one; the bf16 conv layers
-    again in f32 (the --f32 step), checked, not timed."""
+    of the train step, timed both ways, with per-step sums over the 8
+    layers of the fused route and the 11 of the unfused one (the default);
+    the bf16
+    conv layers again in f32 (the --f32 step), checked, not timed. y and
+    dx at BN_OUT_TOL, every (G, C) or (C,) output at BN_SUM_TOL (the sums
+    as means); bn_normalize, bn_bwd_partials and bn_dx launched twice give
+    bit-identical outputs."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {k: {"max_abs_err": 0.0} for k in BN_KERNELS}
-    per_step = {route: {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                bound_ms=0.0) for k in BN_KERNELS}
-                for route in ("default", "unfused")}
+    keys = ("ms", "back_to_back_ms", "plain_ms", "library_ms", "bound_ms")
+    per_step = {route: {k: dict.fromkeys(keys, 0.0) for k in BN_KERNELS}
+                for route in ("fused", "unfused")}
     cases = [layer + (True,) for layer in BN_LAYERS] + [
         (name + " (f32)", n, gg, nn, c, sp, torch.float32, False)
         for name, n, gg, nn, c, sp, dt in BN_LAYERS if dt == torch.bfloat16]
@@ -325,80 +381,86 @@ def phase_bn_kernels(dev, card, peaks, flush):
         bias = 0.2 * torch.randn(c, generator=g, device=dev)
         m = n * sp
         s_p, q_p = bn_ops.bn_moments_plain(x4)
-        mean, _, invstd, a, b = bn_ops.bn_affine(s_p, q_p, m, scale, bias)
+        _, mean, _, a, b, invstd = bn_ops.bn_normalize_plain(
+            x4, s_p, q_p, m, scale, bias)
         sdz_p, sdzx_p = bn_ops.bn_bwd_partials_plain(x4, g4, a, b)
-        _, qc, rc = bn_ops.bn_dx_coeffs(sdz_p, sdzx_p, m, a, mean, invstd)
         numel, isz, gc = x4.numel(), x4.element_size(), gsz * c
-        # (name, kernel call, plain call, compare as, bytes, operations)
+        # (name, kernel, plain version, their inputs, the sums' count (a
+        # pair of sums, compared as means) or None (an output like x, then
+        # (G, C) or (C,) vectors), bytes, operations)
         passes = (
-            ("bn_moments", lambda: bn_ops.bn_moments(x4),
-             lambda: bn_ops.bn_moments_plain(x4), m,
-             numel * isz + 2 * gc * 4, 3 * numel),
-            ("bn_normalize", lambda: bn_ops.bn_normalize(x4, a, b),
-             lambda: bn_ops.bn_normalize_plain(x4, a, b), None,
-             2 * numel * isz + 2 * gc * 4, 8 * numel),
-            ("bn_bwd_partials", lambda: bn_ops.bn_bwd_partials(x4, g4, a, b),
-             lambda: bn_ops.bn_bwd_partials_plain(x4, g4, a, b), m,
+            ("bn_moments", bn_ops.bn_moments, bn_ops.bn_moments_plain,
+             (x4,), m, numel * isz + 2 * gc * 4, 3 * numel),
+            ("bn_normalize", bn_ops.bn_normalize, bn_ops.bn_normalize_plain,
+             (x4, s_p, q_p, m, scale, bias), None,
+             2 * numel * isz + 7 * gc * 4 + 2 * c * 4, 8 * numel),
+            ("bn_bwd_partials", bn_ops.bn_bwd_partials,
+             bn_ops.bn_bwd_partials_plain, (x4, g4, a, b), m,
              2 * numel * isz + 4 * gc * 4, 16 * numel),
-            ("bn_dx", lambda: bn_ops.bn_dx(x4, g4, a, b, a, qc, rc),
-             lambda: bn_ops.bn_dx_plain(x4, g4, a, b, a, qc, rc), None,
-             3 * numel * isz + 5 * gc * 4, 18 * numel))
+            ("bn_dx", bn_ops.bn_dx, bn_ops.bn_dx_plain,
+             (x4, g4, sdz_p, sdzx_p, m, a, b, mean, invstd), None,
+             3 * numel * isz + 6 * gc * 4 + 2 * c * 4, 18 * numel))
         lib = library_calls(x4, g4, scale, bias) if timed else {}
-        for got, want in zip(bn_ops.bn_bwd_partials(x4, g4, a, b),
-                             bn_ops.bn_bwd_partials(x4, g4, a, b)):
-            expect(torch.equal(got, want), f"bn_bwd_partials {layer}: two "
-                   "launches differ")
-        for name, kern, plain, per, nbytes, nops in passes:
-            got, want = kern(), plain()
-            if per:             # a pair of (G, C) sums: compare as means
-                got = torch.stack(got) / per
-                want = torch.stack(want) / per
-                tol = BN_SUM_TOL
+        case = f"{layer}: x ({gsz}, {n}, {c}, {sp}) {str(dt).split('.')[-1]}"
+        for name, kern, plain, args, per, nbytes, nops in passes:
+            got, want = kern(*args), plain(*args)
+            if name != "bn_moments":
+                for one, two in zip(got, kern(*args)):
+                    expect(torch.equal(one, two),
+                           f"{name} {layer}: two launches differ")
+            if per:
+                pairs = [(torch.stack(got) / per, torch.stack(want) / per,
+                          BN_SUM_TOL)]
             else:
-                tol = BN_OUT_TOL[dt]
-            torch.testing.assert_close(got.float(), want.float(), **tol)
-            err = (got.double() - want.double()).abs().max().item()
+                pairs = [(got[0], want[0], BN_OUT_TOL[dt])] + [
+                    (k, p, BN_SUM_TOL) for k, p in zip(got[1:], want[1:])]
+            err = 0.0
+            for k, p, tol in pairs:
+                torch.testing.assert_close(k.float(), p.float(), **tol)
+                err = max(err, (k.double() - p.double()).abs().max().item())
             row = rows[name]
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            case = (f"{layer}: x ({gsz}, {n}, {c}, {sp}) "
-                    f"{str(dt).split('.')[-1]}")
             if not timed:
                 print(f"[kernel] {name} {case}: max_abs_err {err} "
                       f"(checked, not timed)")
                 continue
-            t_k, t_p = device_ms(kern, flush), device_ms(plain, flush)
+            t_k = device_ms(lambda: kern(*args), flush)
+            t_b2b = back_to_back_ms(kern, args, flush)
+            t_p = device_ms(lambda: plain(*args), flush)
             t_lib = device_ms(lib[name], flush)
             b_ms, b_by = bound(nbytes, nops, peaks)
             print(f"[kernel] {name} {case}: max_abs_err {err} ms {t_k} "
-                  f"plain_ms {t_p} library_ms {t_lib} bound_ms {b_ms} "
-                  f"({b_by}) x{count} per step | {card}")
+                  f"back_to_back_ms {t_b2b} plain_ms {t_p} library_ms "
+                  f"{t_lib} bound_ms {b_ms} ({b_by}) x{count} per step "
+                  f"| {card}")
             for route in per_step:
-                if route == "default" and layer in ENC_CONV_BN:
+                if route == "fused" and layer in ENC_CONV_BN:
                     continue
-                for key, v in (("ms", t_k), ("plain_ms", t_p),
-                               ("library_ms", t_lib), ("bound_ms", b_ms)):
+                for key, v in zip(keys, (t_k, t_b2b, t_p, t_lib, b_ms)):
                     per_step[route][name][key] += count * v
             if layer == BN_MAIN_LAYER:
-                row.update(ms=t_k, plain_ms=t_p, library_ms=t_lib,
-                           bound_ms=b_ms, bound_by=b_by, case=case)
-    for route, layers in (("default", 8), ("unfused", 11)):
+                row.update(ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
+                           library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                           case=case)
+    for route, layers in (("fused", 8), ("unfused", 11)):
         for name, v in per_step[route].items():
             print(f"[kernel] {name} per train step, {route} route ({layers}"
-                  f" layers): ms {v['ms']} plain_ms {v['plain_ms']} "
-                  f"library_ms {v['library_ms']} bound_ms {v['bound_ms']} "
-                  f"| {card}")
+                  f" layers): " + " ".join(f"{k} {v[k]}" for k in keys)
+                  + f" | {card}")
     return rows
 
 
 def phase_conv_kernels(dev, card, peaks, flush):
     """conv2d_moments against its plain version at the encoder's three BN'd
-    convs, bf16 (the default step) and f32 (--f32), timed, with per-step
+    convs, bf16 (the CLI's step) and f32 (--f32), timed, with per-step
     sums. The library yardstick is two calls, F.conv2d then torch.var_mean
     of its output: no one PyTorch call computes the conv and its moments."""
     g = torch.Generator(device=dev).manual_seed(2)
     row = {"max_abs_err": 0.0}
     for dt in (torch.bfloat16, torch.float32):
-        per_step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        keys = ("ms", "back_to_back_ms", "plain_ms", "library_ms",
+                "bound_ms")
+        per_step = dict.fromkeys(keys, 0.0)
         for layer, b, c_in, h, c_out, stride, pad in CONV_LAYERS:
             x = (2 * torch.rand((b, c_in, h, h), generator=g,
                                 device=dev)).to(dt)
@@ -421,6 +483,8 @@ def phase_conv_kernels(dev, card, peaks, flush):
             row["max_abs_err"] = max(row["max_abs_err"], err)
             t_k = device_ms(lambda: convbn.conv2d_moments_fwd(
                 x, w, stride, pad), flush)
+            t_b2b = back_to_back_ms(convbn.conv2d_moments_fwd,
+                                    (x, w, stride, pad), flush)
             t_p = device_ms(lambda: convbn.conv2d_moments_plain(
                 x, w, stride, pad), flush)
             t_lib = device_ms(lambda: torch.var_mean(F.conv2d(
@@ -434,20 +498,19 @@ def phase_conv_kernels(dev, card, peaks, flush):
             case = (f"{layer}: x ({b}, {c_in}, {h}, {h}) -> y ({b}, {c_out}"
                     f", {y.shape[2]}, {y.shape[3]}) {str(dt).split('.')[-1]}")
             print(f"[kernel] conv2d_moments {case}: max_abs_err {err} ms "
-                  f"{t_k} plain_ms {t_p} library_ms {t_lib} (F.conv2d + "
+                  f"{t_k} back_to_back_ms {t_b2b} plain_ms {t_p} library_ms "
+                  f"{t_lib} (F.conv2d + "
                   f"torch.var_mean, two calls) bound_ms {b_ms} ({b_by}) | "
                   f"{card}")
-            for key, v in (("ms", t_k), ("plain_ms", t_p),
-                           ("library_ms", t_lib), ("bound_ms", b_ms)):
+            for key, v in zip(keys, (t_k, t_b2b, t_p, t_lib, b_ms)):
                 per_step[key] += v
             if (layer, dt) == CONV_MAIN:
-                row.update(ms=t_k, plain_ms=t_p, library_ms=t_lib,
-                           bound_ms=b_ms, bound_by=b_by, case=case)
+                row.update(ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
+                           library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                           case=case)
         print(f"[kernel] conv2d_moments per train step, "
-              f"{str(dt).split('.')[-1]} (3 layers): ms {per_step['ms']} "
-              f"plain_ms {per_step['plain_ms']} library_ms "
-              f"{per_step['library_ms']} bound_ms {per_step['bound_ms']} "
-              f"| {card}")
+              f"{str(dt).split('.')[-1]} (3 layers): "
+              + " ".join(f"{k} {per_step[k]}" for k in keys) + f" | {card}")
     return {"conv2d_moments": row}
 
 
@@ -631,19 +694,30 @@ def timed_window(multi, data, idxs, betas):
     return window_losses, (time.perf_counter() - t0) * 1e3 / TRAIN_K
 
 
+def pairs_won(a, b):
+    """How the turns of A and B went, pair by pair: the i-th A and the
+    i-th B ran next to each other."""
+    wins = sum(x < y for x, y in zip(a, b))
+    ties = sum(x == y for x, y in zip(a, b))
+    return (f"{wins} of {len(a)} pairs to the first, "
+            f"{len(a) - wins - ties} to the second, {ties} tied")
+
+
 def phase_train(dev, card, data, out):
     """The train step at full width, bf16 and f32: windows of K=20 steps
     of make_multi_train_step (one loss readback a window), kernel path
     and plain versions in turns after a warm-up pair, then the encoder's
-    fused route (conv2d_moments; the default) and its unfused route in
-    turns, each from a copy of the trained model, then a device-time
-    breakdown per step of each route (on shorter windows: the profiler's
-    own work grows with the events it keeps). Beta 1, as after the CLI's 20
-    annealing epochs. Records each window's mean loss and the running
-    statistics before training, for the checks."""
+    fused route (conv2d_moments; opt-in) and its unfused route (the
+    default) in turns, each from a copy of the trained model, then a
+    device-time breakdown per step of each route (on shorter windows: the
+    profiler's own work grows with the events it keeps). Beta 1, as after
+    the CLI's 20 annealing epochs. Records each window's mean loss and the
+    running statistics before training, for the checks."""
     # a warm-up pair, then K, P, P, K twice (K: kernel path, P: plain);
-    # the routes likewise (F: fused, U: unfused)
+    # the routes likewise, F, U, U, F four times (F: fused, U: unfused):
+    # the default follows them, and the host's noise is large
     order = (False, True) + (False, True, True, False) * 2
+    route_order = (False, True) + (False, True, True, False) * 4
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
         model = celeba(dtype, dev, seed=10)
@@ -652,7 +726,8 @@ def phase_train(dev, card, data, out):
             model, MASKS, LAMBDAS, lr=LR, device=dev,
             generator=torch.Generator(device=dev).manual_seed(0))
         betas = torch.ones(TRAIN_K, device=dev)
-        windows = iter(train_windows(dev, 2 * len(order) + 6))
+        windows = iter(train_windows(dev, len(order) + len(route_order)
+                                     + 6))
         losses, times = [], {False: [], True: []}
         for i, plain in enumerate(order):
             with ops.plain_versions() if plain else contextlib.nullcontext():
@@ -666,8 +741,8 @@ def phase_train(dev, card, data, out):
         print(f"[train] {dt} B=100 T=3 K={TRAIN_K}: mean loss per window "
               f"{losses} (K, P | K, P, P, K, K, P, P, K)")
         print(f"[train] {dt} B=100 T=3 step: {times[False]} ms (plain "
-              f"versions {times[True]} ms), host clock per window / K "
-              f"| {card}")
+              f"versions {times[True]} ms), host clock per window / K; "
+              f"{pairs_won(times[False], times[True])} | {card}")
 
         routes = {}
         for fused in (True, False):
@@ -677,7 +752,7 @@ def phase_train(dev, card, data, out):
                 m, MASKS, LAMBDAS, lr=LR, device=dev,
                 generator=torch.Generator(device=dev).manual_seed(1))
         r_times = {True: [], False: []}
-        for i, unfused in enumerate(order):
+        for i, unfused in enumerate(route_order):
             window_losses, ms = timed_window(routes[not unfused], data,
                                              next(windows), betas)
             expect(bool(torch.isfinite(window_losses).all()),
@@ -686,8 +761,9 @@ def phase_train(dev, card, data, out):
                 r_times[not unfused].append(ms)
         print(f"[train] {dt} B=100 T=3 step, encoder route: fused "
               f"(conv2d_moments) {r_times[True]} ms, unfused {r_times[False]}"
-              f" ms, in turns F, U, U, F twice, host clock per window / K "
-              f"| {card}")
+              f" ms, in turns F, U, U, F four times, host clock per window "
+              f"/ K; fused against unfused: "
+              f"{pairs_won(r_times[True], r_times[False])} | {card}")
         for fused, label in ((True, "fused"), (False, "unfused")):
             profile_breakdown(
                 f"train {dt} B=100 T=3 step, {label} encoder route (window "
@@ -729,8 +805,10 @@ def phase_cli(dev, card):
     """The training CLI on the card: experiments/celeba/train.py:main on
     the synthetic CelebA set (2000 train and 500 val rows, the loader's
     defaults), CelebaMVAE(100) in bf16 (the CLI's defaults), CLI_EPOCHS
-    epochs, annealing 1, windows of 10; then --resume of its checkpoint
-    for one more epoch; then model_best.pth.tar served by Sampler. Checks
+    epochs on the fused route (--conv-moments: the path of
+    conv2d_moments), annealing 1, windows of 10; then --resume of its
+    checkpoint for one more epoch on the default, unfused route; then
+    model_best.pth.tar served by Sampler. Checks
     the log lines, the files, the epoch the resume starts at, and a
     finite test loss; prints the throughput and each epoch's wall time."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
@@ -740,7 +818,8 @@ def phase_cli(dev, card):
         rec = TimedLines(sys.stdout)
         with contextlib.redirect_stdout(rec):
             rec.lines.append((time.perf_counter(), "[cli] start"))
-            celeba_cli.main(argv + ["--epochs", str(CLI_EPOCHS)])
+            celeba_cli.main(argv + ["--epochs", str(CLI_EPOCHS),
+                                    "--conv-moments"])
             rec.lines.append((time.perf_counter(), "[cli] resume"))
             celeba_cli.main(argv + ["--epochs", str(CLI_EPOCHS + 1),
                                     "--resume", os.path.join(out_dir, CKPT)])
@@ -915,9 +994,10 @@ def encoder_bn_stats(model):
 
 
 def phase_train_checks(dev, data, idx, trained):
-    """One train step, kernel path vs the plain versions (loss above its
-    ln 2 floor, every parameter gradient) in bf16 and f32; the same step
-    on the encoder's unfused route against the fused one (loss,
+    """One train step on the encoder's fused route, kernel path vs the
+    plain versions (loss above its ln 2 floor, every parameter gradient)
+    in bf16 and f32; the same step on the unfused route against the fused
+    one (loss,
     gradients, the encoder BNs' committed running statistics); f32 card
     vs CPU on 16 rows with the same noise; then, from phase 5, the loss
     falling and the running statistics moved and finite."""
@@ -925,6 +1005,7 @@ def phase_train_checks(dev, data, idx, trained):
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
         model = celeba(dtype, dev, seed=20)
+        model.image_encoder.features.conv_moments = True
         twin = copy.deepcopy(model)
         unfused = copy.deepcopy(model)
         unfused.image_encoder.features.conv_moments = False
@@ -1070,12 +1151,14 @@ def run(dev, card, peaks):
     phases 3-5 and 6b."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
-    # time below carries about this much
-    x1 = torch.zeros((1, 1, 8, 1), device=dev)
-    a1 = torch.ones((1, 8), device=dev)
+    # time below carries about this much; back_to_back_ms takes most of it
+    # out
+    tiny = (torch.zeros((1, 1, 8, 1), device=dev),) * 2 + (
+        torch.ones((1, 8), device=dev),) * 2
     print(f"[kernel] floor: bn_bwd_partials on a (1, 1, 8, 1) view reads "
-          f"{device_ms(lambda: bn_ops.bn_bwd_partials(x1, x1, a1, a1), flush)}"
-          f" ms | {card}")
+          f"{device_ms(lambda: bn_ops.bn_bwd_partials(*tiny), flush)} ms, "
+          f"back_to_back_ms "
+          f"{back_to_back_ms(bn_ops.bn_bwd_partials, tiny, flush)} | {card}")
     rows = phase_kernels(dev, card, peaks, flush)
     rows.update(phase_bn_kernels(dev, card, peaks, flush))
     rows.update(phase_conv_kernels(dev, card, peaks, flush))
@@ -1138,6 +1221,7 @@ def main():
 
     line = [{"name": k, **KERNELS[k], "launches": launches[k],
              "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
+             "back_to_back_ms": rows[k]["back_to_back_ms"],
              "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
              "bound_by": rows[k]["bound_by"],
              "library_ms": rows[k]["library_ms"]} for k in KERNELS]

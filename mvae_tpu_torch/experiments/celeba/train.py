@@ -7,8 +7,9 @@ lambda image 1 and attrs 10, bf16 compute, --f32 for float32).
 
 Trains on the CUDA card unless --device says otherwise, on the real
 CelebA files under --data-dir or, without them, the synthetic set; writes
-checkpoint.pth.tar and model_best.pth.tar into --out-dir. --no-conv-moments
-takes the encoder's unfused conv + BN route.
+checkpoint.pth.tar and model_best.pth.tar into --out-dir. --conv-moments
+takes the encoder's fused conv + BN route (the conv2d_moments kernel; the
+JAX package's opt-in MVAE_CONVBN_PALLAS=1).
 """
 
 import torch
@@ -27,11 +28,10 @@ def parser():
         n_latents=100, epochs=100, annealing_epochs=20, lr=1e-4,
         lambda_flags=(("lambda-image", 1.0), ("lambda-attrs", 10.0)),
         bf16_default=True)
-    p.add_argument('--no-conv-moments', dest='conv_moments',
-                   action='store_false', default=True,
-                   help='run the encoder\'s BN\'d convs unfused (conv, then '
-                        'the BN kernels) instead of the conv2d_moments '
-                        'kernel')
+    p.add_argument('--conv-moments', action='store_true',
+                   help='run the encoder\'s BN\'d convs fused, through the '
+                        'conv2d_moments kernel, instead of a conv and then '
+                        'the BN kernels')
     return p
 
 

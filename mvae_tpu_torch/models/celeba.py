@@ -21,12 +21,12 @@ Train mode (`model.train()`): BN with batch statistics, fused with its
 swish; the image head's dropout (rate 0.1) takes a keep-mask from the
 caller; decode keeps `groups` sets of BN statistics over consecutive
 blocks of rows (the ELBO terms). encode and decode return the batch
-moments their BNs made, for the engine's EMA commit. With `conv_moments`
-(the default) the image encoder's three BN'd convs take the fused route in
-train mode: the conv2d_moments kernel and the BN from its sums
-(nn/dcgan.py). In the JAX package that route is opt-in
-(MVAE_CONVBN_PALLAS=1); here it is the CUDA path of the op, and
-`conv_moments=False` gives the unfused one.
+moments their BNs made, for the engine's EMA commit. With
+`conv_moments=True` the image encoder's three BN'd convs take the fused
+route in train mode: the conv2d_moments kernel and the BN from its sums
+(nn/dcgan.py). That route is opt-in, as in the JAX package
+(MVAE_CONVBN_PALLAS=1): on an H100 the unfused route (conv, then the four
+BN kernels) takes less time a step (PERF.md).
 """
 
 import torch
@@ -99,11 +99,12 @@ class CelebaMVAE(MultimodalVAE):
     modalities = ("image", "attrs")
 
     def __init__(self, n_latents: int = 100, compute_dtype=None, *,
-                 conv_moments: bool = True, device=None, generator=None):
+                 conv_moments: bool = False, device=None, generator=None):
         """device: None runs on the CUDA card (raises without one), "cpu"
         on the CPU. generator: CPU torch.Generator for the initial weights
         (default: seed 0). conv_moments: the encoder's fused conv + BN
-        moments route in train mode. The model starts in eval mode."""
+        moments route in train mode (off by default). The model starts in
+        eval mode."""
         super().__init__()
         device = resolve_device(device)
         self.n_latents = n_latents

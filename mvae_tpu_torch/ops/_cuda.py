@@ -34,6 +34,7 @@ SOURCES = ("poe.cu", "bce_rowsum.cu", "bn_swish.cu", "conv_moments.cu",
            "status.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SM_COUNT = 132      # SMs of an H100 SXM, which the launch geometries fill
 
 _force_plain = False
 
@@ -116,15 +117,18 @@ def library():
     the wall time of this first call, the build included."""
     t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build()))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
     lib.mvae_poe_fwd.argtypes = [p, p, p, p, p, i, i, ll, p]
     lib.mvae_poe_fwd.restype = i
     lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, p, i, i, i, p]
     lib.mvae_bce_rowsum_fwd.restype = i
     lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p]
-    lib.mvae_bn_normalize.argtypes = [p, i, p, p, p, i, i, i, i, p]
+    lib.mvae_bn_normalize.argtypes = [p, i, p, p, p, p, f, p, p] + [i] * 4 + [
+        p, p, p]
     lib.mvae_bn_bwd_partials.argtypes = [p, p, i, p, p, p, p] + [i] * 10 + [p]
-    lib.mvae_bn_dx.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.mvae_bn_dx.argtypes = [p, p, i, p, p, p, p, p, p, f, p, p, p] + [
+        i] * 4 + [p, p, p]
     lib.mvae_conv_moments.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
     for fn in (lib.mvae_bn_moments, lib.mvae_bn_normalize,
                lib.mvae_bn_bwd_partials, lib.mvae_bn_dx,

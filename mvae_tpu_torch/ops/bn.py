@@ -14,29 +14,38 @@ rows run as one batch and the op keeps statistics per group.
 The four passes (the kernel's name, then the TPU kernel it replaces):
 
     bn_moments       _k_moments        sum x, sum x^2 per (g, c)
-    bn_normalize     _k_normalize      y
+    bn_normalize     _k_normalize      y, from the sums: mean, var, a, b
     bn_bwd_partials  _k_bwd_partials   sum dz, sum dz*x per (g, c)
-    bn_dx            _k_dx             dx = P*dz + Q + R*x
+    bn_dx            _k_dx             dx = P*dz + Q + R*x, from the sums:
+                                       P, Q, R and dscale, dbias
 
-with dz = g * swish'(z) recomputed inside each backward pass. mean and var
+with dz = g * swish'(z) recomputed inside each backward pass. The per-(g, c)
+algebra between the passes (bn_affine, bn_dx_coeffs; the JAX package's jnp
+around its Pallas calls) is part of bn_normalize and bn_dx, kernels and
+plain versions alike, so a layer on the card is four launches. mean and var
 feed only the running-statistics EMA (core/engine.py:commit_ema_states),
 so they are marked non-differentiable: the backward's g_mean and g_var
 terms of bn_pallas.py:_vjp_bwd are zero and drop out of P, Q and R.
 """
 
+import ctypes
 import functools
 
 import torch
 
 from mvae_tpu_torch.ops import _cuda
+from mvae_tpu_torch.ops._cuda import SM_COUNT
 
 EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
-PARTIALS_TARGET_BLOCKS = 4 * 132    # bn_bwd_partials: 4 blocks an SM (H100)
+PARTIALS_TARGET_BLOCKS = 4 * SM_COUNT  # bn_bwd_partials: 4 blocks an SM
 PARTIALS_THREADS = 256              # a block, at most
 PARTIALS_UNROLL = 2                 # rows a thread has in flight
 MAX_CLUSTER = 8                     # blocks that share a plane: one cluster
 COLUMNS_WIDE, COLUMNS_DEEP = 32, 8  # the columns mapping: channels x row lanes
+STREAM_THREADS = 256                # bn_normalize, bn_dx: a block
+STREAM_BLOCKS_PER_SM = 4            # ... resident an SM: one wave at most
+STREAM_UNROLL = 2                   # ... chunks of x (and g) a thread loads
 
 
 def _per_channel(v):
@@ -61,10 +70,14 @@ def bn_moments_plain(x4):
     return xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3))
 
 
-def bn_normalize_plain(x4, a, b):
-    """swish(x * a + b) in f32, rounded once to x's dtype."""
+def bn_normalize_plain(x4, s, q, n, scale, bias):
+    """The forward from the moments' sums (s, q) over n elements a (g, c):
+    (y, mean, var, a, b, invstd); y = swish(x * a + b) in f32, rounded
+    once to x's dtype, the rest (G, C) f32."""
+    mean, var, invstd, a, b = bn_affine(s, q, n, scale, bias)
     z = _z(x4, a, b)
-    return (z * torch.reciprocal(1.0 + torch.exp(-z))).to(x4.dtype)
+    y = (z * torch.reciprocal(1.0 + torch.exp(-z))).to(x4.dtype)
+    return y, mean, var, a, b, invstd
 
 
 def bn_bwd_partials_plain(x4, g4, a, b):
@@ -73,14 +86,21 @@ def bn_bwd_partials_plain(x4, g4, a, b):
     return dz.sum(dim=(1, 3)), (dz * x4.float()).sum(dim=(1, 3))
 
 
-def bn_dx_plain(x4, g4, a, b, p, q, r):
-    """P * dz + Q + R * x in f32, rounded once to x's dtype."""
+def bn_dx_plain(x4, g4, sdz, sdzx, n, a, b, mean, invstd):
+    """The backward from bn_bwd_partials' sums (sdz, sdzx) and the
+    forward's (G, C) vectors: (dx, dscale, dbias), dx = P * dz + Q + R * x
+    in f32 rounded once to x's dtype; dscale and dbias (C,) f32, summed over
+    the groups, which share the scale and bias."""
+    sdzxh, q, r = bn_dx_coeffs(sdz, sdzx, n, a, mean, invstd)
     dz = _dz(x4, g4, a, b)
-    return (_per_channel(p) * dz + _per_channel(q)
-            + _per_channel(r) * x4.float()).to(x4.dtype)
+    dx = (_per_channel(a) * dz + _per_channel(q)
+          + _per_channel(r) * x4.float()).to(x4.dtype)
+    return dx, sdzxh.sum(0), sdz.sum(0)
 
 
-def _check(name, x4, *vecs, g4=None):
+def _check(name, x4, *vecs, g4=None, channel=()):
+    """x4 (and g4) a (G, N, C, S) f32 or bf16 view, vecs (G, C) f32 and
+    `channel` (C,) f32, all contiguous on one CUDA device."""
     req = _cuda.require
     req(x4.ndim == 4, name,
         f"takes a (G, N, C, S) view, got {tuple(x4.shape)}")
@@ -91,13 +111,16 @@ def _check(name, x4, *vecs, g4=None):
     if g4 is not None:
         req(g4.shape == x4.shape and g4.dtype == x4.dtype, name,
             "the gradient must match x in shape and dtype")
-    for t in (x4, *vecs) + (() if g4 is None else (g4,)):
+    for t in (x4, *vecs, *channel) + (() if g4 is None else (g4,)):
         req(t.is_cuda and t.device == x4.device, name,
             "inputs must lie on one CUDA device")
         req(t.is_contiguous(), name, "inputs must be contiguous")
     for v in vecs:
         req(v.dtype == torch.float32 and v.shape == (gsz, c), name,
-            f"per-channel inputs are ({gsz}, {c}) float32")
+            f"per-group inputs are ({gsz}, {c}) float32")
+    for v in channel:
+        req(v.dtype == torch.float32 and v.shape == (c,), name,
+            f"per-channel inputs are ({c},) float32")
 
 
 def _dims(x4):
@@ -119,21 +142,6 @@ def bn_moments(x4):
     _cuda.check(name, rc)
     bn_moments.launches += 1
     return s, q
-
-
-def bn_normalize(x4, a, b):
-    """Launch the normalize kernel: y = swish(x * a + b) in x's dtype; a, b
-    (G, C) f32."""
-    name = "bn_normalize"
-    _check(name, x4, a, b)
-    y = torch.empty_like(x4)
-    with torch.cuda.device(x4.device):
-        rc = _cuda.library().mvae_bn_normalize(
-            x4.data_ptr(), int(x4.dtype == torch.bfloat16), a.data_ptr(),
-            b.data_ptr(), y.data_ptr(), *_dims(x4), _cuda.stream(x4.device))
-    _cuda.check(name, rc)
-    bn_normalize.launches += 1
-    return y
 
 
 def _pow2_at_least(v: int, cap: int) -> int:
@@ -209,20 +217,133 @@ def bn_bwd_partials(x4, g4, a, b):
     return sdz, sdzx
 
 
-def bn_dx(x4, g4, a, b, p, q, r):
-    """Launch the dx kernel: P * dz + Q + R * x in x's dtype; a, b, p, q, r
-    (G, C) f32."""
+def fast_div(d: int) -> tuple:
+    """(m, s) with n // d == (n * m) >> (32 + s) for every 0 <= n < 2^31:
+    m = ceil(2^(31 + l) / d), s = l - 1, l = ceil(log2 d); (0, 0) for d = 1,
+    which the kernel takes as n itself (csrc/bn_swish.cu: FastDiv)."""
+    if d == 1:
+        return 0, 0
+    lg = (d - 1).bit_length()
+    return -(-(1 << (31 + lg)) // d), lg - 1
+
+
+def _stream_launch(g, n, c, s, itemsize, offsets):
+    numel = g * n * c * s
+    v = 16 // itemsize
+    off = offsets[0]
+    vec = v if all(o == off for o in offsets) and off % itemsize == 0 else 1
+    head = min(numel, (16 - off) % 16 // itemsize) if vec > 1 else 0
+    chunks = (numel - head) // vec
+    tail = numel - head - chunks * vec
+    per_sm = -(-chunks // (SM_COUNT * STREAM_THREADS))
+    per_sm = min(STREAM_BLOCKS_PER_SM, max(1, per_sm))
+    whole = s % vec == 0 and head == 0
+    return dict(vec=vec, head=head, chunks=chunks, tail=tail,
+                whole=int(whole), unroll=STREAM_UNROLL,
+                threads=STREAM_THREADS, blocks=SM_COUNT * per_sm,
+                divs=fast_div(s) + fast_div(c) + fast_div(n * c * s))
+
+
+@functools.lru_cache(maxsize=None)
+def normalize_launch(g: int, n: int, c: int, s: int, itemsize: int,
+                     offsets: tuple = (0, 0)) -> dict:
+    """How bn_normalize streams a (G, N, C, S) view (csrc/bn_swish.cu:
+    stream). `offsets`: x's and y's addresses modulo 16. The tensor is one
+    run of numel elements: `head` elements before x's first 16-byte
+    boundary, `chunks` chunks of `vec` elements (16 bytes; 1 where the
+    offsets differ), `tail` elements after. Thread t of the grid's
+    blocks * threads takes chunks t, t + blocks * threads, ..., `unroll` of
+    them loaded at once; threads t < head + tail take the head's and the
+    tail's elements. `whole`: every chunk lies in one channel (S a multiple
+    of vec, no head). The grid is one wave: SM_COUNT times up to
+    STREAM_BLOCKS_PER_SM blocks, fewer where a thread would then have no
+    chunk, so a small tensor is spread one chunk a thread. Each chunk
+    (each element, where chunks cross channels) forms its coefficients
+    (a, b) from the (G, C) sums in the shadow of its loads. `divs`:
+    fast_div of S, C and N * C * S, the divisions that give an element's
+    (g, c). `unroll` and `threads` are the kernel's own constants
+    (kStreamUnroll, kStreamThreads), by which the grid is sized; the C
+    entry point takes the rest."""
+    return _stream_launch(g, n, c, s, itemsize, offsets)
+
+
+@functools.lru_cache(maxsize=None)
+def dx_launch(g: int, n: int, c: int, s: int, itemsize: int,
+              offsets: tuple = (0, 0, 0)) -> dict:
+    """How bn_dx streams a (G, N, C, S) view: normalize_launch's geometry
+    over x, g and dx (`offsets`: their addresses modulo 16); a chunk forms
+    (a, b, Q, R)."""
+    return _stream_launch(g, n, c, s, itemsize, offsets)
+
+
+@functools.lru_cache(maxsize=None)
+def _c_launch(launch, dims, itemsize, offsets):
+    """launch(...)'s geometry as the C entry points take it: 6 ints and
+    6 unsigned (csrc/bn_swish.cu: stream_of)."""
+    lay = launch(*dims, itemsize, offsets)
+    geo = (ctypes.c_int * 6)(*(lay[k] for k in (
+        "vec", "head", "chunks", "tail", "whole", "blocks")))
+    return geo, (ctypes.c_uint * 6)(*lay["divs"])
+
+
+def _offsets(*tensors):
+    return tuple(t.data_ptr() % 16 for t in tensors)
+
+
+def _empty_as(x4):
+    """An uninitialized tensor like x4 at x4's offset from a 16-byte
+    boundary, so that the stream's chunks are aligned in both."""
+    off = x4.data_ptr() % 16 // x4.element_size()
+    if off == 0:
+        return torch.empty_like(x4)
+    flat = torch.empty(x4.numel() + off, dtype=x4.dtype, device=x4.device)
+    return flat[off:].view(x4.shape)
+
+
+def bn_normalize(x4, s, q, n, scale, bias):
+    """Launch the normalize kernel: from the moments' sums s, q (G, C) over
+    n elements and the affine scale, bias (C,) f32 -> (y in x's dtype,
+    mean, var, a, b, invstd, each (G, C) f32), as bn_normalize_plain."""
+    name = "bn_normalize"
+    _check(name, x4, s, q, channel=(scale, bias))
+    gsz, _, c, _ = x4.shape
+    y = _empty_as(x4)
+    vecs = torch.empty((5, gsz, c), device=x4.device, dtype=torch.float32)
+    geo, div = _c_launch(normalize_launch, _dims(x4), x4.element_size(),
+                         _offsets(x4, y))
+    with torch.cuda.device(x4.device):
+        rc = _cuda.library().mvae_bn_normalize(
+            x4.data_ptr(), int(x4.dtype == torch.bfloat16), s.data_ptr(),
+            q.data_ptr(), scale.data_ptr(), bias.data_ptr(), float(n),
+            y.data_ptr(), vecs.data_ptr(), *_dims(x4), geo, div,
+            _cuda.stream(x4.device))
+    _cuda.check(name, rc)
+    bn_normalize.launches += 1
+    return (y, *vecs.unbind(0))
+
+
+def bn_dx(x4, g4, sdz, sdzx, n, a, b, mean, invstd):
+    """Launch the dx kernel: from bn_bwd_partials' sums sdz, sdzx (G, C)
+    over n elements and the forward's a, b, mean, invstd (G, C) f32 ->
+    (dx in x's dtype, dscale, dbias (C,) f32), as bn_dx_plain."""
     name = "bn_dx"
-    _check(name, x4, a, b, p, q, r, g4=g4)
-    dx = torch.empty_like(x4)
+    _check(name, x4, sdz, sdzx, a, b, mean, invstd, g4=g4)
+    c = x4.shape[2]
+    dx = _empty_as(x4)
+    dscale = torch.empty((c,), device=x4.device, dtype=torch.float32)
+    dbias = torch.empty_like(dscale)
+    geo, div = _c_launch(dx_launch, _dims(x4), x4.element_size(),
+                         _offsets(x4, g4, dx))
     with torch.cuda.device(x4.device):
         rc = _cuda.library().mvae_bn_dx(
             x4.data_ptr(), g4.data_ptr(), int(x4.dtype == torch.bfloat16),
-            a.data_ptr(), b.data_ptr(), p.data_ptr(), q.data_ptr(),
-            r.data_ptr(), dx.data_ptr(), *_dims(x4), _cuda.stream(x4.device))
+            sdz.data_ptr(), sdzx.data_ptr(), a.data_ptr(), b.data_ptr(),
+            mean.data_ptr(), invstd.data_ptr(), float(n), dx.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), *_dims(x4), geo, div,
+            _cuda.stream(x4.device))
     _cuda.check(name, rc)
     bn_dx.launches += 1
-    return dx
+    return dx, dscale, dbias
 
 
 for _k in (bn_moments, bn_normalize, bn_bwd_partials, bn_dx):
@@ -255,20 +376,18 @@ def bn_dx_coeffs(sdz, sdzx, n, a, mean, invstd):
 
 
 def _fwd(passes, x4, scale, bias):
+    """(y, mean, var, a, b, invstd)."""
     moments, normalize = passes[:2]
-    n = x4.shape[1] * x4.shape[3]
-    mean, var, invstd, a, b = bn_affine(*moments(x4), n, scale, bias)
-    return normalize(x4, a, b), mean, var, a, b, invstd
+    return normalize(x4, *moments(x4), x4.shape[1] * x4.shape[3], scale,
+                     bias)
 
 
 def _bwd(passes, x4, g4, a, b, mean, invstd):
     """(dx, dscale, dbias); the scale and bias are shared by the groups,
     so their gradients sum over them."""
     partials, dx_fn = passes[2:]
-    n = x4.shape[1] * x4.shape[3]
-    sdz, sdzx = partials(x4, g4, a, b)
-    sdzxh, q, r = bn_dx_coeffs(sdz, sdzx, n, a, mean, invstd)
-    return dx_fn(x4, g4, a, b, a, q, r), sdzxh.sum(0), sdz.sum(0)
+    return dx_fn(x4, g4, *partials(x4, g4, a, b), x4.shape[1] * x4.shape[3],
+                 a, b, mean, invstd)
 
 
 def bn_swish_fwd_plain(x4, scale, bias):
@@ -286,7 +405,10 @@ def bn_swish_bwd_plain(x4, g4, scale, bias):
 
 class _BNSwishTrain(torch.autograd.Function):
     """The route (kernels or plain versions) is chosen once, in the
-    forward, and the backward takes the same one."""
+    forward, and the backward takes the same one. On the kernels a layer
+    is four launches: bn_moments, bn_normalize; bn_bwd_partials, bn_dx.
+    The gradients of mean and var, which are not differentiable, are not
+    materialized (autograd would fill two (G, C) tensors with zeros)."""
 
     @staticmethod
     def forward(ctx, x4, scale, bias):
@@ -295,6 +417,7 @@ class _BNSwishTrain(torch.autograd.Function):
         ctx.kernel = kernel
         ctx.save_for_backward(x4, a, b, mean, invstd)
         ctx.mark_non_differentiable(mean, var)
+        ctx.set_materialize_grads(False)
         return y, mean, var
 
     @staticmethod

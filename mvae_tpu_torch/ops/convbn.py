@@ -37,13 +37,13 @@ import torch
 from torch.nn import functional as F
 
 from mvae_tpu_torch.ops import _cuda
+from mvae_tpu_torch.ops._cuda import SM_COUNT
 
 KERNEL = 4
 TILE_M = 64         # output pixels a block: the M of one wgmma
 STAGES = 4          # depth of the kernel's ring of K slices
 SLICE_BYTES = 128   # a weight row of one K slice (the swizzle's width)
 F32_TILE_N = 64
-SM_COUNT = 132      # the tiling is chosen for an H100
 MAX_SMEM = 232448   # dynamic shared memory a block can have
 _DTYPES = (torch.float32, torch.bfloat16)
 # launch_geometry's entries that csrc/conv_moments.cu takes, in its order

@@ -14,8 +14,9 @@ whose demangled name contains TEXT it prints one line:
 
 A loop is the stretch from the target of a backward branch to the branch.
 Instructions an element of a streaming kernel: the count of its inner
-loop over the elements one trip handles (a thread of the BN passes handles
-kUnroll * V of them: 32 in bf16 with 16-byte loads, 16 in f32).
+loop over the elements one trip handles (a trip of bn_normalize's and
+bn_dx's stream handles kStreamUnroll chunks of V: 16 elements in bf16, 8
+in f32; of bn_moments kUnroll * V).
 """
 
 import argparse
@@ -103,7 +104,8 @@ def report(source: Path, match: str, tmp: str):
             continue
         loops = " ".join(f"{s:04x}-{e:04x}:{n}"
                          for s, e, n in loops_of(instrs))
-        short = re.sub(r"\(.*", "", name.replace("(int)", ""))
+        short = re.sub(r"\(.*", "", name.replace("(int)", "").replace(
+            "(bool)1", "true").replace("(bool)0", "false"))
         print(f"[sass] {source.parent.name}/{source.name} {short}: "
               f"{len(instrs)} instructions, loops {loops or 'none'}; "
               f"{used.get(mangled, 'no ptxas line')}")

@@ -257,40 +257,79 @@ def test_embed_is_one_poe_launch(cuda):
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS} | {"poe_fwd": 1}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", BN_SHAPES)
-def test_bn_kernels_match_plain(cuda, shape, dtype):
-    """Each of the four BN passes against its plain version at every BN
-    shape of the train step and at ragged ones, both dtypes (S = 25 takes
-    the scalar path, S below 16 bytes bn_bwd_partials' columns mapping, the
-    rest the 16-byte path)."""
-    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+def _bn_inputs(cuda, shape, dtype, seed, offset=0):
+    """x4 (starting `offset` elements into its buffer), g4, scale, bias."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     gsz, n, c, sp = shape
-    x4 = (0.5 + 1.5 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    numel = gsz * n * c * sp
+    buf = 0.5 + 1.5 * torch.randn(numel + offset, generator=g, device=cuda)
+    x4 = buf.to(dtype)[offset:].view(shape)
     g4 = torch.randn(shape, generator=g, device=cuda).to(dtype)
     scale = 1.0 + 0.2 * torch.randn(c, generator=g, device=cuda)
     bias = 0.2 * torch.randn(c, generator=g, device=cuda)
-    m = n * sp
+    return x4, g4, scale, bias
+
+
+def _bn_passes_match_plain(x4, g4, scale, bias):
+    """Each of the four BN passes against its plain version on the same
+    inputs: the sums as means at BN_SUM_TOL, y and dx at BN_OUT_TOL, the
+    (G, C) and (C,) outputs at BN_SUM_TOL; one launch each."""
+    dtype = x4.dtype
+    m = x4.shape[1] * x4.shape[3]
     before = ops.launch_counts()
     s_k = torch.stack(bn_ops.bn_moments(x4)) / m
-    s_p = torch.stack(bn_ops.bn_moments_plain(x4))
-    torch.testing.assert_close(s_k, s_p / m, **BN_SUM_TOL)
-    mean, _, invstd, a, b = bn_ops.bn_affine(s_p[0], s_p[1], m, scale, bias)
-    torch.testing.assert_close(bn_ops.bn_normalize(x4, a, b).float(),
-                               bn_ops.bn_normalize_plain(x4, a, b).float(),
+    s, q = bn_ops.bn_moments_plain(x4)
+    torch.testing.assert_close(s_k, torch.stack((s, q)) / m, **BN_SUM_TOL)
+    got = bn_ops.bn_normalize(x4, s, q, m, scale, bias)
+    want = bn_ops.bn_normalize_plain(x4, s, q, m, scale, bias)
+    assert got[0].dtype == dtype and got[0].shape == x4.shape
+    torch.testing.assert_close(got[0].float(), want[0].float(),
                                **BN_OUT_TOL[dtype])
+    for k, p in zip(got[1:], want[1:]):
+        torch.testing.assert_close(k, p, **BN_SUM_TOL)
+    _, mean, _, a, b, invstd = want
     p_k = torch.stack(bn_ops.bn_bwd_partials(x4, g4, a, b)) / m
-    p_p = torch.stack(bn_ops.bn_bwd_partials_plain(x4, g4, a, b))
-    torch.testing.assert_close(p_k, p_p / m, **BN_SUM_TOL)
-    _, q, r = bn_ops.bn_dx_coeffs(p_p[0], p_p[1], m, a, mean, invstd)
-    torch.testing.assert_close(
-        bn_ops.bn_dx(x4, g4, a, b, a, q, r).float(),
-        bn_ops.bn_dx_plain(x4, g4, a, b, a, q, r).float(),
-        **BN_OUT_TOL[dtype])
+    sdz, sdzx = bn_ops.bn_bwd_partials_plain(x4, g4, a, b)
+    torch.testing.assert_close(p_k, torch.stack((sdz, sdzx)) / m,
+                               **BN_SUM_TOL)
+    got = bn_ops.bn_dx(x4, g4, sdz, sdzx, m, a, b, mean, invstd)
+    want = bn_ops.bn_dx_plain(x4, g4, sdz, sdzx, m, a, b, mean, invstd)
+    assert got[0].dtype == dtype and got[0].shape == x4.shape
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **BN_OUT_TOL[dtype])
+    for k, p in zip(got[1:], want[1:]):
+        torch.testing.assert_close(k, p, **BN_SUM_TOL)
     torch.cuda.synchronize()
     after = ops.launch_counts()
     for k in ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx"):
         assert after[k] == before[k] + 1, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_kernels_match_plain(cuda, shape, dtype):
+    """Each of the four BN passes against its plain version at every BN
+    shape of the train step and at ragged ones, both dtypes: S below 16
+    bytes takes bn_bwd_partials' columns mapping, and the chunks of
+    bn_normalize's and bn_dx's stream cross channels where S is not a
+    multiple of the chunk (S = 1, 3, 25)."""
+    _bn_passes_match_plain(*_bn_inputs(cuda, shape, dtype, sum(shape)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [
+    ((3, 100, 32, 1024), 1), ((1, 100, 512, 1), 1), ((1, 5, 7, 1), 1),
+    ((2, 3, 4, 25), 3), ((3, 7, 9, 5), 1), ((2, 40, 4000, 1), 0),
+    ((2, 40, 4000, 1), 1)])
+def test_bn_stream_kernels_take_any_start_and_length(cuda, shape, offset,
+                                                     dtype):
+    """x starting `offset` elements past a 16-byte boundary (2 or 6 bytes
+    in bf16: the stream's head; its output is allocated at the same
+    offset), odd numels (its tail), and (G, C) = (2, 4000), against the
+    plain versions."""
+    x4, g4, scale, bias = _bn_inputs(cuda, shape, dtype, 7, offset)
+    assert (x4.data_ptr() % 16 != 0) == (offset != 0)
+    _bn_passes_match_plain(x4, g4, scale, bias)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -310,6 +349,68 @@ def test_bn_bwd_partials_is_the_same_from_run_to_run(cuda, shape, dtype):
         again = bn_ops.bn_bwd_partials(x4, g4, a, b)
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [BN_SHAPES[6], BN_SHAPES[7],
+                                   BN_SHAPES[2], BN_SHAPES[9]])
+def test_bn_stream_kernels_are_the_same_from_run_to_run(cuda, shape, dtype):
+    """bn_normalize and bn_dx launched twice give bit-identical outputs,
+    the (G, C) vectors too: one block writes them, in a fixed order."""
+    x4, g4, scale, bias = _bn_inputs(cuda, shape, dtype, 12)
+    m = shape[1] * shape[3]
+    s, q = bn_ops.bn_moments(x4)
+    first = bn_ops.bn_normalize(x4, s, q, m, scale, bias)
+    _, mean, _, a, b, invstd = first
+    sdz, sdzx = bn_ops.bn_bwd_partials(x4, g4, a, b)
+    first_dx = bn_ops.bn_dx(x4, g4, sdz, sdzx, m, a, b, mean, invstd)
+    for _ in range(2):
+        for got, want in zip(bn_ops.bn_normalize(x4, s, q, m, scale, bias),
+                             first):
+            assert torch.equal(got, want)
+        for got, want in zip(bn_ops.bn_dx(x4, g4, sdz, sdzx, m, a, b, mean,
+                                          invstd), first_dx):
+            assert torch.equal(got, want)
+
+
+def test_bn_layer_is_four_launches_on_the_card(cuda):
+    """One train-mode BN layer's forward and backward (G = 3, bf16) run
+    the port's four BN kernels once each and no other kernel on the card:
+    the per-channel algebra between them is inside bn_normalize and bn_dx
+    (torch.profiler's CUDA kernel events; autograd's accumulation of the
+    gradients into fresh .grad tensors launches nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((3 * 10, 32, 16, 16), generator=g,
+                    device=cuda).bfloat16()
+    ct = torch.randn(x.shape, generator=g, device=cuda).bfloat16()
+
+    def layer():
+        xi = x.clone().requires_grad_(True)
+        w = torch.ones(32, device=cuda, requires_grad=True)
+        b = torch.zeros(32, device=cuda, requires_grad=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y, _, _ = ops.bn_swish_train(xi, w, b, groups=3)
+            y.backward(ct)
+            torch.cuda.synchronize()
+        assert xi.grad is not None and w.grad is not None
+        return [e.key for e in prof.key_averages()
+                for _ in range(e.count)
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    layer()
+    before = ops.launch_counts()
+    kernels = layer()
+    after = ops.launch_counts()
+    for k in ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx"):
+        assert after[k] == before[k] + 1, k
+    stems = ("bn_moments_kernel", "bn_normalize_kernel", "bn_bwd_partials",
+             "bn_dx_kernel")
+    for stem in stems:
+        assert sum(stem in k for k in kernels) == 1, (stem, kernels)
+    others = [k for k in kernels if not any(s in k for s in stems)]
+    assert not others, others
 
 
 def test_bn_op_autograd_on_the_card_matches_plain(cuda):
@@ -375,13 +476,14 @@ def _one_step(model, batch, noise):
 
 
 def test_train_step_goes_through_all_seven_kernels(cuda):
-    """One train-mode ELBO and its backward on the card: 1 PoE, 2 BCE
-    launches, conv2d_moments once for each of the encoder's 3 BN'd convs,
-    each BN pass once for each of the other 8 BN layers, and every parameter
-    gradient within 1e-4 of the plain versions' in relative norm (f32,
-    TF32 off). The Linear biases that feed a BN have an exact gradient of
-    0; both sides give rounding noise, held within 1e-4 absolutely."""
-    model = CelebaMVAE(8, device=cuda)
+    """One train-mode ELBO and its backward on the card, on the encoder's
+    fused route: 1 PoE, 2 BCE launches, conv2d_moments once for each of the
+    encoder's 3 BN'd convs, each BN pass once for each of the other 8 BN
+    layers, and every parameter gradient within 1e-4 of the plain versions'
+    in relative norm (f32, TF32 off). The Linear biases that feed a BN have
+    an exact gradient of 0; both sides give rounding noise, held within
+    1e-4 absolutely."""
+    model = CelebaMVAE(8, conv_moments=True, device=cuda)
     twin = copy.deepcopy(model)
     batch = decode_batch(_batch(cuda))
     noise = draw_noise(model, 3, 4,

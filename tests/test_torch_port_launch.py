@@ -1,9 +1,11 @@
-"""The launch geometry of the port's two redesigned kernels, held on the CPU:
-what ops/convbn.py:launch_geometry and ops/bn.py:bwd_partials_launch hand to
-csrc/conv_moments.cu and csrc/bn_swish.cu. The kernels themselves run only
-on a card (tests/test_torch_port_cuda.py); their addressing is repeated here
-in numpy, so that a geometry the kernel would read out of bounds, or a tile
-that misses a pixel, fails here."""
+"""The launch geometry of the port's redesigned kernels, held on the CPU:
+what ops/convbn.py:launch_geometry, ops/bn.py:bwd_partials_launch,
+normalize_launch and dx_launch hand to csrc/conv_moments.cu and
+csrc/bn_swish.cu. The kernels themselves run only on a card
+(tests/test_torch_port_cuda.py); their addressing is repeated here in
+numpy, so that a geometry the kernel would read out of bounds, a tile that
+misses a pixel, an element two threads write or an element given another
+channel's coefficients fails here."""
 
 import numpy as np
 import pytest
@@ -198,3 +200,163 @@ def test_bn_bwd_partials_fills_the_card_at_celeba_shapes(shape):
 def test_bn_bwd_partials_unaligned_tensors_load_by_element():
     lay = bn_ops.bwd_partials_launch(3, 100, 32, 1024, 2, aligned=False)
     assert lay["vec"] == 1 and lay["columns"] == 0
+
+
+# bn_normalize and bn_dx: one flat stream over the (G, N, C, S) view
+# (ops/bn.py:normalize_launch, dx_launch; csrc/bn_swish.cu:stream). The
+# CelebA layers, then S = 1 with C off the chunk and an odd numel, S = 25,
+# S = 3 and 5 with odd numels, (G, C) = (2, 4000)
+STREAM_SHAPES = BN_CELEBA + [(1, 5, 7, 1), (2, 3, 4, 25), (1, 3, 5, 3),
+                             (3, 7, 9, 5), (1, 33, 50, 1), (2, 20, 4000, 1)]
+# each tensor's address modulo 16: aligned; x and the output both 2 or 4
+# bytes past a boundary (a head); x off by one element against the rest
+# (no 16-byte chunk lines up in all, one element a chunk)
+STREAM_OFFSETS = ["aligned", "offset", "mismatched"]
+STREAM_KINDS = {"normalize": (bn_ops.normalize_launch, 2),
+                "dx": (bn_ops.dx_launch, 3)}
+
+
+def _stream(shape, dtype, kind, offsets):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    launch, n_tensors = STREAM_KINDS[kind]
+    off = {"aligned": (0,) * n_tensors,
+           "offset": (itemsize,) * n_tensors,
+           "mismatched": (itemsize,) + (0,) * (n_tensors - 1)}[offsets]
+    return launch(*shape, itemsize, off), itemsize, off
+
+
+def _chunks_of_threads(lay):
+    """The chunk indices each grid thread takes, in the kernel's order:
+    k = t, then k += unroll * stride while k < chunks, chunks k + u *
+    stride (u < unroll) below chunks. Returns (thread, chunk) arrays."""
+    stride = lay["blocks"] * lay["threads"]
+    t = np.arange(stride, dtype=np.int64)
+    ts, js = [], []
+    k = t.copy()
+    while (k < lay["chunks"]).any():
+        for u in range(lay["unroll"]):
+            j = k + u * stride
+            live = j < lay["chunks"]
+            ts.append(t[live])
+            js.append(j[live])
+        k = k + lay["unroll"] * stride
+    if not ts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(ts), np.concatenate(js)
+
+
+def _channel_of(lay, c, e):
+    """The kernel's (g, c) of elements e (csrc/bn_swish.cu:channel_of):
+    three FastDiv divisions, each a 32x32 multiply-high and a shift."""
+    ms, ss, mc, sc, mg, sg = (np.uint64(v) for v in lay["divs"])
+
+    def div(n, m, s):
+        if m == 0:
+            return n
+        return ((n * m) >> np.uint64(32)) >> s
+
+    e = e.astype(np.uint64)
+    run = div(e, ms, ss)
+    ch = run - div(run, mc, sc) * np.uint64(c)
+    return (div(e, mg, sg) * np.uint64(c) + ch).astype(np.int64)
+
+
+@pytest.mark.parametrize("offsets", STREAM_OFFSETS)
+@pytest.mark.parametrize("kind", sorted(STREAM_KINDS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_bn_stream_reads_and_writes_every_element_once(shape, dtype, kind,
+                                                       offsets):
+    """Every element is taken by exactly one thread of the grid: in a
+    16-byte chunk aligned in every tensor, or as the head or the tail; the
+    edges fit the first threads; the grid is a whole wave of resident
+    blocks on SM_COUNT SMs."""
+    lay, itemsize, off = _stream(shape, dtype, kind, offsets)
+    g, n, c, s = shape
+    numel = g * n * c * s
+    vec = lay["vec"]
+    assert vec == (1 if offsets == "mismatched" else 16 // itemsize)
+    assert lay["head"] == (0 if vec == 1 else min(numel, (16 - off[0]) % 16
+                                                  // itemsize))
+    if vec == 1:
+        assert lay["head"] == lay["tail"] == 0
+    else:
+        assert 0 <= lay["head"] < vec and 0 <= lay["tail"] < vec
+    for o in off:
+        assert (o + lay["head"] * itemsize) % 16 == 0 or vec == 1
+    _, chunk = _chunks_of_threads(lay)
+    elems = (lay["head"] + chunk[:, None] * vec
+             + np.arange(vec)[None, :]).ravel()
+    edge_t = np.arange(lay["head"] + lay["tail"])
+    assert len(edge_t) <= lay["threads"]
+    edges = np.where(edge_t < lay["head"], edge_t,
+                     lay["head"] + lay["chunks"] * vec
+                     + (edge_t - lay["head"]))
+    cover = np.bincount(np.concatenate([elems, edges]), minlength=numel)
+    assert len(cover) == numel and (cover == 1).all()
+    assert lay["threads"] == bn_ops.STREAM_THREADS
+    assert lay["blocks"] % SM_COUNT == 0
+    assert 1 <= lay["blocks"] // SM_COUNT <= bn_ops.STREAM_BLOCKS_PER_SM
+    if lay["blocks"] > SM_COUNT:        # no block of a second wave idles
+        assert lay["chunks"] > (lay["blocks"] - SM_COUNT) * lay["threads"]
+    assert set(lay) == {"vec", "head", "chunks", "tail", "whole", "unroll",
+                        "threads", "blocks", "divs"}
+
+
+@pytest.mark.parametrize("offsets", STREAM_OFFSETS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_bn_stream_gives_each_element_its_channel(shape, dtype, offsets):
+    """The (g, c) the kernel forms for each element from its index by
+    multiply-high and shift is the element's own; where the geometry says
+    `whole`, every element of a chunk lies in the chunk's first element's
+    channel, which is the one the kernel forms for all of them."""
+    lay, *_ = _stream(shape, dtype, "normalize", offsets)
+    g, n, c, s = shape
+    numel = g * n * c * s
+    step = 1 << 20
+    for lo in range(0, numel, step):
+        e = np.arange(lo, min(numel, lo + step), dtype=np.int64)
+        want = e // (n * c * s) * c + e // s % c
+        np.testing.assert_array_equal(_channel_of(lay, c, e), want)
+    if lay["whole"]:
+        assert s % lay["vec"] == 0 and lay["head"] == 0
+        first = np.arange(lay["chunks"], dtype=np.int64) * lay["vec"]
+        for i in range(1, lay["vec"]):
+            np.testing.assert_array_equal(
+                (first + i) // s % c, first // s % c)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 7, 25, 64, 100, 256, 512, 1000,
+                               4095, 4097, 25600, 102400, 3276800,
+                               (1 << 30) + 1, (1 << 31) - 1])
+def test_fast_div_is_exact_below_2_31(d):
+    """n // d by multiply-high and shift for dividends the kernel forms
+    (below 2^31): near 0, near every multiple of d up to 2^31 (sampled),
+    and at random."""
+    m, s = bn_ops.fast_div(d)
+    rng = np.random.default_rng(d)
+    top = (1 << 31) - 1
+    mult = rng.integers(0, top // d + 1, 20000, dtype=np.int64) * d
+    n = np.concatenate([np.arange(0, 4096), rng.integers(0, top, 20000),
+                        mult, mult - 1, mult + d - 1,
+                        [top, top - 1, top - d]])
+    n = n[(n >= 0) & (n <= top)].astype(np.uint64)
+    got = n if m == 0 else (n * np.uint64(m)) >> np.uint64(32 + s)
+    np.testing.assert_array_equal(got, n // np.uint64(d))
+    assert m < (1 << 32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bn_stream_whole_chunks_only_where_s_holds_them(dtype):
+    """A chunk takes one channel for all its elements (`whole`) where S is
+    a multiple of the chunk and x starts on a 16-byte boundary: the
+    decoder's last BN and (3, 100, 128, 64); not at S = 25 or S = 1 (each
+    element forms its own coefficients), nor with a head."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert bn_ops.normalize_launch(3, 100, 32, 1024, itemsize)["whole"]
+    assert bn_ops.dx_launch(3, 100, 128, 64, itemsize)["whole"]
+    assert not bn_ops.dx_launch(1, 100, 256, 25, itemsize)["whole"]
+    assert not bn_ops.dx_launch(3, 100, 512, 1, itemsize)["whole"]
+    assert not bn_ops.normalize_launch(3, 100, 32, 1024, itemsize,
+                                       (itemsize, itemsize))["whole"]

@@ -35,7 +35,9 @@ from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.nn.layers import dropout
 from mvae_tpu_torch.nn.norm import BatchNorm, BNSwishSequential, Moments
 from mvae_tpu_torch.ops.bn import (
-    bn_swish_bwd_plain, bn_swish_fwd_plain, bn_swish_train)
+    EPS, bn_bwd_partials_plain, bn_dx_plain, bn_moments_plain,
+    bn_normalize_plain, bn_swish_bwd_plain, bn_swish_fwd_plain,
+    bn_swish_train)
 from mvae_tpu_torch.train.loop import (
     decode_batch, draw_noise, make_multi_train_step, make_train_step)
 from mvae_tpu_torch.utils.weights import state_dict_from_jax
@@ -113,12 +115,18 @@ BN_GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
     (3, 4, 32, 8),          # the decoder's BNs over three terms
     (1, 12, 512, 0),        # BatchNorm1d, (N, C)
     (3, 8, 512, 0),
+    (2, 5, 12, 0),          # S = 1, C off every chunk width, two groups
+    (1, 3, 40, 5),          # S = 25, C off the 128 lanes: JAX's ragged view
 ])
 def test_bn_swish_train_matches_pallas(g, n, c, hw, dtype):
     """y, mean, var and the gradients of x, scale, bias against the JAX
     package's Pallas op (G = 1: the plain call; G = 3: vmap over the term
     axis, the statistics the engine's vmap gives). The port runs NCHW and
-    the plain versions here, through the op's autograd."""
+    the plain versions here, through the op's autograd. Then the plain
+    versions of the two passes that do the per-channel algebra, from the
+    sums, against the JAX op's own forward and VJP (_fwd_impl: y, mean,
+    var, a, b, invstd; _vjp_bwd: dx and, summed over the groups, dscale
+    and dbias)."""
     x, ct, scale, bias = _bn_inputs(g, n, c, hw, dtype, seed=g * 1000 + c)
     jdt = getattr(jnp, dtype)
 
@@ -169,6 +177,31 @@ def test_bn_swish_train_matches_pallas(g, n, c, hw, dtype):
     dx, ds, db = bn_swish_bwd_plain(x4, g4, ps.detach(), pb.detach())
     assert torch.equal(dx.view(px.shape), px.grad)
     assert torch.equal(ds, ps.grad) and torch.equal(db, pb.grad)
+
+    js, jb = jnp.asarray(scale), jnp.asarray(bias)
+    fy, fmean, fvar, (fa, fb, fmean2, finv) = jax.vmap(
+        lambda xg: jax_bn_pallas._fwd_impl(xg, js, jb, EPS))(jx)
+    s, q = bn_moments_plain(x4)
+    count = x4.shape[1] * x4.shape[3]
+    out = bn_normalize_plain(x4, s, q, count, ps.detach(), pb.detach())
+    np.testing.assert_allclose(_from_port(out[0].view(px.shape), g, hw),
+                               np.asarray(fy.astype(jnp.float32)), **tol)
+    for got, want in zip(out[1:], (fmean, fvar, fa, fb, finv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BN_TOL)
+    zeros = jnp.zeros((c,), jnp.float32)
+    bdx, bds, bdb = jax.vmap(
+        lambda xg, a, b, m, i, gg: jax_bn_pallas._vjp_bwd(
+            EPS, (xg, js, a, b, m, i), (gg, zeros, zeros)))(
+        jx, fa, fb, fmean2, finv, jnp.asarray(ct, jdt))
+    _, mean_, _, a_, b_, inv_ = out
+    sdz, sdzx = bn_bwd_partials_plain(x4, g4, a_, b_)
+    dx, ds, db = bn_dx_plain(x4, g4, sdz, sdzx, count, a_, b_, mean_, inv_)
+    np.testing.assert_allclose(_from_port(dx.view(px.shape), g, hw),
+                               np.asarray(bdx.astype(jnp.float32)), **gtol)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(bds.sum(0)),
+                               **BN_GRAD_TOL)
+    np.testing.assert_allclose(db.numpy(), np.asarray(bdb.sum(0)),
+                               **BN_GRAD_TOL)
 
 
 def test_bn_train_mode_fuses_the_following_swish():
