@@ -13,12 +13,12 @@ Phases (any failure exits non-zero; nothing is caught):
   2. kernels vs their plain versions at the paths' shapes, with times:
      PoE and BCE; the four BN passes at each of the train step's 11 BN
      layers; conv2d_moments at the encoder's 3 BN'd convs, bf16 and f32
-     (per-step sums too); conv2d_moments, bn_normalize, bn_bwd_partials
-     and bn_dx launched twice give bit-identical results. Each kernel is
-     timed two ways: device_ms (one launch between events, the L2 flushed
-     before it: carries the measuring floor of the `[kernel] floor` line)
-     and back_to_back_ms (R launches between one pair of events, each on
-     its own copy of the inputs: the floor out)
+     (per-step sums too); every kernel but poe_fwd launched twice gives
+     bit-identical results. Each kernel is timed two ways: device_ms (one
+     launch between events, the L2 flushed before it: carries the
+     measuring floor of the `[kernel] floor` line) and back_to_back_ms (R
+     launches between one pair of events, each on its own copy of the
+     inputs: the floor out)
   3. serving: Sampler on CelebaMVAE(100) in bf16 (every endpoint)
   4. eval step: B=100, T=3, CLI weights, uint8 device-resident data, bf16
      and f32, kernel path and plain versions timed in turns
@@ -54,6 +54,7 @@ its f32 rate, or for the bf16 convolutions its bf16 tensor-core rate.
 
 import contextlib
 import copy
+import ctypes
 import io
 import json
 import os
@@ -266,6 +267,33 @@ def back_to_back_ms(fn, args, flush, reps=5):
     return statistics.median(out)
 
 
+def reduction_at(op, geo):
+    """bn_moments (op "moments") or bn_bwd_partials ("partials") launched
+    through its C entry point at the 6-int geometry geo (csrc/bn_swish.cu:
+    reduce_of) in place of the wrapper's: a reading, not the main path (no
+    launch count)."""
+    lib = ops._cuda.library()
+    arr = (ctypes.c_int * 6)(*geo)
+
+    def fn(x4, *rest):
+        gsz, _, c, _ = x4.shape
+        s = torch.empty((gsz, c), device=x4.device)
+        q = torch.empty_like(s)
+        st = ops._cuda.stream(x4.device)
+        bf16 = int(x4.dtype == torch.bfloat16)
+        if op == "moments":
+            rc = lib.mvae_bn_moments(x4.data_ptr(), bf16, s.data_ptr(),
+                                     q.data_ptr(), *x4.shape, arr, st)
+        else:
+            g4, a, b = rest
+            rc = lib.mvae_bn_bwd_partials(
+                x4.data_ptr(), g4.data_ptr(), bf16, a.data_ptr(),
+                b.data_ptr(), s.data_ptr(), q.data_ptr(), *x4.shape, arr, st)
+        ops._cuda.check(f"bn {op} at {geo}", rc)
+        return s, q
+    return fn
+
+
 def host_ms(fn, reps=20):
     """Median wall time of fn() + synchronize, in ms."""
     fn()
@@ -307,6 +335,7 @@ def phase_kernels(dev, card, peaks, flush):
             row.update(ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
                        library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
                        case=case)
+        return f"{case}: ms {t_k} back_to_back_ms {t_b2b} bound_ms {b_ms}"
 
     d = 100
     for t, b in ((1, 1), (1, 64), (3, 100)):
@@ -327,17 +356,20 @@ def phase_kernels(dev, card, peaks, flush):
     f32, bf16 = torch.float32, torch.bfloat16
     # (rows, target rows, width, logits dtype, targets dtype, main case):
     # the eval step's image and attribute rows under bf16 compute (f32
-    # logits) and the train step's image rows (bf16 logits)
+    # logits; the main case) and the train step's image rows (bf16 logits)
+    bce_main = {}
     for n, nt, k, xdt, tdt, main in ((300, 300, 12288, f32, f32, False),
                                      (300, 300, 12288, f32, bf16, False),
-                                     (300, 100, 12288, f32, bf16, True),
-                                     (300, 100, 12288, bf16, bf16, False),
+                                     (300, 100, 12288, f32, bf16, "eval"),
+                                     (300, 100, 12288, bf16, bf16, "train"),
                                      (300, 300, 18, f32, f32, False),
                                      (300, 100, 18, f32, f32, False)):
         x = (3 * torch.randn((n, k), generator=g, device=dev)).to(xdt)
         tt = torch.rand((nt, k), generator=g, device=dev).to(tdt)
         got = ops.bce_rowsum_fwd(x, tt)
         want = bce_rowsum_plain(x, tt)
+        expect(torch.equal(got, ops.bce_rowsum_fwd(x, tt)),
+               f"bce_rowsum_fwd ({n},{k}): two launches differ")
         case = (f"logits ({n},{k}) {str(xdt).split('.')[-1]}, targets "
                 f"({nt},{k}) {str(tdt).split('.')[-1]}")
         # the library call takes one dtype: bf16 logits and targets are
@@ -345,14 +377,19 @@ def phase_kernels(dev, card, peaks, flush):
         # broadcast over the n // nt terms, as the kernel reads them
         r = n // nt
         x3, t3 = x.float().view(r, nt, k), tt.float().expand(r, nt, k)
-        report("bce_rowsum_fwd", case, got, want, BCE_TOL,
-               device_ms(lambda: ops.bce_rowsum_fwd(x, tt), flush),
-               back_to_back_ms(ops.bce_rowsum_fwd, (x, tt), flush),
-               device_ms(lambda: bce_rowsum_plain(x, tt), flush),
-               device_ms(lambda: F.binary_cross_entropy_with_logits(
-                   x3, t3, reduction="none").sum(-1), flush),
-               n * k * x.element_size() + nt * k * tt.element_size()
-               + n * 4, 9 * n * k, main)
+        line = report(
+            "bce_rowsum_fwd", case, got, want, BCE_TOL,
+            device_ms(lambda: ops.bce_rowsum_fwd(x, tt), flush),
+            back_to_back_ms(ops.bce_rowsum_fwd, (x, tt), flush),
+            device_ms(lambda: bce_rowsum_plain(x, tt), flush),
+            device_ms(lambda: F.binary_cross_entropy_with_logits(
+                x3, t3, reduction="none").sum(-1), flush),
+            n * k * x.element_size() + nt * k * tt.element_size() + n * 4,
+            9 * n * k, main == "eval")
+        if main:
+            bce_main[main] = line
+    print(f"[kernel] bce_rowsum_fwd main cases: eval step {bce_main['eval']}"
+          f"; train step {bce_main['train']} | {card}")
     return rows
 
 
@@ -363,8 +400,7 @@ def phase_bn_kernels(dev, card, peaks, flush):
     the bf16
     conv layers again in f32 (the --f32 step), checked, not timed. y and
     dx at BN_OUT_TOL, every (G, C) or (C,) output at BN_SUM_TOL (the sums
-    as means); bn_normalize, bn_bwd_partials and bn_dx launched twice give
-    bit-identical outputs."""
+    as means); each pass launched twice gives bit-identical outputs."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {k: {"max_abs_err": 0.0} for k in BN_KERNELS}
     keys = ("ms", "back_to_back_ms", "plain_ms", "library_ms", "bound_ms")
@@ -404,10 +440,9 @@ def phase_bn_kernels(dev, card, peaks, flush):
         case = f"{layer}: x ({gsz}, {n}, {c}, {sp}) {str(dt).split('.')[-1]}"
         for name, kern, plain, args, per, nbytes, nops in passes:
             got, want = kern(*args), plain(*args)
-            if name != "bn_moments":
-                for one, two in zip(got, kern(*args)):
-                    expect(torch.equal(one, two),
-                           f"{name} {layer}: two launches differ")
+            for one, two in zip(got, kern(*args)):
+                expect(torch.equal(one, two),
+                       f"{name} {layer}: two launches differ")
             if per:
                 pairs = [(torch.stack(got) / per, torch.stack(want) / per,
                           BN_SUM_TOL)]
@@ -1082,9 +1117,10 @@ def phase_train_checks(dev, data, idx, trained):
 FAMILIES = (
     ("poe_fwd", lambda k: "poe_fwd_kernel" in k),
     ("bce_rowsum_fwd", lambda k: "bce_rowsum_kernel" in k),
-    ("bn_moments", lambda k: "bn_moments_kernel" in k),
+    ("bn_moments", lambda k: "bn_reduce_kernel" in k and "MomentsOp" in k),
     ("bn_normalize", lambda k: "bn_normalize_kernel" in k),
-    ("bn_bwd_partials", lambda k: "bn_bwd_partials" in k),
+    ("bn_bwd_partials", lambda k: "bn_reduce_kernel" in k
+     and "PartialsOp" in k),
     ("bn_dx", lambda k: "bn_dx_kernel" in k),
     ("conv2d_moments", lambda k: "conv_moments" in k),
     ("adam (foreach)", lambda k: "multi_tensor_apply" in k),
@@ -1152,13 +1188,16 @@ def run(dev, card, peaks):
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
-    # out
-    tiny = (torch.zeros((1, 1, 8, 1), device=dev),) * 2 + (
+    # out. bn_bwd_partials' kernel on 2 rows of 8 channels, the rows in
+    # one block (a plain launch) or one each in a cluster of 2
+    tiny = (torch.zeros((1, 2, 8, 1), device=dev),) * 2 + (
         torch.ones((1, 8), device=dev),) * 2
-    print(f"[kernel] floor: bn_bwd_partials on a (1, 1, 8, 1) view reads "
-          f"{device_ms(lambda: bn_ops.bn_bwd_partials(*tiny), flush)} ms, "
-          f"back_to_back_ms "
-          f"{back_to_back_ms(bn_ops.bn_bwd_partials, tiny, flush)} | {card}")
+    for splits, kind in ((1, "a plain launch"), (2, "a cluster of 2")):
+        fn = reduction_at("partials", (1, 1, splits, 2 // splits, 256, 8))
+        t_one = device_ms(lambda: fn(*tiny), flush)
+        t_b2b = back_to_back_ms(fn, tiny, flush)
+        print(f"[kernel] floor: bn_bwd_partials on a (1, 2, 8, 1) view "
+              f"({kind}) reads {t_one} ms, back_to_back_ms {t_b2b} | {card}")
     rows = phase_kernels(dev, card, peaks, flush)
     rows.update(phase_bn_kernels(dev, card, peaks, flush))
     rows.update(phase_conv_kernels(dev, card, peaks, flush))

@@ -30,20 +30,26 @@
 // needs every SM, and loads in flight while it computes.
 //
 // The reductions. The TPU kernels walk row blocks in order and sum
-// per-block partials outside; here blocks run in no order. bn_moments gives
-// a whole (g, c) plane to one block, which sums it in registers and then
-// through warp shuffles and shared memory: no second pass, no atomics, and
-// a summation order that does not change from run to run, at the price of
-// G*C blocks (96 at the CelebA decoder's last BN, for 132 SMs).
-// bn_bwd_partials splits a plane's rows over blocks: each block sums its
-// rows the same way, the blocks of a plane are one thread block cluster,
-// and the cluster's first block adds their sums in rank order out of its
-// shared memory, so the sums are bit-identical from run to run, without
-// float atomics and without a scratch in device memory. It walks its rows
-// with running pointers (no division in the loop), reads through the
-// read-only path, and where a run of S is shorter than 16 bytes
-// (BatchNorm1d: S = 1) it puts threads on consecutive channels and loops
-// over rows, so that a warp reads one contiguous line.
+// per-block partials outside; here blocks run in no order. bn_moments and
+// bn_bwd_partials are one skeleton (bn_reduce_kernel) that differs only in
+// what an element adds to its pair of sums (MomentsOp: x and x^2 of one
+// tensor; PartialsOp: dz and dz * x of two). A block sums its rows in
+// registers and then through warp shuffles and shared memory. A plane
+// whose threads load few chunks each from one block of 512 takes that
+// block, in a plain launch; a larger plane's rows are split over up to 8
+// blocks of 256 that are one thread block cluster, and the cluster's first
+// block adds their sums in rank order out of its shared memory
+// (csrc/reduce.cuh). Either way the sums are bit-identical from run to
+// run, without float atomics, without a scratch in device memory and
+// without a second launch. (On an H100 a cluster launch costs about 1 us
+// more than a plain one, which is most of a small layer's time: the
+// geometry, ops/bn.py:reduce_launch, splits only where the plane is too
+// large for one block.) A thread walks its rows with a running pointer
+// (no division in the loop), 2 rows in flight, and reads raw 16-byte
+// chunks through the read-only path. Where a run of S is shorter than 16
+// bytes (BatchNorm1d: S = 1) a block takes a few consecutive channels of
+// a group by many row lanes (the columns mapping), so that a warp reads a
+// few whole sectors of each of its rows; the same rule splits its rows.
 //
 // The two elementwise passes (bn_normalize, bn_dx) hold nothing across
 // elements, so each is one flat stream over the whole tensor, whatever S:
@@ -76,68 +82,26 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cooperative_groups.h>
 #include <stdint.h>
+
+#include "reduce.cuh"
 
 namespace {
 
-constexpr int kReduceThreads = 512;
-constexpr int kUnroll = 4;              // bn_moments: loads a thread in flight
-constexpr int kPartialsThreads = 256;   // bn_bwd_partials, at most
-constexpr int kPartialsUnroll = 2;      // ... rows a thread has in flight
-constexpr int kMaxCluster = 8;          // ... blocks that share a plane
-constexpr int kColumnsWide = 32;        // its columns mapping: channels
-constexpr int kColumnsDeep = 8;         // ... by row lanes a block
+constexpr int kReduceThreads = 512;     // bn_moments, bn_bwd_partials: a
+                                        // block, at most
+constexpr int kReduceUnroll = 2;        // ... rows a thread has in flight
+constexpr int kColumnsMaxWide = 32;     // ... columns mapping: channels a
+                                        // block, at most
 constexpr int kStreamThreads = 256;     // bn_normalize, bn_dx: a block
 constexpr int kStreamBlocksPerSm = 4;   // ... resident an SM (one wave)
 constexpr int kStreamUnroll = 2;        // ... chunks of x (and g) in flight
 constexpr float kEps = 1e-5f;           // ops/bn.py:EPS
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(v);
 }
-
-// V consecutive elements as f32: one 16-byte load (V = 16 / sizeof(T)) or
-// one scalar load (V = 1).
-template <typename T, int V>
-__device__ __forceinline__ void load(const T* p, float (&out)[V]) {
-  if constexpr (V == 1) {
-    out[0] = to_f32(*p);
-  } else {
-    static_assert(V * sizeof(T) == 16, "a vector is one 16-byte load");
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < V; ++j) out[j] = to_f32(e[j]);
-  }
-}
-
-// Rows [n0, n1) of the (g, c) plane, in chunks of V elements.
-struct Plane {
-  long long base;  // element offset of (g, n0, c, 0)
-  long long row;   // C * S: from one row n to the next
-  int per_row;     // S / V chunks a row
-  int items;       // (n1 - n0) * per_row chunks in all
-  int width;       // V
-
-  __device__ __forceinline__ Plane(int g, int c, int n0, int n1, int N, int C,
-                                   int S, int V)
-      : base(((long long)g * N + n0) * C * S + (long long)c * S),
-        row((long long)C * S),
-        per_row(S / V),
-        items((n1 - n0) * (S / V)),
-        width(V) {}
-
-  __device__ __forceinline__ long long offset(int j) const {
-    const int n = j / per_row;
-    return base + n * row + (long long)(j - n * per_row) * width;
-  }
-};
 
 __device__ __forceinline__ float sigmoid(float z) {
   return 1.0f / (1.0f + expf(-z));
@@ -164,153 +128,58 @@ __device__ __forceinline__ float dswish_fast(float z, float g) {
   return g * (s * (1.0f + z * (1.0f - s)));
 }
 
-// Sums a and b over the block; the block's first thread holds the totals.
-// blockDim.x is a multiple of 32, at most 1024.
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[32];
-  __shared__ float sb[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-  if (lane == 0) {
-    sa[warp] = a;
-    sb[warp] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    a = lane < n_warps ? sa[lane] : 0.0f;
-    b = lane < n_warps ? sb[lane] : 0.0f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-      b += __shfl_xor_sync(0xffffffffu, b, o);
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// The two reductions: one skeleton (reduce_rows, reduce_columns) and what an
+// element contributes to its pair of sums (the Op). Each Op writes its pair
+// per (g, c) into s and q, (G, C) f32.
 
-// One block per (g, c) = blockIdx.x; sum[gc] = sum x, sumsq[gc] = sum x^2.
-template <typename T, int V>
-__global__ void __launch_bounds__(kReduceThreads)
-bn_moments_kernel(const T* __restrict__ x, float* __restrict__ sum,
-                  float* __restrict__ sumsq, int N, int C, int S) {
-  const int gc = blockIdx.x;
-  const Plane p(gc / C, gc % C, 0, N, N, C, S, V);
-  float s = 0.0f;
-  float q = 0.0f;
-  for (int j0 = threadIdx.x; j0 < p.items; j0 += blockDim.x * kUnroll) {
-    float v[kUnroll][V];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * blockDim.x;
-      if (j < p.items) {
-        load<T, V>(x + p.offset(j), v[u]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k) v[u][k] = 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        s += v[u][k];
-        q = fmaf(v[u][k], v[u][k], q);
-      }
-    }
-  }
-  block_sum2(s, q);
-  if (threadIdx.x == 0) {
-    sum[gc] = s;
-    sumsq[gc] = q;
-  }
-}
-
-// A 16-byte chunk of V elements, or one element, as loaded: kept raw in
-// registers (a quarter of the floats' room) until it is used.
-template <typename T, int V>
-struct Chunk {
-  uint4 raw;
-  __device__ __forceinline__ void load(const T* p) {
-    raw = __ldg(reinterpret_cast<const uint4*>(p));   // ld.global.nc
-  }
-  __device__ __forceinline__ void zero() { raw = make_uint4(0, 0, 0, 0); }
-  __device__ __forceinline__ float at(int k) const {
-    return to_f32(reinterpret_cast<const T*>(&raw)[k]);
+// bn_moments: (x, x^2), exact f32 adds and FMAs.
+struct MomentsOp {
+  static constexpr bool kReadsG = false;
+  float* s;
+  float* q;
+  struct Coef {};
+  __device__ __forceinline__ Coef coef(int) const { return {}; }
+  __device__ __forceinline__ void add(Coef, float x, float, float& s_,
+                                      float& q_) const {
+    s_ += x;
+    q_ = fmaf(x, x, q_);
   }
 };
-template <typename T>
-struct Chunk<T, 1> {
-  float v;
-  __device__ __forceinline__ void load(const T* p) { v = to_f32(__ldg(p)); }
-  __device__ __forceinline__ void zero() { v = 0.0f; }
-  __device__ __forceinline__ float at(int) const { return v; }
+
+// bn_bwd_partials: (dz, dz * x) with z = x * a + b, dz from the fast forms.
+struct PartialsOp {
+  static constexpr bool kReadsG = true;
+  const float* a;
+  const float* b;
+  float* s;
+  float* q;
+  using Coef = float2;
+  __device__ __forceinline__ Coef coef(int gc) const {
+    return make_float2(a[gc], b[gc]);
+  }
+  __device__ __forceinline__ void add(Coef k, float x, float g, float& s_,
+                                      float& q_) const {
+    const float dz = dswish_fast(affine(x, k.x, k.y), g);
+    s_ += dz;
+    q_ = fmaf(dz, x, q_);
+  }
 };
 
-// The cluster's barrier in its two halves. A block may write into another
-// block's shared memory only once that block has started: every block
-// arrives as its kernel begins and waits just before its first such write,
-// so the wait is over, as a rule, long before it is reached.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The end of both bn_bwd_partials kernels. The blocks that share a plane
-// (the rows mapping) or a stretch of channels (the columns mapping) are
-// one thread block cluster along grid.y. Each block's thread i < width
-// holds one pair of sums (s, q); it writes them into the shared memory of
-// the cluster's first block, which adds the blocks' pairs in rank order
-// and stores pair i at out[i]: no scratch in device memory, no atomics,
-// and the same sums from run to run. Every thread of the kernel has called
-// cluster_arrive() once, at the kernel's start.
-template <int kWidth>
-__device__ __forceinline__ void cluster_sum2(float s, float q, int width,
-                                             float* sdz, float* sdzx,
-                                             const int* out) {
-  namespace cg = cooperative_groups;
-  __shared__ float red[2][kMaxCluster][kWidth];
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned rank = cluster.block_rank(), ranks = cluster.num_blocks();
-  const int i = threadIdx.x;
-  cluster_wait();   // the first block is on the card: its memory exists
-  if (i < width) {
-    float* first = cluster.map_shared_rank(&red[0][0][0], 0);
-    first[rank * kWidth + i] = s;
-    first[(kMaxCluster + rank) * kWidth + i] = q;
-  }
-  cluster.sync();
-  if (rank != 0 || i >= width || out[i] < 0) return;
-  s = red[0][0][i];
-  q = red[1][0][i];
-  for (unsigned r = 1; r < ranks; ++r) {
-    s += red[0][r][i];
-    q += red[1][r][i];
-  }
-  sdz[out[i]] = s;
-  sdzx[out[i]] = q;
-}
-
-// The rows mapping. Block (gc, y) sums dz and dz * x over rows [y * rows,
-// (y + 1) * rows) of plane gc. Its threads lie tpr = 2^tpr_log2 along a
-// row's chunks and blockDim.x / tpr down the rows; each walks its rows with
-// a running pointer, kPartialsUnroll rows (twice as many loads) in flight.
-// Few loads a thread and many threads: the loads of one warp overlap the
-// arithmetic of the others on its SM.
-template <typename T, int V>
-__global__ void __launch_bounds__(kPartialsThreads)
-bn_bwd_partials_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                       const float* __restrict__ a,
-                       const float* __restrict__ b, float* __restrict__ sdz,
-                       float* __restrict__ sdzx, int N, int C, int S,
-                       int rows, int tpr_log2) {
-  cluster_arrive();
+// The rows mapping. Block (gc, y) sums rows [y * rows, (y + 1) * rows) of
+// plane gc. Its threads lie tpr = 2^tpr_log2 along a row's chunks and
+// blockDim.x / tpr down the rows; each walks its rows with a running
+// pointer, kReduceUnroll rows (as many loads of each input) in flight. Few loads a thread
+// and many threads: the loads of one warp overlap the arithmetic of the
+// others on its SM. Past the block's rows x (and g) read as 0, which adds
+// 0 to either Op's sums.
+template <typename Op, typename T, int V>
+__device__ __forceinline__ void reduce_rows(const Op& op,
+                                            const T* __restrict__ x,
+                                            const T* __restrict__ g, int N,
+                                            int C, int S, int rows,
+                                            int tpr_log2) {
+  constexpr int U = kReduceUnroll;
   const int gc = blockIdx.x;
   const int n0 = blockIdx.y * rows;
   const int count = min(N, n0 + rows) - n0;
@@ -324,117 +193,125 @@ bn_bwd_partials_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const size_t first =
       ((size_t)(gc / C) * N + n0 + row0) * row + (size_t)(gc % C) * S;
   const T* px = x + first;
-  const T* pg = g + first;
-  const float av = a[gc];
-  const float bv = b[gc];
-  float s = 0.0f;
-  float q = 0.0f;
-  for (int n = row0; n < count; n += down * kPartialsUnroll) {
+  const T* pg = Op::kReadsG ? g + first : nullptr;
+  const typename Op::Coef k = op.coef(gc);
+  float v[2] = {0.0f, 0.0f};
+  for (int n = row0; n < count; n += down * U) {
     for (int c = chunk0; c < per_row; c += tpr) {
-      Chunk<T, V> xc[kPartialsUnroll], gk[kPartialsUnroll];
+      Chunk<T, V> xc[U], gk[U];
 #pragma unroll
-      for (int u = 0; u < kPartialsUnroll; ++u) {
+      for (int u = 0; u < U; ++u) {
         if (n + u * down < count) {
           xc[u].load(px + u * step + c * V);
-          gk[u].load(pg + u * step + c * V);
+          if constexpr (Op::kReadsG) gk[u].load(pg + u * step + c * V);
         } else {
           xc[u].zero();
-          gk[u].zero();   // dz = 0 past the block's rows
+          if constexpr (Op::kReadsG) gk[u].zero();   // dz = 0
         }
       }
 #pragma unroll
-      for (int u = 0; u < kPartialsUnroll; ++u) {
+      for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-          const float xv = xc[u].at(k);
-          const float dz = dswish_fast(affine(xv, av, bv), gk[u].at(k));
-          s += dz;
-          q = fmaf(dz, xv, q);
-        }
-      }
+        for (int e = 0; e < V; ++e)
+          op.add(k, xc[u].at(e), Op::kReadsG ? gk[u].at(e) : 0.0f, v[0],
+                 v[1]);
     }
-    px += kPartialsUnroll * step;
-    pg += kPartialsUnroll * step;
+    px += U * step;
+    if constexpr (Op::kReadsG) pg += U * step;
   }
-  block_sum2(s, q);
-  __shared__ int out;
-  if (threadIdx.x == 0) out = gc;
-  cluster_sum2<1>(s, q, 1, sdz, sdzx, &out);
+  block_sum<2>(v);
+  if (cluster_sum<1, 2>(v, 1)) {
+    op.s[gc] = v[0];
+    op.q[gc] = v[1];
+  }
 }
 
 // The columns mapping, for runs of S shorter than 16 bytes (S = 1 for
 // BatchNorm1d): a plane's elements lie C * S apart, so threads on one plane
-// would each touch their own sector. Block (group g's channels 32 * i ..
-// 32 * i + 31, y): kColumnsWide threads on consecutive channels, whose S
-// runs are one contiguous stretch of a row, by kColumnsDeep row lanes that
-// walk rows [y * rows, (y + 1) * rows); the row lanes' sums meet in shared
-// memory, in lane order.
-template <typename T>
-__global__ void __launch_bounds__(kColumnsWide * kColumnsDeep)
-bn_bwd_partials_columns_kernel(const T* __restrict__ x,
-                               const T* __restrict__ g,
-                               const float* __restrict__ a,
-                               const float* __restrict__ b,
-                               float* __restrict__ sdz,
-                               float* __restrict__ sdzx, int N, int C, int S,
-                               int rows) {
-  cluster_arrive();
-  __shared__ float ss[kColumnsDeep][kColumnsWide + 1];
-  __shared__ float sq[kColumnsDeep][kColumnsWide + 1];
-  __shared__ int out[kColumnsWide];
-  const int cx = threadIdx.x % kColumnsWide;
-  const int ry = threadIdx.x / kColumnsWide;
-  const int across = (C + kColumnsWide - 1) / kColumnsWide;
+// would each touch their own sector. Block (group g's channels wide * i ..
+// wide * i + wide - 1, y), wide = 2^wide_log2 <= 32: `wide` threads on
+// consecutive channels, whose S runs are one contiguous stretch of a row,
+// by blockDim.x / wide row lanes that walk rows [y * rows, (y + 1) * rows),
+// kReduceUnroll rows each in flight. The row lanes' sums meet in lane
+// order, one after another: where the rows are no more than the lanes, a
+// channel's sum is then ((x_0 + x_1) + x_2) + ..., row by row. (With a
+// tree of shuffles in its place, the gradient of a Linear bias ahead of
+// the BN, exactly 0, read 1.2e-4 of rounding noise against the plain
+// version's at 4 rows on an H100, over the card test's bound of 1e-4.)
+template <typename Op, typename T>
+__device__ __forceinline__ void reduce_columns(const Op& op,
+                                               const T* __restrict__ x,
+                                               const T* __restrict__ g,
+                                               int N, int C, int S, int rows,
+                                               int wide_log2) {
+  constexpr int U = kReduceUnroll;
+  __shared__ float part[2][kReduceThreads];
+  const int wide = 1 << wide_log2;
+  const int deep = blockDim.x >> wide_log2;
+  const int cx = threadIdx.x & (wide - 1);
+  const int ry = threadIdx.x >> wide_log2;
+  const int across = (C + wide - 1) >> wide_log2;
   const int grp = blockIdx.x / across;
-  const int c = (blockIdx.x % across) * kColumnsWide + cx;
+  const int c = (blockIdx.x % across) * wide + cx;
   const int n0 = blockIdx.y * rows;
   const int count = min(N, n0 + rows) - n0;
-  float s = 0.0f;
-  float q = 0.0f;
+  float v[2] = {0.0f, 0.0f};
   if (c < C) {
     const size_t row = (size_t)C * S;
-    const size_t step = (size_t)kColumnsDeep * row;
+    const size_t step = (size_t)deep * row;
     const size_t first = ((size_t)grp * N + n0 + ry) * row + (size_t)c * S;
     const T* px = x + first;
-    const T* pg = g + first;
-    const float av = a[grp * C + c];
-    const float bv = b[grp * C + c];
-    for (int n = ry; n < count; n += kColumnsDeep * kPartialsUnroll) {
-      for (int k = 0; k < S; ++k) {
-        Chunk<T, 1> xc[kPartialsUnroll], gk[kPartialsUnroll];
+    const T* pg = Op::kReadsG ? g + first : nullptr;
+    const typename Op::Coef k = op.coef(grp * C + c);
+    for (int n = ry; n < count; n += deep * U) {
+      for (int e = 0; e < S; ++e) {
+        Chunk<T, 1> xc[U], gk[U];
 #pragma unroll
-        for (int u = 0; u < kPartialsUnroll; ++u) {
-          if (n + u * kColumnsDeep < count) {
-            xc[u].load(px + u * step + k);
-            gk[u].load(pg + u * step + k);
+        for (int u = 0; u < U; ++u) {
+          if (n + u * deep < count) {
+            xc[u].load(px + u * step + e);
+            if constexpr (Op::kReadsG) gk[u].load(pg + u * step + e);
           } else {
             xc[u].zero();
-            gk[u].zero();
+            if constexpr (Op::kReadsG) gk[u].zero();
           }
         }
 #pragma unroll
-        for (int u = 0; u < kPartialsUnroll; ++u) {
-          const float dz = dswish_fast(affine(xc[u].v, av, bv), gk[u].v);
-          s += dz;
-          q = fmaf(dz, xc[u].v, q);
-        }
+        for (int u = 0; u < U; ++u)
+          op.add(k, xc[u].v, Op::kReadsG ? gk[u].v : 0.0f, v[0], v[1]);
       }
-      px += kPartialsUnroll * step;
-      pg += kPartialsUnroll * step;
+      px += U * step;
+      if constexpr (Op::kReadsG) pg += U * step;
     }
   }
-  ss[ry][cx] = s;
-  sq[ry][cx] = q;
-  if (ry == 0) out[cx] = c < C ? grp * C + c : -1;
+  part[0][threadIdx.x] = v[0];
+  part[1][threadIdx.x] = v[1];
   __syncthreads();
-  if (ry == 0) {
-#pragma unroll
-    for (int r = 1; r < kColumnsDeep; ++r) {
-      s += ss[r][cx];
-      q += sq[r][cx];
+  // thread i < wide: row lane 0 of channel i, which adds the other lanes'
+  if ((int)threadIdx.x < wide)
+    for (int r = 1; r < deep; ++r) {
+      v[0] += part[0][r * wide + cx];
+      v[1] += part[1][r * wide + cx];
     }
+  if (cluster_sum<kColumnsMaxWide, 2>(v, wide) && c < C) {
+    op.s[grp * C + c] = v[0];
+    op.q[grp * C + c] = v[1];
   }
-  cluster_sum2<kColumnsWide>(s, q, kColumnsWide, sdz, sdzx, out);
+}
+
+// Both reductions, both mappings: the blocks that share a plane (rows) or a
+// stretch of channels (columns) are one thread block cluster along grid.y.
+// tpr_log2: log2 of the threads along a row's chunks (rows) or of the
+// channels a block (columns).
+template <typename Op, typename T, int V, bool kColumns>
+__global__ void __launch_bounds__(kReduceThreads)
+bn_reduce_kernel(Op op, const T* __restrict__ x, const T* __restrict__ g,
+                 int N, int C, int S, int rows, int tpr_log2) {
+  cluster_arrive();
+  if constexpr (kColumns)
+    reduce_columns<Op, T>(op, x, g, N, C, S, rows, tpr_log2);
+  else
+    reduce_rows<Op, T, V>(op, x, g, N, C, S, rows, tpr_log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -687,105 +564,59 @@ bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
   stream<DxOp, T, V, kWhole>(op, x, g, dx, G, C, st);
 }
 
-int threads_for(long long work, int cap) {
-  int t = 32;
-  while (t < cap && t < work) t *= 2;
-  return t;
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // A plane's chunks and the planes are counted in int.
 bool bad_shape(int G, int N, int C, int S) {
   return G < 1 || N < 1 || C < 1 || S < 1 ||
          (long long)G * C > 0x7fffffffLL || (long long)N * S > 0x7fffffffLL;
 }
 
-template <typename T>
-int moments(const void* x, float* sum, float* sumsq, int G, int N, int C,
-            int S, cudaStream_t st) {
-  constexpr int V = 16 / sizeof(T);
-  const dim3 grid((unsigned)(G * C));
-  if (S % V == 0 && aligned16(x)) {
-    const int t = threads_for((long long)N * (S / V), kReduceThreads);
-    bn_moments_kernel<T, V><<<grid, t, 0, st>>>((const T*)x, sum, sumsq, N,
-                                                 C, S);
-  } else {
-    const int t = threads_for((long long)N * S, kReduceThreads);
-    bn_moments_kernel<T, 1><<<grid, t, 0, st>>>((const T*)x, sum, sumsq, N,
-                                                 C, S);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The launch the wrapper computed (ops/bn.py:bwd_partials_launch): the
-// columns or the rows mapping, the vector width, the rows a block, the
-// blocks that share a plane (one cluster), the threads a block and (rows
-// mapping) along a row.
-struct PartialsLaunch {
+// The launch the wrapper computed (ops/bn.py:reduce_launch): the columns or
+// the rows mapping, the vector width, the blocks that share a plane (one
+// cluster), the rows a block, the threads a block and, of them, the threads
+// along a row (rows mapping) or the channels a block (columns mapping).
+struct ReduceLaunch {
   int columns, vec, splits, rows, threads, tpr;
 };
 
-int log2_exact(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return (1 << l) == v ? l : -1;
+ReduceLaunch reduce_of(const int* geo) {
+  return {geo[0], geo[1], geo[2], geo[3], geo[4], geo[5]};
 }
 
-// grid.y = splits blocks are one cluster.
-template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
-                   cudaStream_t st, Args... args) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = grid.y;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3((unsigned)threads);
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, Params(args)...);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
-}
-
-template <typename T>
-int bwd_partials(const void* x, const void* g, const float* a, const float* b,
-                 float* sdz, float* sdzx, int G, int N, int C, int S,
-                 const PartialsLaunch& l, cudaStream_t st) {
+// Either reduction: its geometry checked against the shape and the
+// tensors, then the kernel of its mapping and vector width.
+template <typename Op, typename T>
+int reduce(const Op& op, const void* x, const void* g, int G, int N, int C,
+           int S, const ReduceLaunch& l, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
+  const int tpr_log2 = log2_exact(l.tpr);
   // every row in exactly one block, no block without rows, one cluster
   if (l.rows < 1 || l.splits < 1 || l.splits > kMaxCluster ||
       (long long)l.splits * l.rows < N ||
-      (long long)(l.splits - 1) * l.rows >= N)
+      (long long)(l.splits - 1) * l.rows >= N || tpr_log2 < 0 ||
+      l.threads % 32 || l.threads < 32 || l.threads > kReduceThreads ||
+      l.threads % l.tpr)
     return (int)cudaErrorInvalidValue;
   const T* xt = (const T*)x;
   const T* gt = (const T*)g;
   if (l.columns) {
-    if (l.threads != kColumnsWide * kColumnsDeep)
+    if (l.vec != 1 || l.tpr > kColumnsMaxWide)
       return (int)cudaErrorInvalidValue;
-    const int across = (C + kColumnsWide - 1) / kColumnsWide;
+    const int across = (C + l.tpr - 1) / l.tpr;
     const dim3 grid((unsigned)(G * across), (unsigned)l.splits);
-    return launch_cluster(bn_bwd_partials_columns_kernel<T>, grid, l.threads,
-                          st, xt, gt, a, b, sdz, sdzx, N, C, S, l.rows);
+    return launch_cluster(bn_reduce_kernel<Op, T, 1, true>, grid, l.threads,
+                          st, op, xt, gt, N, C, S, l.rows, tpr_log2);
   }
-  const int tpr_log2 = log2_exact(l.tpr);
-  const bool vec_ok = l.vec == 1 || (l.vec == V && S % V == 0 &&
-                                     aligned16(x) && aligned16(g));
-  if (tpr_log2 < 0 || l.threads % 32 || l.threads < 32 ||
-      l.threads > kPartialsThreads || l.tpr > l.threads ||
-      l.threads % l.tpr || !vec_ok)
-    return (int)cudaErrorInvalidValue;
+  const bool vec_ok =
+      l.vec == 1 || (l.vec == V && S % V == 0 && aligned16(x) &&
+                     (!Op::kReadsG || aligned16(g)));
+  if (!vec_ok) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(G * C), (unsigned)l.splits);
-  if (l.vec == V)
-    return launch_cluster(bn_bwd_partials_kernel<T, V>, grid, l.threads, st,
-                          xt, gt, a, b, sdz, sdzx, N, C, S, l.rows, tpr_log2);
-  return launch_cluster(bn_bwd_partials_kernel<T, 1>, grid, l.threads, st, xt,
-                        gt, a, b, sdz, sdzx, N, C, S, l.rows, tpr_log2);
+  auto go = [&](auto kernel) {
+    return launch_cluster(kernel, grid, l.threads, st, op, xt, gt, N, C, S,
+                          l.rows, tpr_log2);
+  };
+  return l.vec == V ? go(bn_reduce_kernel<Op, T, V, false>)
+                    : go(bn_reduce_kernel<Op, T, 1, false>);
 }
 
 // d's FastDiv is exact for every dividend below 2^31: m * d - 2^(32 + s)
@@ -894,14 +725,18 @@ Stream stream_of(const int* geo, const unsigned* div) {
 // tensors of one type, f32 (bf16 = 0) or bf16 (bf16 = 1), and the per-(g, c)
 // vectors as contiguous (G, C) f32. It returns the cudaError_t of the launch.
 
+// geo (6 ints) is ops/bn.py:reduce_launch's result: columns, vec, splits,
+// rows, threads, tpr.
 extern "C" int mvae_bn_moments(const void* x, int bf16, void* sum,
                                void* sumsq, int G, int N, int C, int S,
-                               void* stream) {
+                               const int* geo, void* stream) {
   if (bad_shape(G, N, C, S)) return (int)cudaErrorInvalidValue;
+  const MomentsOp op{(float*)sum, (float*)sumsq};
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? moments<__nv_bfloat16>(x, (float*)sum, (float*)sumsq, G, N,
-                                       C, S, st)
-              : moments<float>(x, (float*)sum, (float*)sumsq, G, N, C, S, st);
+  const ReduceLaunch l = reduce_of(geo);
+  return bf16 ? reduce<MomentsOp, __nv_bfloat16>(op, x, nullptr, G, N, C, S,
+                                                 l, st)
+              : reduce<MomentsOp, float>(op, x, nullptr, G, N, C, S, l, st);
 }
 
 // geo (6 ints) and div (6) are ops/bn.py:normalize_launch's (dx_launch's)
@@ -923,22 +758,19 @@ extern "C" int mvae_bn_normalize(const void* x, int bf16, const void* s,
               : normalize_pass<float>(x, y, op, G, N, C, S, st, cs);
 }
 
-// The six ints after S are ops/bn.py:bwd_partials_launch's result.
+// geo: as mvae_bn_moments'.
 extern "C" int mvae_bn_bwd_partials(const void* x, const void* g, int bf16,
                                     const void* a, const void* b, void* sdz,
                                     void* sdzx, int G, int N, int C, int S,
-                                    int columns, int vec, int splits,
-                                    int rows, int threads, int tpr,
-                                    void* stream) {
+                                    const int* geo, void* stream) {
   if (bad_shape(G, N, C, S)) return (int)cudaErrorInvalidValue;
+  const PartialsOp op{(const float*)a, (const float*)b, (float*)sdz,
+                      (float*)sdzx};
   cudaStream_t st = (cudaStream_t)stream;
-  const PartialsLaunch l{columns, vec, splits, rows, threads, tpr};
-  return bf16 ? bwd_partials<__nv_bfloat16>(x, g, (const float*)a,
-                                            (const float*)b, (float*)sdz,
-                                            (float*)sdzx, G, N, C, S, l, st)
-              : bwd_partials<float>(x, g, (const float*)a, (const float*)b,
-                                    (float*)sdz, (float*)sdzx, G, N, C, S, l,
-                                    st);
+  const ReduceLaunch l = reduce_of(geo);
+  return bf16 ? reduce<PartialsOp, __nv_bfloat16>(op, x, g, G, N, C, S, l,
+                                                  st)
+              : reduce<PartialsOp, float>(op, x, g, G, N, C, S, l, st);
 }
 
 // dscale, dbias: (C,), the gradients of scale and bias.

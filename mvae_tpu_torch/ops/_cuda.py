@@ -35,6 +35,7 @@ SOURCES = ("poe.cu", "bce_rowsum.cu", "bn_swish.cu", "conv_moments.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 SM_COUNT = 132      # SMs of an H100 SXM, which the launch geometries fill
+MAX_CLUSTER = 8     # blocks of one thread block cluster (csrc/reduce.cuh)
 
 _force_plain = False
 
@@ -121,12 +122,13 @@ def library():
                    ctypes.c_float)
     lib.mvae_poe_fwd.argtypes = [p, p, p, p, p, i, i, ll, p]
     lib.mvae_poe_fwd.restype = i
-    lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, p, i, i, i, p]
+    lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, p, i, i, i, p, p]
     lib.mvae_bce_rowsum_fwd.restype = i
-    lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p]
+    lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p, p]
     lib.mvae_bn_normalize.argtypes = [p, i, p, p, p, p, f, p, p] + [i] * 4 + [
         p, p, p]
-    lib.mvae_bn_bwd_partials.argtypes = [p, p, i, p, p, p, p] + [i] * 10 + [p]
+    lib.mvae_bn_bwd_partials.argtypes = [p, p, i, p, p, p, p] + [i] * 4 + [
+        p, p]
     lib.mvae_bn_dx.argtypes = [p, p, i, p, p, p, p, p, p, f, p, p, p] + [
         i] * 4 + [p, p, p]
     lib.mvae_conv_moments.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
@@ -145,6 +147,14 @@ def check(name: str, code: int):
     if code != 0:
         msg = library().mvae_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
+
+
+def pow2_at_least(v: int, cap: int) -> int:
+    """The least power of 2 at or above v, at most cap."""
+    t = 1
+    while t < cap and t < v:
+        t *= 2
+    return t
 
 
 def stream(device) -> int:

@@ -34,15 +34,17 @@ import functools
 import torch
 
 from mvae_tpu_torch.ops import _cuda
-from mvae_tpu_torch.ops._cuda import SM_COUNT
+from mvae_tpu_torch.ops._cuda import MAX_CLUSTER, SM_COUNT, pow2_at_least
 
 EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
-PARTIALS_TARGET_BLOCKS = 4 * SM_COUNT  # bn_bwd_partials: 4 blocks an SM
-PARTIALS_THREADS = 256              # a block, at most
-PARTIALS_UNROLL = 2                 # rows a thread has in flight
-MAX_CLUSTER = 8                     # blocks that share a plane: one cluster
-COLUMNS_WIDE, COLUMNS_DEEP = 32, 8  # the columns mapping: channels x row lanes
+# bn_moments and bn_bwd_partials (one kernel, bn_reduce_kernel):
+REDUCE_LOADS = 8            # a plane takes one block (a plain launch) where
+                            # its threads load at most this many chunks each
+PLANE_THREADS = 512         # ... that block
+SPLIT_THREADS = 256         # else its rows are split over a cluster of
+REDUCE_TARGET_BLOCKS = 4 * SM_COUNT  # blocks this size, up to 4 an SM
+COLUMNS_WIDE = 8            # the columns mapping: channels a block
 STREAM_THREADS = 256                # bn_normalize, bn_dx: a block
 STREAM_BLOCKS_PER_SM = 4            # ... resident an SM: one wave at most
 STREAM_UNROLL = 2                   # ... chunks of x (and g) a thread loads
@@ -127,6 +129,79 @@ def _dims(x4):
     return tuple(int(d) for d in x4.shape)
 
 
+@functools.lru_cache(maxsize=None)
+def reduce_launch(g: int, n: int, c: int, s: int, itemsize: int,
+                  aligned: bool, inputs: int) -> dict:
+    """How bn_moments (`inputs` = 1: x) and bn_bwd_partials (2: x and g)
+    are launched on a (G, N, C, S) view (csrc/bn_swish.cu:
+    bn_reduce_kernel): every block sums `rows` consecutive rows of its
+    planes; the `splits` blocks that share planes (grid.y) are one thread
+    block cluster, at most MAX_CLUSTER, whose first block adds their sums
+    in rank order. A launch of one split is a plain launch, which costs
+    the card less than a cluster's.
+
+    columns = 0: a block is one plane's rows [y * rows, (y + 1) * rows),
+    `tpr` threads along a row's chunks of `vec` elements (16 bytes where S
+    holds whole chunks and the tensors are `aligned`, else one element)
+    and threads / tpr down the rows; grid (G * C, splits).
+    columns = 1 (runs of S shorter than 16 bytes, S = 1 for BatchNorm1d):
+    a block is `tpr` = COLUMNS_WIDE consecutive channels of a group by
+    threads / tpr row lanes, a thread all S elements of its channel in a
+    row; grid (G * ceil(C / COLUMNS_WIDE), splits).
+    Either way the block's rows are one block of PLANE_THREADS where its
+    threads would load at most REDUCE_LOADS chunks each; else they are
+    split over blocks of SPLIT_THREADS, as many as bring the grid to
+    REDUCE_TARGET_BLOCKS."""
+    columns = int(s * itemsize < 16)
+    if columns:
+        vec, per_row = 1, s
+        across = g * -(-c // COLUMNS_WIDE)
+    else:
+        v = 16 // itemsize
+        vec = v if (s % v == 0 and aligned) else 1
+        per_row = s // vec
+        across = g * c
+
+    def along(threads):
+        """Threads along a row (rows) or channels a block (columns), and
+        the chunks a thread loads of each tensor in a row."""
+        if columns:
+            return COLUMNS_WIDE, per_row
+        tpr = pow2_at_least(per_row, threads)
+        return tpr, -(-per_row // tpr)
+
+    threads = PLANE_THREADS
+    tpr, per_thread = along(threads)
+    loads = -(-n // (threads // tpr)) * per_thread * inputs
+    splits = 1
+    if loads > REDUCE_LOADS:
+        threads = SPLIT_THREADS
+        tpr, _ = along(threads)
+        splits = max(1, min(MAX_CLUSTER, n,
+                            -(-REDUCE_TARGET_BLOCKS // across)))
+    rows = -(-n // splits)
+    splits = -(-n // rows)
+    return dict(columns=columns, vec=vec, splits=splits, rows=rows,
+                threads=threads, tpr=tpr, grid=(across, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _c_reduce(dims, itemsize, aligned, inputs):
+    """reduce_launch(...)'s geometry as the C entry points take it: 6 ints
+    (csrc/bn_swish.cu: reduce_of)."""
+    lay = reduce_launch(*dims, itemsize, aligned, inputs)
+    return (ctypes.c_int * 6)(*(lay[k] for k in (
+        "columns", "vec", "splits", "rows", "threads", "tpr")))
+
+
+def _reduce_geometry(*tensors):
+    """The C geometry of a reduction over tensors (x, or x and g)."""
+    x4 = tensors[0]
+    return _c_reduce(_dims(x4), x4.element_size(),
+                     all(t.data_ptr() % 16 == 0 for t in tensors),
+                     len(tensors))
+
+
 def bn_moments(x4):
     """Launch the moments kernel: x4 (G, N, C, S) f32 or bf16, contiguous,
     on a CUDA device -> (sum x, sum x^2), each (G, C) f32."""
@@ -138,60 +213,11 @@ def bn_moments(x4):
     with torch.cuda.device(x4.device):
         rc = _cuda.library().mvae_bn_moments(
             x4.data_ptr(), int(x4.dtype == torch.bfloat16), s.data_ptr(),
-            q.data_ptr(), *_dims(x4), _cuda.stream(x4.device))
+            q.data_ptr(), *_dims(x4), _reduce_geometry(x4),
+            _cuda.stream(x4.device))
     _cuda.check(name, rc)
     bn_moments.launches += 1
     return s, q
-
-
-def _pow2_at_least(v: int, cap: int) -> int:
-    t = 1
-    while t < cap and t < v:
-        t *= 2
-    return t
-
-
-@functools.lru_cache(maxsize=None)
-def bwd_partials_launch(g: int, n: int, c: int, s: int, itemsize: int,
-                        aligned: bool = True) -> dict:
-    """How bn_bwd_partials is launched on a (G, N, C, S) view: every block
-    sums `rows` consecutive rows of its planes; the `splits` blocks that
-    share planes (grid.y) are one thread block cluster, at most
-    MAX_CLUSTER, whose first block adds their sums in rank order.
-
-    columns = 1 (runs of S shorter than 16 bytes, S = 1 for BatchNorm1d):
-    a block is COLUMNS_WIDE consecutive channels of a group by COLUMNS_DEEP
-    row lanes, each lane with PARTIALS_UNROLL rows in flight; grid
-    (G * ceil(C / COLUMNS_WIDE), splits).
-    columns = 0: a block is one plane's rows [y * rows, (y + 1) * rows),
-    `tpr` threads along a row's chunks of `vec` elements (16 bytes where S
-    holds whole chunks and the tensors are `aligned`, else one element)
-    and threads / tpr down the rows; grid (G * C, splits). The block is
-    the largest that still leaves PARTIALS_TARGET_BLOCKS blocks (else the
-    one with the most blocks), and its rows are what its threads hold in
-    flight at once where the cluster allows."""
-    least = -(-n // MAX_CLUSTER)
-    if s * itemsize < 16:
-        rows = max(least, min(n, COLUMNS_DEEP * PARTIALS_UNROLL))
-        splits = -(-n // rows)
-        return dict(columns=1, vec=1, splits=splits, rows=rows,
-                    threads=COLUMNS_WIDE * COLUMNS_DEEP, tpr=COLUMNS_WIDE,
-                    grid=(g * -(-c // COLUMNS_WIDE), splits))
-    v = 16 // itemsize
-    vec = v if (s % v == 0 and aligned) else 1
-    per_row = s // vec
-    planes = g * c
-    best = None
-    for threads in (PARTIALS_THREADS, 128, 64, 32):
-        tpr = _pow2_at_least(per_row, threads)
-        rows = max(least, min(n, threads // tpr * PARTIALS_UNROLL))
-        splits = -(-n // rows)
-        key = (min(planes * splits, PARTIALS_TARGET_BLOCKS), threads)
-        if best is None or key > best[0]:
-            best = (key, dict(columns=0, vec=vec, splits=splits, rows=rows,
-                              threads=threads, tpr=tpr,
-                              grid=(planes, splits)))
-    return best[1]
 
 
 def bn_bwd_partials(x4, g4, a, b):
@@ -200,18 +226,13 @@ def bn_bwd_partials(x4, g4, a, b):
     name = "bn_bwd_partials"
     _check(name, x4, a, b, g4=g4)
     gsz, _, c, _ = x4.shape
-    lay = bwd_partials_launch(
-        *_dims(x4), x4.element_size(),
-        x4.data_ptr() % 16 == 0 and g4.data_ptr() % 16 == 0)
     sdz = torch.empty((gsz, c), device=x4.device, dtype=torch.float32)
     sdzx = torch.empty_like(sdz)
     with torch.cuda.device(x4.device):
         rc = _cuda.library().mvae_bn_bwd_partials(
             x4.data_ptr(), g4.data_ptr(), int(x4.dtype == torch.bfloat16),
             a.data_ptr(), b.data_ptr(), sdz.data_ptr(), sdzx.data_ptr(),
-            *_dims(x4), lay["columns"], lay["vec"], lay["splits"],
-            lay["rows"], lay["threads"], lay["tpr"],
-            _cuda.stream(x4.device))
+            *_dims(x4), _reduce_geometry(x4, g4), _cuda.stream(x4.device))
     _cuda.check(name, rc)
     bn_bwd_partials.launches += 1
     return sdz, sdzx

@@ -8,11 +8,23 @@ B target rows without a repeated copy. The backward is the JAX package's
 closed form (elbo_pallas.py:_bwd) in plain PyTorch, used on both devices.
 """
 
+import ctypes
+import functools
+
 import torch
 
 from mvae_tpu_torch.ops import _cuda
+from mvae_tpu_torch.ops._cuda import MAX_CLUSTER, pow2_at_least
 
 _DTYPES = (torch.float32, torch.bfloat16)
+BCE_THREADS = 256                  # a block, at most
+BCE_CHUNKS = 12                    # wide rows: a row is split over a
+                                   # cluster where its threads would take
+                                   # more chunks each
+BCE_UNROLL = 2                     # chunks of x and of t a thread has in
+                                   # flight: the kernel's kUnroll
+NARROW = 32                        # rows of at most this many chunks take
+                                   # a warp's lanes or fewer each
 
 
 def bce_rowsum_plain(logits, targets):
@@ -26,6 +38,51 @@ def bce_rowsum_plain(logits, targets):
     x = x.reshape(n // t.shape[0], t.shape[0], k)
     bce = torch.clamp(x, min=0.0) - x * t + torch.log1p(torch.exp(-x.abs()))
     return bce.sum(-1).reshape(n)
+
+
+@functools.lru_cache(maxsize=None)
+def bce_launch(n: int, k: int, x_itemsize: int, t_itemsize: int,
+               aligned: bool) -> dict:
+    """How bce_rowsum_fwd (csrc/bce_rowsum.cu) is launched on n rows of k
+    logits: a row is chunks of `vec` elements, 16 bytes of the narrower
+    type where k holds whole chunks and both tensors are `aligned`, else
+    one element; each thread has `unroll` (BCE_UNROLL, the kernel's
+    constant) chunks of x and of t in flight.
+
+    Narrow rows (at most NARROW chunks): `lanes` threads a row (the power
+    of 2 at or above its chunks), threads / lanes rows a block, one block
+    along the row (splits = 1); grid (ceil(n / (threads / lanes)), 1).
+    Wide rows: one row a block (lanes = threads), its chunks cut into
+    `splits` spans of `span` chunks, one block each, that are one thread
+    block cluster, at most MAX_CLUSTER; grid (n, splits). A block has
+    BCE_THREADS threads (fewer where the row's chunks would leave some
+    without `unroll` of them), and a row as many blocks as keep each
+    thread at BCE_CHUNKS chunks or fewer: one, a plain launch, for the
+    CelebA image rows in f32 and bf16."""
+    v = 16 // min(x_itemsize, t_itemsize)
+    vec = v if k % v == 0 and aligned else 1
+    chunks = k // vec
+    if chunks <= NARROW:
+        lanes = pow2_at_least(chunks, NARROW)
+        threads = max(32, pow2_at_least(n * lanes, BCE_THREADS))
+        per_block = threads // lanes
+        return dict(vec=vec, lanes=lanes, threads=threads, splits=1,
+                    span=chunks, unroll=BCE_UNROLL,
+                    grid=(-(-n // per_block), 1))
+    threads = max(32, pow2_at_least(-(-chunks // BCE_UNROLL), BCE_THREADS))
+    splits = min(MAX_CLUSTER, -(-chunks // (threads * BCE_CHUNKS)))
+    span = -(-chunks // splits)
+    splits = -(-chunks // span)
+    return dict(vec=vec, lanes=threads, threads=threads, splits=splits,
+                span=span, unroll=BCE_UNROLL, grid=(n, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _c_launch(n, k, x_itemsize, t_itemsize, aligned):
+    """bce_launch(...)'s geometry as the C entry point takes it: 5 ints."""
+    lay = bce_launch(n, k, x_itemsize, t_itemsize, aligned)
+    return (ctypes.c_int * 5)(*(lay[key] for key in (
+        "vec", "lanes", "threads", "splits", "span")))
 
 
 def bce_rowsum_fwd(logits, targets):
@@ -49,12 +106,15 @@ def bce_rowsum_fwd(logits, targets):
             f"takes float32 or bfloat16, got {t.dtype}")
         req(t.is_contiguous(), name, "inputs must be contiguous")
     out = torch.empty((n,), device=logits.device, dtype=torch.float32)
+    geo = _c_launch(n, k, logits.element_size(), targets.element_size(),
+                    logits.data_ptr() % 16 == 0
+                    and targets.data_ptr() % 16 == 0)
     lib = _cuda.library()
     with torch.cuda.device(logits.device):
         rc = lib.mvae_bce_rowsum_fwd(
             logits.data_ptr(), int(logits.dtype == torch.bfloat16),
             targets.data_ptr(), int(targets.dtype == torch.bfloat16),
-            out.data_ptr(), n, k, nt, _cuda.stream(logits.device))
+            out.data_ptr(), n, k, nt, geo, _cuda.stream(logits.device))
     _cuda.check(name, rc)
     bce_rowsum_fwd.launches += 1
     return out

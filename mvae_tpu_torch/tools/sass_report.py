@@ -16,7 +16,9 @@ A loop is the stretch from the target of a backward branch to the branch.
 Instructions an element of a streaming kernel: the count of its inner
 loop over the elements one trip handles (a trip of bn_normalize's and
 bn_dx's stream handles kStreamUnroll chunks of V: 16 elements in bf16, 8
-in f32; of bn_moments kUnroll * V).
+in f32; of bn_reduce_kernel's rows mapping (bn_moments: MomentsOp,
+bn_bwd_partials: PartialsOp) kReduceUnroll * V, one chunk of each of
+kReduceUnroll rows; of bce_rowsum_kernel kUnroll * V).
 """
 
 import argparse

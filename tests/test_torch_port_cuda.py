@@ -65,7 +65,7 @@ BN_SHAPES = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
              (1, 100, 512, 1), (3, 100, 128, 64), (3, 100, 64, 256),
              (3, 100, 32, 1024), (3, 100, 512, 1), (1, 1, 7, 1),
              (1, 33, 50, 1), (2, 3, 4, 25), (2, 5, 40, 3), (1, 1000, 8, 16),
-             (1, 2, 3, 4096)]
+             (1, 2, 3, 4096), (1, 1000, 20, 1), (3, 300, 9, 2)]
 
 
 @pytest.fixture
@@ -93,21 +93,61 @@ def test_poe_kernel_matches_plain(cuda, t, m, b):
     torch.testing.assert_close(k_lv, p_lv, **POE_TOL)
 
 
-@pytest.mark.parametrize("n,nt,k,x_dt,t_dt", [
+# (N, Nt, K, logits' dtype, targets' dtype) of the BCE kernel's cases
+BCE_CASES = [
     (300, 300, 12288, torch.float32, torch.float32),
     (300, 300, 12288, torch.float32, torch.bfloat16),
     (300, 100, 12288, torch.float32, torch.bfloat16),   # shared targets
+    (300, 100, 12288, torch.bfloat16, torch.bfloat16),  # the train step's
     (300, 100, 18, torch.float32, torch.float32),       # unaligned rows
     (8, 8, 12288, torch.bfloat16, torch.bfloat16),
     (8, 4, 12290, torch.bfloat16, torch.float32),       # scalar path
-])
-def test_bce_kernel_matches_plain(cuda, n, nt, k, x_dt, t_dt):
+    (300, 100, 12296, torch.float32, torch.bfloat16),   # K off the split
+    (7, 7, 1, torch.float32, torch.float32),            # K = 1
+    (1, 1, 12288, torch.bfloat16, torch.bfloat16),      # N = 1
+    (9, 3, 128, torch.float32, torch.float32),          # 32 chunks: narrow
+    (5, 5, 132, torch.float32, torch.float32),          # 33 chunks: wide
+    (4, 4, 50000, torch.bfloat16, torch.bfloat16),      # a cluster of 3,
+                                                        # K off its spans
+]
+
+
+def _bce_inputs(cuda, n, nt, k, x_dt, t_dt, offset=0):
+    """Logits starting `offset` elements into their buffer, and targets."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    x = (3 * torch.randn((n, k), generator=g, device=cuda)).to(x_dt)
+    buf = 3 * torch.randn(n * k + offset, generator=g, device=cuda)
+    x = buf.to(x_dt)[offset:].view(n, k)
     t = torch.rand((nt, k), generator=g, device=cuda).to(t_dt)
+    return x, t
+
+
+@pytest.mark.parametrize("n,nt,k,x_dt,t_dt", BCE_CASES)
+def test_bce_kernel_matches_plain(cuda, n, nt, k, x_dt, t_dt):
+    x, t = _bce_inputs(cuda, n, nt, k, x_dt, t_dt)
     got = ops.bce_sum(x, t)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, bce_rowsum_plain(x, t), **BCE_TOL)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("x_dt", [torch.float32, torch.bfloat16])
+def test_bce_kernel_takes_a_view_off_a_16_byte_boundary(cuda, x_dt, offset):
+    """Logits `offset` elements past a 16-byte boundary load element by
+    element, and still match the plain version."""
+    x, t = _bce_inputs(cuda, 300, 100, 12288, x_dt, torch.bfloat16, offset)
+    assert x.data_ptr() % 16 != 0
+    got = ops.bce_rowsum_fwd(x, t)
+    torch.testing.assert_close(got, bce_rowsum_plain(x, t), **BCE_TOL)
+
+
+@pytest.mark.parametrize("n,nt,k,x_dt,t_dt", BCE_CASES)
+def test_bce_kernel_is_the_same_from_run_to_run(cuda, n, nt, k, x_dt, t_dt):
+    """Two launches give bit-identical row sums: the blocks of a row are
+    added in rank order."""
+    x, t = _bce_inputs(cuda, n, nt, k, x_dt, t_dt)
+    first = ops.bce_rowsum_fwd(x, t)
+    for _ in range(3):
+        assert torch.equal(ops.bce_rowsum_fwd(x, t), first)
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
@@ -332,21 +372,28 @@ def test_bn_stream_kernels_take_any_start_and_length(cuda, shape, offset,
     _bn_passes_match_plain(x4, g4, scale, bias)
 
 
+@pytest.mark.parametrize("op", ["moments", "partials"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [BN_SHAPES[6], BN_SHAPES[7],
-                                   BN_SHAPES[2], BN_SHAPES[9]])
-def test_bn_bwd_partials_is_the_same_from_run_to_run(cuda, shape, dtype):
-    """Two launches on the same inputs give bit-identical sums: the blocks
-    of a plane are added in rank order."""
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_bwd_partials_is_the_same_from_run_to_run(cuda, shape, dtype, op):
+    """Both reductions (bn_moments, bn_bwd_partials): two launches on the
+    same inputs give bit-identical sums, as the blocks of a plane are
+    added in rank order."""
     g = torch.Generator(device=cuda).manual_seed(11)
     x4 = torch.randn(shape, generator=g, device=cuda).to(dtype)
     g4 = torch.randn(shape, generator=g, device=cuda).to(dtype)
     a = 1.0 + 0.2 * torch.randn((shape[0], shape[2]), generator=g,
                                 device=cuda)
     b = 0.2 * torch.randn((shape[0], shape[2]), generator=g, device=cuda)
-    first = bn_ops.bn_bwd_partials(x4, g4, a, b)
+
+    def run():
+        if op == "moments":
+            return bn_ops.bn_moments(x4)
+        return bn_ops.bn_bwd_partials(x4, g4, a, b)
+
+    first = run()
     for _ in range(3):
-        again = bn_ops.bn_bwd_partials(x4, g4, a, b)
+        again = run()
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
 
@@ -405,7 +452,7 @@ def test_bn_layer_is_four_launches_on_the_card(cuda):
     after = ops.launch_counts()
     for k in ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx"):
         assert after[k] == before[k] + 1, k
-    stems = ("bn_moments_kernel", "bn_normalize_kernel", "bn_bwd_partials",
+    stems = ("MomentsOp", "bn_normalize_kernel", "PartialsOp",
              "bn_dx_kernel")
     for stem in stems:
         assert sum(stem in k for k in kernels) == 1, (stem, kernels)

@@ -1,7 +1,8 @@
 """The launch geometry of the port's redesigned kernels, held on the CPU:
-what ops/convbn.py:launch_geometry, ops/bn.py:bwd_partials_launch,
-normalize_launch and dx_launch hand to csrc/conv_moments.cu and
-csrc/bn_swish.cu. The kernels themselves run only on a card
+what ops/convbn.py:launch_geometry, ops/bn.py:reduce_launch,
+normalize_launch and dx_launch, and ops/elbo.py:bce_launch hand to
+csrc/conv_moments.cu, csrc/bn_swish.cu and csrc/bce_rowsum.cu. The
+kernels themselves run only on a card
 (tests/test_torch_port_cuda.py); their addressing is repeated here in
 numpy, so that a geometry the kernel would read out of bounds, a tile that
 misses a pixel, an element two threads write or an element given another
@@ -13,6 +14,7 @@ import torch
 
 from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops import convbn
+from mvae_tpu_torch.ops import elbo
 
 SM_COUNT = 132
 MAX_SMEM = 232448
@@ -155,18 +157,35 @@ BN_CELEBA = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
              (1, 100, 512, 1), (3, 100, 128, 64), (3, 100, 64, 256),
              (3, 100, 32, 1024), (3, 100, 512, 1)]
 BN_RAGGED = [(1, 1, 7, 1), (2, 5, 40, 3), (1, 33, 50, 1), (2, 3, 4, 25),
-             (1, 1000, 8, 16), (1, 2, 3, 200)]
+             (1, 1000, 8, 16), (1, 2, 3, 200), (1, 1000, 20, 1),
+             (3, 300, 9, 2)]
 
 
+# the two reductions of csrc/bn_swish.cu by the tensors an element reads:
+# bn_moments (x), bn_bwd_partials (x, g)
+REDUCTIONS = {"moments": 1, "partials": 2}
+
+
+def _reduce(shape, itemsize, op, aligned=(True, True)):
+    """The geometry the op's wrapper asks for: 16-byte chunks only where
+    every tensor it reads is aligned (ops/bn.py:_reduce_geometry)."""
+    return bn_ops.reduce_launch(*shape, itemsize,
+                                all(aligned[:REDUCTIONS[op]]),
+                                REDUCTIONS[op])
+
+
+@pytest.mark.parametrize("op", sorted(REDUCTIONS))
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", BN_CELEBA + BN_RAGGED)
-def test_bn_bwd_partials_rows_in_exactly_one_block(shape, dtype):
-    """Every row of every plane lies in exactly one block, no block is
-    empty, splits <= N and fit one cluster, and the columns mapping is
-    chosen exactly when a run of S is shorter than 16 bytes."""
+def test_bn_bwd_partials_rows_in_exactly_one_block(shape, dtype, op):
+    """Both reductions (bn_moments, bn_bwd_partials): every row of every
+    plane lies in exactly one block, no block is empty, splits <= N and
+    fit one cluster, and the columns mapping is chosen exactly when a run
+    of S is shorter than 16 bytes; a block of SPLIT_THREADS only where the
+    rows are split."""
     g, n, c, s = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
-    lay = bn_ops.bwd_partials_launch(g, n, c, s, itemsize)
+    lay = _reduce(shape, itemsize, op)
     cover = np.zeros(n, np.int32)
     for y in range(lay["splits"]):
         lo, hi = y * lay["rows"], min(n, (y + 1) * lay["rows"])
@@ -176,30 +195,168 @@ def test_bn_bwd_partials_rows_in_exactly_one_block(shape, dtype):
     assert 1 <= lay["splits"] <= min(n, bn_ops.MAX_CLUSTER)
     assert lay["columns"] == int(s * itemsize < 16)
     assert lay["grid"][1] == lay["splits"]
+    t, tpr = lay["threads"], lay["tpr"]
+    assert t == (bn_ops.SPLIT_THREADS if lay["splits"] > 1
+                 else bn_ops.PLANE_THREADS)
+    assert tpr & (tpr - 1) == 0 and t % tpr == 0
     if lay["columns"]:
-        assert lay["grid"][0] * bn_ops.COLUMNS_WIDE >= g * c
-        assert lay["threads"] == bn_ops.COLUMNS_WIDE * bn_ops.COLUMNS_DEEP
+        assert tpr == bn_ops.COLUMNS_WIDE <= 32 and lay["vec"] == 1
+        assert lay["grid"][0] == g * -(-c // tpr)
     else:
         assert lay["grid"][0] == g * c
         assert lay["vec"] in (1, 16 // itemsize) and s % lay["vec"] == 0
-        t, tpr = lay["threads"], lay["tpr"]
-        assert 32 <= t <= bn_ops.PARTIALS_THREADS and t % 32 == 0
-        assert tpr & (tpr - 1) == 0 and t % tpr == 0
 
 
-@pytest.mark.parametrize("shape", [s for s in BN_CELEBA if s[3] > 1])
-def test_bn_bwd_partials_fills_the_card_at_celeba_shapes(shape):
-    """The decoder and encoder maps of the train step (bf16) get at least
-    two blocks an SM, and 16-byte loads where S holds whole chunks."""
+# whether each reduction splits its rows over a cluster at the BN layers of
+# the CelebA train step (the geometry PERF.md's readings chose): a plain
+# block at conv2-conv4 and convT1-convT2 for moments, at conv3 and convT1
+# for partials, a split at the decoder's last BN for both; the S = 1
+# layers (BatchNorm1d, f32) in a plain block each
+CELEBA_SPLITS = {(1, 100, 64, 256): {"moments": False, "partials": True},
+                 (1, 100, 128, 64): {"moments": False, "partials": False},
+                 (1, 100, 256, 25): {"moments": False, "partials": True},
+                 (1, 100, 512, 1): {"moments": False, "partials": False},
+                 (3, 100, 128, 64): {"moments": False, "partials": False},
+                 (3, 100, 64, 256): {"moments": False, "partials": True},
+                 (3, 100, 32, 1024): {"moments": True, "partials": True},
+                 (3, 100, 512, 1): {"moments": False, "partials": False}}
+
+
+@pytest.mark.parametrize("op", sorted(REDUCTIONS))
+@pytest.mark.parametrize("shape", BN_CELEBA)
+def test_bn_bwd_partials_fills_the_card_at_celeba_shapes(shape, op):
+    """Both reductions at the BN layers of the train step (bf16 maps with
+    16-byte loads where S holds whole chunks; f32 at S = 1): each splits
+    its rows over a cluster exactly where CELEBA_SPLITS says, a split grid
+    holds at least two blocks an SM, and a plain one is one block of
+    PLANE_THREADS a plane (a stretch of channels at S = 1)."""
     g, n, c, s = shape
-    lay = bn_ops.bwd_partials_launch(g, n, c, s, 2)
-    assert lay["grid"][0] * lay["grid"][1] >= 2 * SM_COUNT
-    assert lay["vec"] == (8 if s % 8 == 0 else 1)
+    itemsize = 4 if s == 1 else 2
+    lay = _reduce(shape, itemsize, op)
+    if s > 1:
+        assert lay["vec"] == (8 if s % 8 == 0 else 1)
+    assert (lay["splits"] > 1) == CELEBA_SPLITS[shape][op]
+    if lay["splits"] > 1:
+        assert lay["threads"] == bn_ops.SPLIT_THREADS
+        assert lay["grid"][0] * lay["grid"][1] >= 2 * SM_COUNT
+    else:
+        assert lay["threads"] == bn_ops.PLANE_THREADS
+        assert lay["grid"][0] == (g * c if s > 1
+                                  else g * -(-c // bn_ops.COLUMNS_WIDE))
 
 
-def test_bn_bwd_partials_unaligned_tensors_load_by_element():
-    lay = bn_ops.bwd_partials_launch(3, 100, 32, 1024, 2, aligned=False)
+@pytest.mark.parametrize("op", sorted(REDUCTIONS))
+def test_bn_bwd_partials_unaligned_tensors_load_by_element(op):
+    """x off a 16-byte boundary: both load by element; only g off it:
+    bn_bwd_partials, which reads g, loads by element, bn_moments does not."""
+    shape = (3, 100, 32, 1024)
+    lay = _reduce(shape, 2, op, aligned=(False, True))
     assert lay["vec"] == 1 and lay["columns"] == 0
+    lay = _reduce(shape, 2, op, aligned=(True, False))
+    assert lay["vec"] == (8 if op == "moments" else 1)
+
+
+# bce_rowsum_fwd (ops/elbo.py:bce_launch; csrc/bce_rowsum.cu): (N, K,
+# logits' and targets' dtypes). The CelebA steps' image rows (eval: f32
+# logits; train: bf16) and attribute rows, then K off the chunk and off
+# the row split, K = 1, N = 1, rows of 33 chunks (just wide), 32 (just
+# narrow) and 1000, rows long enough for a cluster (of 8 at most), an odd
+# K over a cluster, narrow rows of 9 chunks
+BCE_SHAPES = [(300, 12288, "f32", "bf16"), (300, 12288, "bf16", "bf16"),
+              (300, 12288, "f32", "f32"), (300, 18, "f32", "f32"),
+              (8, 12290, "bf16", "f32"), (300, 12296, "f32", "bf16"),
+              (7, 1, "f32", "f32"), (1, 12288, "bf16", "bf16"),
+              (5, 132, "f32", "f32"), (9, 128, "f32", "f32"),
+              (3, 1000, "bf16", "f32"), (2, 1 << 18, "f32", "f32"),
+              (4, 24576, "bf16", "bf16"), (6, 8193, "f32", "bf16"),
+              (300, 36, "f32", "f32")]
+_SIZE = {"f32": 4, "bf16": 2}
+
+
+def _bce(shape, aligned=True):
+    n, k, xdt, tdt = shape
+    return elbo.bce_launch(n, k, _SIZE[xdt], _SIZE[tdt], aligned)
+
+
+def _bce_chunks_of_threads(lay, n, k):
+    """(row, chunk) of every load the kernel makes, in its order: block
+    (bx, y), thread i: row bx * (threads / lanes) + i / lanes, chunks
+    y * span + i % lanes, + lanes * unroll, ... (each trip's `unroll`
+    chunks lanes apart) below min(chunks, (y + 1) * span)."""
+    chunks = k // lay["vec"]
+    rows, found = [], []
+    per_block = lay["threads"] // lay["lanes"]
+    i = np.arange(lay["threads"])
+    for bx in range(lay["grid"][0]):
+        row = bx * per_block + i // lay["lanes"]
+        for y in range(lay["grid"][1]):
+            c1 = min(chunks, (y + 1) * lay["span"])
+            c = y * lay["span"] + i % lay["lanes"]
+            while (c < c1).any():
+                for u in range(lay["unroll"]):
+                    j = c + u * lay["lanes"]
+                    live = (j < c1) & (row < n)
+                    rows.append(row[live])
+                    found.append(j[live])
+                c = c + lay["lanes"] * lay["unroll"]
+    return np.concatenate(rows), np.concatenate(found)
+
+
+@pytest.mark.parametrize("shape", BCE_SHAPES)
+def test_bce_chunks_in_exactly_one_block(shape):
+    """Every chunk of every row is loaded by exactly one thread of the
+    grid, and the chunks cover the row; no block is empty along a row;
+    the clusters hold at most 8 blocks; the block fits the kernel."""
+    n, k = shape[:2]
+    lay = _bce(shape)
+    vec, chunks = lay["vec"], k // lay["vec"]
+    assert chunks * vec == k
+    rows, found = _bce_chunks_of_threads(lay, n, k)
+    cover = np.bincount(rows * chunks + found, minlength=n * chunks)
+    assert len(cover) == n * chunks and (cover == 1).all()
+    assert 1 <= lay["splits"] <= elbo.MAX_CLUSTER
+    assert (lay["splits"] - 1) * lay["span"] < chunks <= (
+        lay["splits"] * lay["span"])
+    assert lay["grid"][1] == lay["splits"]
+    t, lanes = lay["threads"], lay["lanes"]
+    assert 32 <= t <= elbo.BCE_THREADS and t % 32 == 0
+    assert lanes & (lanes - 1) == 0 and t % lanes == 0
+    assert lanes == t or (lanes <= 32 and lay["splits"] == 1)
+
+
+@pytest.mark.parametrize("shape", BCE_SHAPES[:3])
+def test_bce_fills_the_card_at_celeba_shapes(shape):
+    """The steps' (300, 12288) image rows, f32 or bf16 logits, f32 or bf16
+    targets: each row in one plain block of BCE_THREADS (a cluster of 2
+    read slower on the card, PERF.md), 16-byte chunks, at most BCE_CHUNKS
+    chunks a thread, at least two blocks an SM."""
+    lay = _bce(shape)
+    assert lay["splits"] == 1
+    assert lay["grid"][0] * lay["grid"][1] >= 2 * SM_COUNT
+    assert lay["lanes"] == lay["threads"] == elbo.BCE_THREADS
+    assert lay["vec"] == 16 // min(_SIZE[shape[2]], _SIZE[shape[3]])
+    assert -(-lay["span"] // lay["threads"]) <= elbo.BCE_CHUNKS
+
+
+def test_bce_attribute_rows_take_the_narrow_mapping():
+    """K = 18 (f32, not a whole number of 16-byte chunks): a warp a row,
+    a block of BCE_THREADS holds BCE_THREADS / 32 rows, one block along
+    the row."""
+    lay = _bce((300, 18, "f32", "f32"))
+    assert lay["vec"] == 1 and lay["lanes"] == 32 and lay["splits"] == 1
+    per_block = elbo.BCE_THREADS // 32
+    assert lay["threads"] // lay["lanes"] == per_block > 1
+    assert lay["grid"] == (-(-300 // per_block), 1)
+
+
+@pytest.mark.parametrize("shape,aligned", [
+    ((300, 12288, "f32", "bf16"), False), ((8, 12290, "bf16", "f32"), True),
+    ((300, 12294, "f32", "f32"), True), ((300, 18, "f32", "f32"), True)])
+def test_bce_unaligned_or_ragged_rows_load_by_element(shape, aligned):
+    """A tensor off a 16-byte boundary, or K not a whole number of 16-byte
+    chunks of the narrower type, loads element by element."""
+    lay = _bce(shape, aligned=aligned)
+    assert lay["vec"] == 1
 
 
 # bn_normalize and bn_dx: one flat stream over the (G, N, C, S) view
