@@ -11,14 +11,14 @@ through the kernels.
 Phases (any failure exits non-zero; nothing is caught):
   1. card, versions, kernel build time
   2. kernels vs their plain versions at the paths' shapes, with times:
-     PoE and BCE; the four BN passes at each of the train step's 11 BN
-     layers; conv2d_moments at the encoder's 3 BN'd convs, bf16 and f32
-     (per-step sums too); every kernel but poe_fwd launched twice gives
-     bit-identical results. Each kernel is timed two ways: device_ms (one
-     launch between events, the L2 flushed before it: carries the
-     measuring floor of the `[kernel] floor` line) and back_to_back_ms (R
-     launches between one pair of events, each on its own copy of the
-     inputs: the floor out)
+     the PoE's forward and backward, the BCE; the four BN passes at each
+     of the train step's 11 BN layers; conv2d_moments at the encoder's 3
+     BN'd convs, bf16 and f32 (per-step sums too); every kernel launched
+     twice gives bit-identical results. Each kernel is timed two ways:
+     device_ms (one launch between events, the L2 flushed before it:
+     carries the measuring floor of the `[kernel] floor` line) and
+     back_to_back_ms (R launches between one pair of events, each on its
+     own copy of the inputs: the floor out)
   3. serving: Sampler on CelebaMVAE(100) in bf16 (every endpoint)
   4. eval step: B=100, T=3, CLI weights, uint8 device-resident data, bf16
      and f32, kernel path and plain versions timed in turns
@@ -36,7 +36,7 @@ Phases (any failure exits non-zero; nothing is caught):
      third on the default route, then Sampler.from_checkpoint on
      model_best.pth.tar answers one request
   7. train checks: one step on the fused route, kernel path vs plain
-     versions (loss, parameter gradients: all seven kernels), bf16 and
+     versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
      (loss, gradients, the encoder BNs' running statistics); f32 card vs
      CPU (TF32 off) on one step with the same noise; the loss of the last
@@ -77,7 +77,7 @@ from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
-from mvae_tpu_torch.ops.poe import poe_plain
+from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.train.checkpoint import BEST, CKPT
 from mvae_tpu_torch.train.loop import (
@@ -143,6 +143,9 @@ LR = 1e-4               # experiments/celeba/train.py: lr 1e-4
 KERNELS = {
     "poe_fwd": dict(route="cuda", source="mvae_tpu_torch/csrc/poe.cu",
                     replaces="mvae_tpu/ops/poe_pallas.py:28"),
+    "poe_bwd": dict(route="cuda", source="mvae_tpu_torch/csrc/poe.cu",
+                    replaces="mvae_tpu/ops/poe_pallas.py:91 (_bwd, the "
+                    "closed-form backward; not a Pallas kernel)"),
     "bce_rowsum_fwd": dict(route="cuda",
                            source="mvae_tpu_torch/csrc/bce_rowsum.cu",
                            replaces="mvae_tpu/ops/elbo_pallas.py:21"),
@@ -337,21 +340,34 @@ def phase_kernels(dev, card, peaks, flush):
                        case=case)
         return f"{case}: ms {t_k} back_to_back_ms {t_b2b} bound_ms {b_ms}"
 
-    d = 100
+    # the PoE's upstream gradients from their own generator, so that the
+    # other kernels' inputs stay those of earlier trees
+    g_up = torch.Generator(device=dev).manual_seed(7)
+    d, m = 100, 2
     for t, b in ((1, 1), (1, 64), (3, 100)):
-        mu = torch.randn((2, b, d), generator=g, device=dev)
-        lv = torch.randn((2, b, d), generator=g, device=dev)
+        mu = torch.randn((m, b, d), generator=g, device=dev)
+        lv = torch.randn((m, b, d), generator=g, device=dev)
         masks = torch.tensor(MASKS[:t] if t == 3 else [[1.0, 1.0]],
                              device=dev)
-        got = torch.cat(ops.poe_fwd(mu, lv, masks))
-        want = torch.cat(poe_plain(mu, lv, masks))
-        c, m = b * d, 2
-        report("poe_fwd", f"T={t} M=2 B={b} D={d}", got, want, POE_TOL,
-               device_ms(lambda: ops.poe_fwd(mu, lv, masks), flush),
-               back_to_back_ms(ops.poe_fwd, (mu, lv, masks), flush),
-               device_ms(lambda: poe_plain(mu, lv, masks), flush), None,
-               4 * (2 * m * c + t * m + 2 * t * c),
-               c * (4 * m + t * (4 * m + 4)), main=(t == 3))
+        g_mu, g_lv = torch.randn((2, t, b, d), generator=g_up, device=dev)
+        c, case = b * d, f"T={t} M={m} B={b} D={d}"
+        # (name, kernel, plain version, inputs, bytes, operations)
+        for name, kern, plain, args, nbytes, nops in (
+                ("poe_fwd", ops.poe_fwd, poe_plain, (mu, lv, masks),
+                 4 * (2 * m * c + t * m + 2 * t * c),
+                 c * (4 * m + t * (4 * m + 4))),
+                ("poe_bwd", ops.poe_bwd, poe_bwd_plain,
+                 (mu, lv, masks, g_mu, g_lv),
+                 4 * (4 * m * c + 2 * t * c + t * m),
+                 c * (9 * m + t * (9 * m + 6)))):
+            got = torch.cat(kern(*args))
+            expect(torch.equal(got, torch.cat(kern(*args))),
+                   f"{name} {case}: two launches differ")
+            report(name, case, got, torch.cat(plain(*args)), POE_TOL,
+                   device_ms(lambda: kern(*args), flush),
+                   back_to_back_ms(kern, args, flush),
+                   device_ms(lambda: plain(*args), flush), None, nbytes,
+                   nops, main=(t == 3))
 
     f32, bf16 = torch.float32, torch.bfloat16
     # (rows, target rows, width, logits dtype, targets dtype, main case):
@@ -1116,6 +1132,7 @@ def phase_train_checks(dev, data, idx, trained):
 # kernel families of the profile lines, first match wins
 FAMILIES = (
     ("poe_fwd", lambda k: "poe_fwd_kernel" in k),
+    ("poe_bwd", lambda k: "poe_bwd_kernel" in k),
     ("bce_rowsum_fwd", lambda k: "bce_rowsum_kernel" in k),
     ("bn_moments", lambda k: "bn_reduce_kernel" in k and "MomentsOp" in k),
     ("bn_normalize", lambda k: "bn_normalize_kernel" in k),

@@ -120,8 +120,8 @@ def library():
     lib = ctypes.CDLL(str(build()))
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    lib.mvae_poe_fwd.argtypes = [p, p, p, p, p, i, i, ll, p]
-    lib.mvae_poe_fwd.restype = i
+    lib.mvae_poe_fwd.argtypes = [p] * 5 + [i, i, ll, i, p]
+    lib.mvae_poe_bwd.argtypes = [p] * 7 + [i, i, ll, i, p]
     lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, p, i, i, i, p, p]
     lib.mvae_bce_rowsum_fwd.restype = i
     lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p, p]
@@ -132,9 +132,9 @@ def library():
     lib.mvae_bn_dx.argtypes = [p, p, i, p, p, p, p, p, p, f, p, p, p] + [
         i] * 4 + [p, p, p]
     lib.mvae_conv_moments.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
-    for fn in (lib.mvae_bn_moments, lib.mvae_bn_normalize,
-               lib.mvae_bn_bwd_partials, lib.mvae_bn_dx,
-               lib.mvae_conv_moments):
+    for fn in (lib.mvae_poe_fwd, lib.mvae_poe_bwd, lib.mvae_bn_moments,
+               lib.mvae_bn_normalize, lib.mvae_bn_bwd_partials,
+               lib.mvae_bn_dx, lib.mvae_conv_moments):
         fn.restype = i
     lib.mvae_error_string.argtypes = [i]
     lib.mvae_error_string.restype = ctypes.c_char_p

@@ -1,19 +1,24 @@
-"""Masked product of experts for all ELBO terms at once: the CUDA kernel
-`poe_fwd` (csrc/poe.cu), its plain PyTorch version, and the dispatch.
+"""Masked product of experts for all ELBO terms at once: the CUDA kernels
+`poe_fwd` and `poe_bwd` (csrc/poe.cu), their plain PyTorch versions, and
+the dispatch.
 
 Counterpart of mvae_tpu/ops/poe_pallas.py. Semantics equal the JAX
 package's core/poe.py:masked_product_of_experts applied to each mask row
 (single-eps convention, the N(0, I) prior folded in). The backward is the
-JAX package's closed form (poe_pallas.py:_bwd) in plain PyTorch, used on
-both devices: the TPU version has no backward kernel either.
+JAX package's closed form (poe_pallas.py:_bwd): the kernel `poe_bwd` on
+the card, `poe_bwd_plain` on the CPU.
 """
+
+import functools
 
 import torch
 
 from mvae_tpu_torch.ops import _cuda
 
 EPS = 1e-8
-MAX_EXPERTS = 32          # csrc/poe.cu:kMaxExperts
+EXPERT_CAPS = (2, 8, 32)  # csrc/poe.cu's instantiations: experts a column
+                          # holds in registers
+MAX_EXPERTS = EXPERT_CAPS[-1]
 
 
 def poe_plain(mu, logvar, masks):
@@ -33,10 +38,16 @@ def poe_plain(mu, logvar, masks):
     return (num / den).reshape(t, b, d), (-torch.log(den)).reshape(t, b, d)
 
 
-def poe_fwd(mu, logvar, masks):
-    """Launch the kernel. mu, logvar: (M, B, D) f32 contiguous CUDA tensors;
-    masks: (T, M) f32 contiguous on the same device."""
-    name = "poe_fwd"
+@functools.lru_cache(maxsize=None)
+def expert_cap(n_experts: int) -> int:
+    """The expert cap that poe_fwd and poe_bwd (csrc/poe.cu) are launched
+    at for n_experts experts: the least instantiation that holds them."""
+    return next(c for c in EXPERT_CAPS if n_experts <= c)
+
+
+def _check(name, mu, logvar, masks, grads=()):
+    """The wrappers' checks: (M, B, D) mu and logvar, (T, M) masks, (T, B,
+    D) upstream gradients, all float32, contiguous, on one CUDA device."""
     req = _cuda.require
     req(mu.ndim == 3 and logvar.shape == mu.shape, name,
         f"mu/logvar must share an (M, B, D) shape, got {tuple(mu.shape)} "
@@ -45,13 +56,24 @@ def poe_fwd(mu, logvar, masks):
     req(masks.ndim == 2 and masks.shape[1] == m, name,
         f"masks must be (T, {m}), got {tuple(masks.shape)}")
     req(1 <= m <= MAX_EXPERTS, name, f"takes 1..{MAX_EXPERTS} experts")
-    for t in (mu, logvar, masks):
+    n_terms = masks.shape[0]
+    for g in grads:
+        req(g.shape == (n_terms, b, d), name,
+            f"gradients must be ({n_terms}, {b}, {d}), got {tuple(g.shape)}")
+    for t in (mu, logvar, masks, *grads):
         req(t.is_cuda and t.device == mu.device, name,
             "inputs must lie on one CUDA device")
         req(t.dtype == torch.float32, name, f"takes float32, got {t.dtype}")
         req(t.is_contiguous(), name, "inputs must be contiguous")
-    n_terms = masks.shape[0]
     req(n_terms >= 1 and b * d >= 1, name, "empty input")
+
+
+def poe_fwd(mu, logvar, masks):
+    """Launch the forward kernel. mu, logvar: (M, B, D) f32 contiguous CUDA
+    tensors; masks: (T, M) f32 contiguous on the same device."""
+    _check("poe_fwd", mu, logvar, masks)
+    m, b, d = mu.shape
+    n_terms = masks.shape[0]
     pd_mu = torch.empty((n_terms, b, d), device=mu.device,
                         dtype=torch.float32)
     pd_lv = torch.empty_like(pd_mu)
@@ -60,8 +82,9 @@ def poe_fwd(mu, logvar, masks):
         rc = lib.mvae_poe_fwd(mu.data_ptr(), logvar.data_ptr(),
                               masks.data_ptr(), pd_mu.data_ptr(),
                               pd_lv.data_ptr(), m, n_terms, b * d,
+                              expert_cap(m),
                               _cuda.stream(mu.device))
-    _cuda.check(name, rc)
+    _cuda.check("poe_fwd", rc)
     poe_fwd.launches += 1
     return pd_mu, pd_lv
 
@@ -92,6 +115,30 @@ def poe_bwd_plain(mu, logvar, masks, g_mu, g_lv):
     return d_mu.reshape(m, b, d), d_lv.reshape(m, b, d)
 
 
+def poe_bwd(mu, logvar, masks, g_mu, g_lv):
+    """Launch the backward kernel: poe_bwd_plain's (d_mu, d_logvar), each
+    (M, B, D) f32. mu, logvar, masks as poe_fwd takes them; g_mu, g_lv:
+    (T, B, D) f32 contiguous on the same device."""
+    _check("poe_bwd", mu, logvar, masks, (g_mu, g_lv))
+    m, b, d = mu.shape
+    d_mu = torch.empty_like(mu)
+    d_lv = torch.empty_like(mu)
+    lib = _cuda.library()
+    with torch.cuda.device(mu.device):
+        rc = lib.mvae_poe_bwd(mu.data_ptr(), logvar.data_ptr(),
+                              masks.data_ptr(), g_mu.data_ptr(),
+                              g_lv.data_ptr(), d_mu.data_ptr(),
+                              d_lv.data_ptr(), m, masks.shape[0], b * d,
+                              expert_cap(m),
+                              _cuda.stream(mu.device))
+    _cuda.check("poe_bwd", rc)
+    poe_bwd.launches += 1
+    return d_mu, d_lv
+
+
+poe_bwd.launches = 0
+
+
 class _MaskedPoE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mu, logvar, masks):
@@ -103,7 +150,11 @@ class _MaskedPoE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_mu, g_lv):
         mu, logvar, masks = ctx.saved_tensors
-        d_mu, d_lv = poe_bwd_plain(mu, logvar, masks, g_mu, g_lv)
+        if _cuda.use_kernel(mu, logvar, masks, g_mu, g_lv):
+            d_mu, d_lv = poe_bwd(mu, logvar, masks, g_mu.contiguous(),
+                                 g_lv.contiguous())
+        else:
+            d_mu, d_lv = poe_bwd_plain(mu, logvar, masks, g_mu, g_lv)
         return d_mu.to(mu.dtype), d_lv.to(logvar.dtype), None
 
 
@@ -111,6 +162,6 @@ def masked_poe_all_terms(mu, logvar, masks):
     """mu, logvar: (M, B, D); masks: (T, M) -> (pd_mu, pd_logvar) (T, B, D),
     differentiable in mu and logvar.
 
-    CPU tensors take the plain version, CUDA tensors the kernel.
+    CPU tensors take the plain versions, CUDA tensors the kernels.
     """
     return _MaskedPoE.apply(mu, logvar, masks)

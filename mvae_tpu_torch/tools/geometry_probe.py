@@ -1,7 +1,10 @@
 """Time the port's reductions at launch geometries other than the ones
 their wrappers pick, on the card: the readings by which ops/bn.py's
 reduce_launch (REDUCE_LOADS, PLANE_THREADS, SPLIT_THREADS, COLUMNS_WIDE)
-and ops/elbo.py's BCE_CHUNKS are set.
+and ops/elbo.py's BCE_CHUNKS are set (PERF.md section 6). The PoE
+kernels' one column a thread in blocks of 128 are constants of
+csrc/poe.cu, set by this tool's readings of other forms (PERF.md section
+6); it times them as the wrappers launch them.
 
     python -m mvae_tpu_torch.tools.geometry_probe             # candidates
     python -m mvae_tpu_torch.tools.geometry_probe --wrappers  # wrappers only
@@ -24,6 +27,7 @@ import torch
 import chip_smoke as cs
 from mvae_tpu_torch.ops import _cuda
 from mvae_tpu_torch.ops import bn as bn_ops
+from mvae_tpu_torch.ops import poe as poe_ops
 from mvae_tpu_torch.ops.elbo import bce_rowsum_fwd, bce_rowsum_plain
 
 # the BatchNorm1d layers of the CelebA train step (f32, S = 1): the
@@ -38,6 +42,10 @@ MAP_SHAPES = ((1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
 BCE_CASES = ((300, 300, 12288, torch.float32, torch.float32),
              (300, 100, 12288, torch.float32, torch.bfloat16),
              (300, 100, 12288, torch.bfloat16, torch.bfloat16))
+# the PoE's (T, M, B, D): the train and eval steps' (forward and backward),
+# a serving bucket's (forward only)
+POE_CASES = (((3, 2, 100, 100), ("poe_fwd", "poe_bwd")),
+             ((1, 2, 64, 100), ("poe_fwd",)))
 
 
 def card():
@@ -161,7 +169,20 @@ def bce_candidates(dev, g, flush, name):
 
 
 def wrappers(dev, g, flush, name):
-    """What the wrappers launch at the same shapes."""
+    """What the wrappers launch at the same shapes, and the PoE kernels at
+    theirs (those of them that the tree has)."""
+    for (t, m, b, d), kernels in POE_CASES:
+        mu, lv = torch.randn((2, m, b, d), generator=g, device=dev)
+        masks = torch.tensor(cs.MASKS[:t] if t == 3 else [[1.0] * m],
+                             device=dev)
+        grads = tuple(torch.randn((2, t, b, d), generator=g, device=dev))
+        for kern in kernels:
+            if not hasattr(poe_ops, kern):
+                continue
+            args = (mu, lv, masks) + (grads if kern == "poe_bwd" else ())
+            show(f"wrapper {kern} T={t} M={m} B={b} D={d}",
+                 in_turns([("wrapper", getattr(poe_ops, kern), args)],
+                          flush), name)
     for shape in S1_SHAPES:
         x4, g4, a, b = bn_inputs(shape, dev, g)
         for op, fn, args in (("moments", bn_ops.bn_moments, (x4,)),

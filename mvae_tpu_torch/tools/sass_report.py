@@ -18,7 +18,10 @@ loop over the elements one trip handles (a trip of bn_normalize's and
 bn_dx's stream handles kStreamUnroll chunks of V: 16 elements in bf16, 8
 in f32; of bn_reduce_kernel's rows mapping (bn_moments: MomentsOp,
 bn_bwd_partials: PartialsOp) kReduceUnroll * V, one chunk of each of
-kReduceUnroll rows; of bce_rowsum_kernel kUnroll * V).
+kReduceUnroll rows; of bce_rowsum_kernel kUnroll * V). The PoE kernels
+(`--match poe`: poe_fwd_kernel<cap> and poe_bwd_kernel<cap>, one per
+expert cap) have one loop each, over the terms: a trip of poe_fwd_kernel
+is one term of a column, of poe_bwd_kernel kTermBatch terms.
 """
 
 import argparse

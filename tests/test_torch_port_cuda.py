@@ -19,7 +19,7 @@ from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
-from mvae_tpu_torch.ops.poe import poe_plain
+from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.train.loop import (
     decode_batch, draw_noise, make_eval_step, make_multi_train_step)
@@ -77,8 +77,28 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("t,m,b", [(1, 2, 1), (1, 2, 64), (3, 2, 100),
-                                   (5, 19, 7)])
+# (T, M, B): serving's one mask row, the steps' three terms, celeba19's
+# expert count over more terms than poe_bwd has in flight
+POE_CASES = [(1, 2, 1), (1, 2, 64), (3, 2, 100), (5, 19, 7)]
+# (T, M, B, D) with B*D off the 128 columns of a block (1, 7, 10003) or not
+# (6400), at each expert cap
+POE_RAGGED = [(3, 2, 1, 1), (3, 2, 1, 7), (3, 2, 64, 100), (3, 2, 7, 1429),
+              (2, 8, 3, 7), (2, 8, 64, 100), (9, 32, 5, 3), (1, 1, 7, 1)]
+
+
+def _poe_inputs(cuda, t, m, b, d=100):
+    """mu, logvar, 0/1 masks with the full subset first, upstream
+    gradients (T, B, D) of both outputs."""
+    g = torch.Generator(device=cuda).manual_seed(t * 10 + m)
+    mu = torch.randn((m, b, d), generator=g, device=cuda)
+    lv = torch.randn((m, b, d), generator=g, device=cuda)
+    masks = (torch.rand((t, m), generator=g, device=cuda) < 0.6).float()
+    masks[0] = 1.0
+    g_mu, g_lv = torch.randn((2, t, b, d), generator=g, device=cuda)
+    return mu, lv, masks, g_mu, g_lv
+
+
+@pytest.mark.parametrize("t,m,b", POE_CASES)
 def test_poe_kernel_matches_plain(cuda, t, m, b):
     g = torch.Generator(device=cuda).manual_seed(t * 10 + m)
     mu = torch.randn((m, b, 100), generator=g, device=cuda)
@@ -91,6 +111,52 @@ def test_poe_kernel_matches_plain(cuda, t, m, b):
     p_mu, p_lv = poe_plain(mu, lv, masks)
     torch.testing.assert_close(k_mu, p_mu, **POE_TOL)
     torch.testing.assert_close(k_lv, p_lv, **POE_TOL)
+
+
+@pytest.mark.parametrize("t,m,b,d", [c + (100,) for c in POE_CASES]
+                         + POE_RAGGED)
+def test_poe_bwd_kernel_matches_plain(cuda, t, m, b, d):
+    mu, lv, masks, g_mu, g_lv = _poe_inputs(cuda, t, m, b, d)
+    n = ops.poe_bwd.launches
+    k_dmu, k_dlv = ops.poe_bwd(mu, lv, masks, g_mu, g_lv)
+    torch.cuda.synchronize()
+    assert ops.poe_bwd.launches == n + 1
+    assert k_dmu.shape == k_dlv.shape == mu.shape
+    p_dmu, p_dlv = poe_bwd_plain(mu, lv, masks, g_mu, g_lv)
+    torch.testing.assert_close(k_dmu, p_dmu, **POE_TOL)
+    torch.testing.assert_close(k_dlv, p_dlv, **POE_TOL)
+    k_mu, k_lv = ops.poe_fwd(mu, lv, masks)
+    p_mu, p_lv = poe_plain(mu, lv, masks)
+    torch.testing.assert_close(k_mu, p_mu, **POE_TOL)
+    torch.testing.assert_close(k_lv, p_lv, **POE_TOL)
+
+
+@pytest.mark.parametrize("t,m,b,d", [c + (100,) for c in POE_CASES]
+                         + POE_RAGGED)
+def test_poe_kernels_are_the_same_from_run_to_run(cuda, t, m, b, d):
+    """Each output is written by one thread: two launches of either
+    kernel give bit-identical results."""
+    mu, lv, masks, g_mu, g_lv = _poe_inputs(cuda, t, m, b, d)
+    for kern, args in ((ops.poe_fwd, (mu, lv, masks)),
+                       (ops.poe_bwd, (mu, lv, masks, g_mu, g_lv))):
+        first = kern(*args)
+        for one, two in zip(first, kern(*args)):
+            assert torch.equal(one, two)
+
+
+def test_poe_kernels_take_a_view_off_a_16_byte_boundary(cuda):
+    """mu one element past a 16-byte boundary: both kernels load by
+    element and still match the plain versions."""
+    mu, lv, masks, g_mu, g_lv = _poe_inputs(cuda, 3, 2, 100)
+    buf = torch.empty(mu.numel() + 1, device=cuda)
+    off = buf[1:].view(mu.shape)
+    off.copy_(mu)
+    assert off.data_ptr() % 16 != 0
+    for got, want in ((ops.poe_fwd(off, lv, masks), poe_plain(mu, lv, masks)),
+                      (ops.poe_bwd(off, lv, masks, g_mu, g_lv),
+                       poe_bwd_plain(mu, lv, masks, g_mu, g_lv))):
+        for k, p in zip(got, want):
+            torch.testing.assert_close(k, p, **POE_TOL)
 
 
 # (N, Nt, K, logits' dtype, targets' dtype) of the BCE kernel's cases
@@ -150,15 +216,37 @@ def test_bce_kernel_is_the_same_from_run_to_run(cuda, n, nt, k, x_dt, t_dt):
         assert torch.equal(ops.bce_rowsum_fwd(x, t), first)
 
 
+def _strided(x):
+    """x's values and shape in a non-contiguous layout."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.zeros((4, 8), device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.bce_rowsum_fwd(x.half(), x)
     with pytest.raises(ValueError, match="contiguous"):
         ops.bce_rowsum_fwd(torch.zeros((8, 4), device=cuda).t(), x)
+    m = torch.zeros((33, 2, 3), device=cuda)
+    g = torch.zeros((1, 2, 3), device=cuda)
     with pytest.raises(ValueError, match="experts"):
-        m = torch.zeros((33, 2, 3), device=cuda)
         ops.poe_fwd(m, m, torch.ones((1, 33), device=cuda))
+    with pytest.raises(ValueError, match="experts"):
+        ops.poe_bwd(m, m, torch.ones((1, 33), device=cuda), g, g)
+    mu, lv, masks, g_mu, g_lv = _poe_inputs(cuda, 3, 2, 4, 8)
+    for bad, what in (
+            ((mu.double(), lv, masks, g_mu, g_lv), "float32"),
+            ((mu, lv, masks, g_mu.half(), g_lv), "float32"),
+            ((_strided(mu), lv, masks, g_mu, g_lv), "contiguous"),
+            ((mu, lv, masks, _strided(g_mu), g_lv), "contiguous"),
+            ((mu, lv, masks.cpu(), g_mu, g_lv), "one CUDA device"),
+            ((mu, lv, masks, g_mu.cpu(), g_lv), "one CUDA device"),
+            ((mu, lv, masks, g_mu[:2], g_lv), "gradients must be")):
+        with pytest.raises(ValueError, match=what):
+            ops.poe_bwd(*bad)
+        if bad[3] is g_mu:
+            with pytest.raises(ValueError, match=what):
+                ops.poe_fwd(*bad[:3])
 
 
 def _conv_inputs(cuda, shape, dtype, seed=0):
@@ -276,7 +364,8 @@ def test_eval_step_goes_through_the_kernels(cuda):
     step = make_eval_step(model, MASKS, LAMBDAS)
     ops.reset_launch_counts()
     total, per_term = step(batch)
-    want = {k: 0 for k in ops.KERNELS} | {"poe_fwd": 1, "bce_rowsum_fwd": 2}
+    want = {k: 0 for k in ops.KERNELS} | {"poe_fwd": 1, "poe_bwd": 0,
+                                          "bce_rowsum_fwd": 2}
     assert ops.launch_counts() == want
     with ops.plain_versions():
         p_total, p_terms = step(batch)
@@ -294,7 +383,8 @@ def test_embed_is_one_poe_launch(cuda):
     ops.reset_launch_counts()
     mu, _ = sampler.embed({"attrs": np.zeros((3, 18), np.float32)})
     assert mu.shape == (3, 8) and mu.is_cuda
-    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS} | {"poe_fwd": 1}
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS} | {
+        "poe_fwd": 1, "poe_bwd": 0}
 
 
 def _bn_inputs(cuda, shape, dtype, seed, offset=0):
@@ -503,7 +593,10 @@ def test_poe_and_bce_carry_gradients_on_the_card(cuda):
         assert launched != plain
         assert pd_mu.requires_grad and pd_lv.requires_grad
         assert rows.requires_grad
-        (pd_mu.sum() + (pd_lv * pd_mu).sum() + rows.sum()).backward()
+        n = ops.poe_bwd.launches
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            (pd_mu.sum() + (pd_lv * pd_mu).sum() + rows.sum()).backward()
+        assert ops.poe_bwd.launches == n + (not plain)
         grads.append((m_.grad, l_.grad, x_.grad))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
@@ -522,9 +615,9 @@ def _one_step(model, batch, noise):
                             for k, p in model.named_parameters()}
 
 
-def test_train_step_goes_through_all_seven_kernels(cuda):
+def test_train_step_goes_through_all_eight_kernels(cuda):
     """One train-mode ELBO and its backward on the card, on the encoder's
-    fused route: 1 PoE, 2 BCE launches, conv2d_moments once for each of the
+    fused route: 1 PoE forward and 1 backward, 2 BCE launches, conv2d_moments once for each of the
     encoder's 3 BN'd convs, each BN pass once for each of the other 8 BN
     layers, and every parameter gradient within 1e-4 of the plain versions'
     in relative norm (f32, TF32 off). The Linear biases that feed a BN have
@@ -539,7 +632,7 @@ def test_train_step_goes_through_all_seven_kernels(cuda):
     total, grads = _one_step(model, batch, noise)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "poe_fwd": 1, "bce_rowsum_fwd": 2, "bn_moments": 8,
+        "poe_fwd": 1, "poe_bwd": 1, "bce_rowsum_fwd": 2, "bn_moments": 8,
         "bn_normalize": 8, "bn_bwd_partials": 8, "bn_dx": 8,
         "conv2d_moments": 3}
     with ops.plain_versions():

@@ -23,7 +23,7 @@ from mvae_tpu_torch import ops
 from mvae_tpu_torch.core import losses
 from mvae_tpu_torch.core.poe import masked_product_of_experts
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
-from mvae_tpu_torch.ops.poe import poe_plain
+from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
 
 # single f32 ops, same formula: the sums differ only in order (the
 # tolerance of tests/test_pallas_kernels.py)
@@ -145,6 +145,22 @@ def test_cpu_tensors_take_the_plain_versions():
     assert ops.launch_counts() == before
 
 
+def test_cpu_poe_backward_takes_the_plain_version():
+    """The op's forward and backward on CPU tensors launch nothing, and the
+    gradients are poe_bwd_plain's, bit for bit."""
+    mu, lv, masks = (_t(a) for a in _poe_inputs(3, 2, 4, 8, seed=2))
+    rng = np.random.default_rng(3)
+    g_mu, g_lv = (_t(rng.normal(size=(3, 4, 8)).astype(np.float32))
+                  for _ in range(2))
+    before = ops.launch_counts()
+    pm, pv = mu.clone().requires_grad_(True), lv.clone().requires_grad_(True)
+    pd_mu, pd_lv = ops.masked_poe_all_terms(pm, pv, masks)
+    torch.autograd.backward((pd_mu, pd_lv), (g_mu, g_lv))
+    assert ops.launch_counts() == before
+    want_mu, want_lv = poe_bwd_plain(mu, lv, masks, g_mu, g_lv)
+    assert torch.equal(pm.grad, want_mu) and torch.equal(pv.grad, want_lv)
+
+
 def test_kernel_wrappers_reject_what_they_do_not_take():
     """The wrappers check before they launch: CPU tensors and target rows
     that do not divide the logit rows raise, as does a device the ops do
@@ -152,6 +168,8 @@ def test_kernel_wrappers_reject_what_they_do_not_take():
     mu, lv, masks = (_t(a) for a in _poe_inputs(1, 2, 3, 4, seed=1))
     with pytest.raises(ValueError, match="CUDA"):
         ops.poe_fwd(mu, lv, masks)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.poe_bwd(mu, lv, masks, mu[:1], lv[:1])
     with pytest.raises(ValueError, match="CUDA"):
         ops.bce_rowsum_fwd(torch.zeros(4, 8), torch.zeros(4, 8))
     with pytest.raises(ValueError, match="multiple"):

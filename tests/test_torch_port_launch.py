@@ -1,12 +1,16 @@
 """The launch geometry of the port's redesigned kernels, held on the CPU:
 what ops/convbn.py:launch_geometry, ops/bn.py:reduce_launch,
-normalize_launch and dx_launch, and ops/elbo.py:bce_launch hand to
-csrc/conv_moments.cu, csrc/bn_swish.cu and csrc/bce_rowsum.cu. The
+normalize_launch and dx_launch, ops/elbo.py:bce_launch and
+ops/poe.py:expert_cap hand to csrc/conv_moments.cu, csrc/bn_swish.cu,
+csrc/bce_rowsum.cu and csrc/poe.cu, and csrc/poe.cu's own grid. The
 kernels themselves run only on a card
 (tests/test_torch_port_cuda.py); their addressing is repeated here in
 numpy, so that a geometry the kernel would read out of bounds, a tile that
 misses a pixel, an element two threads write or an element given another
 channel's coefficients fails here."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops import elbo
+from mvae_tpu_torch.ops import poe
 
 SM_COUNT = 132
 MAX_SMEM = 232448
@@ -517,3 +522,52 @@ def test_bn_stream_whole_chunks_only_where_s_holds_them(dtype):
     assert not bn_ops.dx_launch(3, 100, 512, 1, itemsize)["whole"]
     assert not bn_ops.normalize_launch(3, 100, 32, 1024, itemsize,
                                        (itemsize, itemsize))["whole"]
+
+
+# poe_fwd and poe_bwd (csrc/poe.cu): one column a thread in blocks of the
+# kernels' constant kThreads, as many blocks as cover the columns; B*D
+# columns of one row and of a few, the CelebA steps' 10^4 and one past it
+POE_COLS = [1, 7, 6400, 10000, 10003]
+POE_SOURCE = Path(poe.__file__).parents[1] / "csrc" / "poe.cu"
+
+
+def _poe_grid(n_cols):
+    """(blocks, threads, columns): the grid csrc/poe.cu launches on n_cols
+    columns (blocks_of), at its kThreads, and the column every thread of
+    it reads (each row of mu, logvar and the upstream gradients) and
+    writes (each row of the outputs), in the kernels' order: thread u =
+    block * kThreads + lane takes column u if u < n_cols, else returns."""
+    threads = int(re.search(r"constexpr int kThreads = (\d+);",
+                            POE_SOURCE.read_text()).group(1))
+    blocks = -(-n_cols // threads)
+    u = np.arange(blocks * threads, dtype=np.int64)
+    return blocks, threads, u[u < n_cols]
+
+
+@pytest.mark.parametrize("n_cols", POE_COLS)
+def test_poe_reads_and_writes_every_column_once(n_cols):
+    """Every column is read and written by exactly one thread, none past
+    the row, the ragged tail in the same launch; no block is empty; the
+    block is one the card takes, in whole warps."""
+    blocks, threads, cols = _poe_grid(n_cols)
+    assert cols.max() < n_cols
+    assert (np.bincount(cols, minlength=n_cols) == 1).all()
+    assert (blocks - 1) * threads < n_cols
+    assert 32 <= threads <= 1024 and threads % 32 == 0
+
+
+@pytest.mark.parametrize("m,cap", [(1, 2), (2, 2), (3, 8), (8, 8), (9, 32),
+                                   (19, 32), (32, 32)])
+def test_poe_expert_cap_is_the_least_that_holds_the_experts(m, cap):
+    """The kernels hold cap experts a column in registers: 2 at the main
+    path's M = 2, 32 at celeba19's 19."""
+    assert poe.expert_cap(m) == cap
+    assert cap in poe.EXPERT_CAPS and poe.MAX_EXPERTS == max(poe.EXPERT_CAPS)
+
+
+def test_poe_main_case_is_one_wave():
+    """The steps' 10^4 columns: every thread of the grid resident on the
+    card at once (2048 a SM), and more blocks than half the SMs."""
+    blocks, threads, _ = _poe_grid(10000)
+    assert blocks > SM_COUNT // 2
+    assert blocks * threads <= SM_COUNT * 2048

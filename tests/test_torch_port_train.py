@@ -235,25 +235,45 @@ def test_bn_train_mode_fuses_the_following_swish():
 GRAD_OP_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
-def test_poe_gradients_match_jax():
+@pytest.mark.parametrize("t,m,b,d,masks", [
+    (3, 2, 5, L, MASKS),    # the CelebA terms
+    (1, 2, 3, 16, None),    # serving: one mask row
+    (3, 2, 4, 16, None),    # eval: three terms
+    (1, 19, 3, 8, None),    # celeba19's expert count
+    (3, 19, 2, 8, None),
+    (3, 2, 300, 16, None),  # B*D > 4096: more than one Pallas tile
+    (2, 3, 4, 16, [[1.0, 0.5, 0.25], [0.0, 2.0, 1.0]]),   # float weights
+])
+def test_poe_gradients_match_jax(t, m, b, d, masks):
+    """poe_bwd_plain, called directly and as the op's backward on the CPU,
+    against jax.grad through the Pallas op (interpret mode) and its
+    closed-form VJP, at the cases of the forward's test
+    (test_torch_port_kernels.py:test_poe_plain_matches_pallas)."""
     rng = np.random.default_rng(21)
-    mu = rng.normal(size=(2, 5, L)).astype(np.float32)
-    lv = rng.normal(size=(2, 5, L)).astype(np.float32)
-    masks = np.asarray(MASKS, np.float32)
-    w_mu = rng.normal(size=(3, 5, L)).astype(np.float32)
-    w_lv = rng.normal(size=(3, 5, L)).astype(np.float32)
+    mu = rng.normal(size=(m, b, d)).astype(np.float32)
+    lv = rng.normal(size=(m, b, d)).astype(np.float32)
+    if masks is None:
+        masks = (rng.random((t, m)) < 0.6).astype(np.float32)
+        masks[0] = 1.0
+    masks = np.asarray(masks, np.float32)
+    w_mu = rng.normal(size=(t, b, d)).astype(np.float32)
+    w_lv = rng.normal(size=(t, b, d)).astype(np.float32)
 
-    def jax_loss(m, v):
-        a, b = jax_poe_all(m, v, jnp.asarray(masks))
-        return jnp.vdot(a, w_mu) + jnp.vdot(b, w_lv)
+    def jax_loss(m_, v_):
+        a, b_ = jax_poe_all(m_, v_, jnp.asarray(masks))
+        return jnp.vdot(a, w_mu) + jnp.vdot(b_, w_lv)
 
     want = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(mu),
                                               jnp.asarray(lv))
     pm, pv = _t(mu).requires_grad_(True), _t(lv).requires_grad_(True)
-    a, b = ops.masked_poe_all_terms(pm, pv, _t(masks))
-    ((a * _t(w_mu)).sum() + (b * _t(w_lv)).sum()).backward()
-    for got, w in zip((pm.grad, pv.grad), want):
+    a, b_ = ops.masked_poe_all_terms(pm, pv, _t(masks))
+    ((a * _t(w_mu)).sum() + (b_ * _t(w_lv)).sum()).backward()
+    direct = ops.poe_bwd_plain(_t(mu), _t(lv), _t(masks), _t(w_mu),
+                               _t(w_lv))
+    for got, plain, w in zip((pm.grad, pv.grad), direct, want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_OP_TOL)
+        np.testing.assert_allclose(plain.numpy(), np.asarray(w),
+                                   **GRAD_OP_TOL)
 
 
 @pytest.mark.parametrize("logits_dtype", ["float32", "bfloat16"])
