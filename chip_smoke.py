@@ -3,8 +3,10 @@
 NVIDIA GPU: builds the CUDA kernels from `mvae_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the serving
 endpoints, the eval-mode ELBO, the training step and the training CLI of
-the shipped CelebA model at full width, and shows that those paths went
-through the kernels.
+the shipped CelebA model at full width, then the MNIST and FashionMNIST
+families end to end (train, sample and loglike CLIs, serving) and the
+CelebA sample and loglike CLIs, and shows that those paths went through
+the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -13,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught):
   2. kernels vs their plain versions at the paths' shapes, with times:
      the PoE's forward and backward, the BCE; the four BN passes at each
      of the train step's 11 BN layers; conv2d_moments at the encoder's 3
-     BN'd convs, bf16 and f32 (per-step sums too); every kernel launched
+     BN'd convs, bf16 and f32 (per-step sums too); the MNIST families'
+     shapes: the PoE at D=64 (T=1 and T=3, B=100), the BCE's 784-pixel
+     rows with each family's dtypes and the IWAE's 100*100 sample rows
+     against 100 shared target rows; every kernel launched
      twice gives bit-identical results. Each kernel is timed two ways:
      device_ms (one launch between events, the L2 flushed before it:
      carries the measuring floor of the `[kernel] floor` line) and
@@ -35,14 +40,26 @@ Phases (any failure exits non-zero; nothing is caught):
      route (--conv-moments) into a temporary directory, --resume for a
      third on the default route, then Sampler.from_checkpoint on
      model_best.pth.tar answers one request
+  6c. the MNIST families: an IDX set of the synthetic digits (2000 train,
+     500 test rows) each; the train CLI with its defaults (bf16, L=64,
+     B=100) for 2 epochs, --resume for a third; the sample CLI in its
+     four modes; the loglike CLI at K=100 for image, text and joint;
+     Sampler.from_checkpoint at every endpoint; the bf16 train step in
+     turns against the plain versions; profile lines of a train step and
+     of an IWAE batch (K=100, B=100). Then the CelebA loglike CLI (K=100,
+     500 rows) and sample CLI (--condition-on-attrs) from 6b's checkpoint
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
      (loss, gradients, the encoder BNs' running statistics); f32 card vs
      CPU (TF32 off) on one step with the same noise; the loss of the last
-     window below the first's; running statistics finite and moved
-  8. the kernels line: launches on phases 3-5 and 6b, error, times, bounds
-Phases 3-5 end with a torch.profiler breakdown of device time per call.
+     window below the first's; running statistics finite and moved;
+     the IWAE estimate, kernel path vs plain versions (MNIST, CelebA,
+     K=100, B=100) and f32 card vs CPU
+  8. the kernels line: launches on phases 3-5, 6b and 6c, error, times,
+     bounds, and each timed case of the PoE and the BCE
+Phases 3-5 and 6c end with a torch.profiler breakdown of device time per
+call.
 Weights are random from seed 0, the BN statistics and affine parameters
 too. The last line is {"ok": true, "device": {...}}.
 
@@ -71,7 +88,18 @@ import torch.nn.functional as F
 
 from mvae_tpu_torch import ops
 from mvae_tpu_torch.core.engine import multi_term_elbo
+from mvae_tpu_torch.core.loglike import iwae_log_marginal
+from mvae_tpu_torch.data.celeba import load_celeba
+from mvae_tpu_torch.data.mnist import load_mnist, synthetic_mnist, write_idx
+from mvae_tpu_torch.experiments.celeba import loglike as celeba_loglike
+from mvae_tpu_torch.experiments.celeba import sample as celeba_sample
 from mvae_tpu_torch.experiments.celeba import train as celeba_cli
+from mvae_tpu_torch.experiments.fashionmnist import (
+    loglike as fashion_loglike, sample as fashion_sample,
+    train as fashion_train)
+from mvae_tpu_torch.experiments.mnist import (
+    loglike as mnist_loglike, sample as mnist_sample, train as mnist_train)
+from mvae_tpu_torch.models import FashionMnistMVAE, MnistMVAE
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
@@ -80,6 +108,7 @@ from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.train.checkpoint import BEST, CKPT
+from mvae_tpu_torch.train.driver import to_device_data
 from mvae_tpu_torch.train.loop import (
     decode_batch, draw_noise, make_eval_step, make_multi_train_step,
     resolve_decode_dtype)
@@ -332,8 +361,11 @@ def phase_kernels(dev, card, peaks, flush):
         print(f"[kernel] {name} {case}: max_abs_err {err} max_rel_err {rel} "
               f"ms {t_k} back_to_back_ms {t_b2b} plain_ms {t_p} library_ms "
               f"{t_lib} bound_ms {b_ms} ({b_by}) | {card}")
-        row = rows.setdefault(name, {"max_abs_err": 0.0})
+        row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["cases"].append(dict(case=case, ms=t_k, back_to_back_ms=t_b2b,
+                                 plain_ms=t_p, library_ms=t_lib,
+                                 bound_ms=b_ms, bound_by=b_by))
         if main:
             row.update(ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
                        library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
@@ -343,13 +375,18 @@ def phase_kernels(dev, card, peaks, flush):
     # the PoE's upstream gradients from their own generator, so that the
     # other kernels' inputs stay those of earlier trees
     g_up = torch.Generator(device=dev).manual_seed(7)
-    d, m = 100, 2
-    for t, b in ((1, 1), (1, 64), (3, 100)):
-        mu = torch.randn((m, b, d), generator=g, device=dev)
-        lv = torch.randn((m, b, d), generator=g, device=dev)
+    # the MNIST families' cases (D = 64: the IWAE's proposal and infer at
+    # T = 1, the train step at T = 3) draw from their own generator too
+    g_fam = torch.Generator(device=dev).manual_seed(8)
+    m = 2
+    for t, b, d, gen in ((1, 1, 100, g), (1, 64, 100, g), (3, 100, 100, g),
+                         (1, 100, 64, g_fam), (3, 100, 64, g_fam)):
+        mu = torch.randn((m, b, d), generator=gen, device=dev)
+        lv = torch.randn((m, b, d), generator=gen, device=dev)
         masks = torch.tensor(MASKS[:t] if t == 3 else [[1.0, 1.0]],
                              device=dev)
-        g_mu, g_lv = torch.randn((2, t, b, d), generator=g_up, device=dev)
+        g_mu, g_lv = torch.randn((2, t, b, d), device=dev, generator=(
+            g_up if gen is g else g_fam))
         c, case = b * d, f"T={t} M={m} B={b} D={d}"
         # (name, kernel, plain version, inputs, bytes, operations)
         for name, kern, plain, args, nbytes, nops in (
@@ -367,21 +404,31 @@ def phase_kernels(dev, card, peaks, flush):
                    device_ms(lambda: kern(*args), flush),
                    back_to_back_ms(kern, args, flush),
                    device_ms(lambda: plain(*args), flush), None, nbytes,
-                   nops, main=(t == 3))
+                   nops, main=(t == 3 and d == 100))
 
     f32, bf16 = torch.float32, torch.bfloat16
     # (rows, target rows, width, logits dtype, targets dtype, main case):
     # the eval step's image and attribute rows under bf16 compute (f32
-    # logits; the main case) and the train step's image rows (bf16 logits)
+    # logits; the main case) and the train step's image rows (bf16 logits);
+    # then the MNIST families' 784 pixels (their own generator): MNIST's
+    # steps (f32 logits, f32 targets: its flat rows stay f32 on the card),
+    # FashionMNIST's bf16 train step (bf16 both) and eval step (f32 logits,
+    # bf16 targets), and the IWAE's K * B = 100 * 100 sample rows against
+    # the B target rows (f32, the loglike CLI's)
     bce_main = {}
     for n, nt, k, xdt, tdt, main in ((300, 300, 12288, f32, f32, False),
                                      (300, 300, 12288, f32, bf16, False),
                                      (300, 100, 12288, f32, bf16, "eval"),
                                      (300, 100, 12288, bf16, bf16, "train"),
                                      (300, 300, 18, f32, f32, False),
-                                     (300, 100, 18, f32, f32, False)):
-        x = (3 * torch.randn((n, k), generator=g, device=dev)).to(xdt)
-        tt = torch.rand((nt, k), generator=g, device=dev).to(tdt)
+                                     (300, 100, 18, f32, f32, False),
+                                     (300, 100, 784, f32, f32, False),
+                                     (300, 100, 784, bf16, bf16, False),
+                                     (300, 100, 784, f32, bf16, False),
+                                     (10000, 100, 784, f32, f32, False)):
+        gen = g if k != 784 else g_fam
+        x = (3 * torch.randn((n, k), generator=gen, device=dev)).to(xdt)
+        tt = torch.rand((nt, k), generator=gen, device=dev).to(tdt)
         got = ops.bce_rowsum_fwd(x, tt)
         want = bce_rowsum_plain(x, tt)
         expect(torch.equal(got, ops.bce_rowsum_fwd(x, tt)),
@@ -852,7 +899,61 @@ class TimedLines(io.TextIOBase):
         self.sink.flush()
 
 
-def phase_cli(dev, card):
+def run_train_cli(main, argv, first_extra, out_dir, what, real_data=False):
+    """A train CLI's main for CLI_EPOCHS epochs (with first_extra), then
+    --resume of its checkpoint for one more, on the card. Checks the
+    reference's log lines (two train lines an epoch: 20 steps, windows of
+    10), both files, the epoch the resume starts at and a finite test loss
+    each epoch, and with real_data that the loader read files (no
+    synthetic fallback). Returns (test losses, throughput lines, each
+    epoch's training wall s)."""
+    rec = TimedLines(sys.stdout)
+    with contextlib.redirect_stdout(rec):
+        rec.lines.append((time.perf_counter(), f"[{what}] start"))
+        main(argv + ["--epochs", str(CLI_EPOCHS)] + first_extra)
+        rec.lines.append((time.perf_counter(), f"[{what}] resume"))
+        main(argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume",
+                     os.path.join(out_dir, CKPT)])
+    for name in (CKPT, BEST):
+        expect(os.path.isfile(os.path.join(out_dir, name)),
+               f"{what}: no {name}")
+    lines = [line for _, line in rec.lines]
+    expect(not (real_data and any("synthetic fallback" in line
+                                  for line in lines)),
+           f"{what}: the loader fell back to synthetic data")
+    logs = [line for line in lines if LOG_LINE.match(line)]
+    epochs = list(range(1, CLI_EPOCHS + 2))
+    for e in epochs:
+        expect(sum(line.startswith(f"Train Epoch: {e} [") for line in
+                   logs) == 2, f"{what}: epoch {e} has not 2 train lines")
+        expect(f"====> Epoch: {e}\t" in "\n".join(logs),
+               f"{what}: no epoch line for epoch {e}")
+    tests = [float(line.split()[-1]) for line in logs
+             if line.startswith("====> Test Loss")]
+    expect(len(tests) == len(epochs) and all(np.isfinite(tests)),
+           f"{what}: test losses {tests}")
+    i = lines.index(f"[{what}] resume")
+    expect(any(line.startswith("resumed from ") and
+               line.endswith(f"at epoch {CLI_EPOCHS}")
+               for line in lines[i:]), f"{what}: no resume line")
+    first = next(line for line in lines[i:]
+                 if line.startswith("Train Epoch"))
+    expect(first.startswith(f"Train Epoch: {CLI_EPOCHS + 1} [0/"),
+           f"{what}: resumed at {first!r}")
+    throughput = [line for line in logs if "Throughput" in line]
+    expect(len(throughput) == CLI_EPOCHS - 1, f"{what}: throughput lines")
+    # an epoch's training: from the line before its first train line
+    # (the pipeline line or the last epoch's test loss) to its epoch line
+    train_s, start = [], None
+    for t, line in rec.lines:
+        if line.startswith(("input pipeline", "====> Test Loss")):
+            start = t
+        elif line.startswith("====> Epoch"):
+            train_s.append(t - start)
+    return tests, throughput, train_s
+
+
+def phase_cli(dev, card, root):
     """The training CLI on the card: experiments/celeba/train.py:main on
     the synthetic CelebA set (2000 train and 500 val rows, the loader's
     defaults), CelebaMVAE(100) in bf16 (the CLI's defaults), CLI_EPOCHS
@@ -861,65 +962,301 @@ def phase_cli(dev, card):
     checkpoint for one more epoch on the default, unfused route; then
     model_best.pth.tar served by Sampler. Checks
     the log lines, the files, the epoch the resume starts at, and a
-    finite test loss; prints the throughput and each epoch's wall time."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        out_dir = os.path.join(tmp, "models")
-        argv = ["--annealing-epochs", "1", "--log-interval", "10",
-                "--out-dir", out_dir, "--data-dir", os.path.join(tmp, "data")]
-        rec = TimedLines(sys.stdout)
-        with contextlib.redirect_stdout(rec):
-            rec.lines.append((time.perf_counter(), "[cli] start"))
-            celeba_cli.main(argv + ["--epochs", str(CLI_EPOCHS),
-                                    "--conv-moments"])
-            rec.lines.append((time.perf_counter(), "[cli] resume"))
-            celeba_cli.main(argv + ["--epochs", str(CLI_EPOCHS + 1),
-                                    "--resume", os.path.join(out_dir, CKPT)])
-        for name in (CKPT, BEST):
-            expect(os.path.isfile(os.path.join(out_dir, name)),
-                   f"cli: no {name}")
-        lines = [line for _, line in rec.lines]
-        logs = [line for line in lines if LOG_LINE.match(line)]
-        epochs = list(range(1, CLI_EPOCHS + 2))
-        for e in epochs:
-            expect(sum(line.startswith(f"Train Epoch: {e} [") for line in
-                       logs) == 2, f"cli: epoch {e} has not 2 train lines")
-            expect(f"====> Epoch: {e}\t" in "\n".join(logs),
-                   f"cli: no epoch line for epoch {e}")
-        tests = [float(line.split()[-1]) for line in logs
-                 if line.startswith("====> Test Loss")]
-        expect(len(tests) == len(epochs) and all(np.isfinite(tests)),
-               f"cli: test losses {tests}")
-        i = lines.index("[cli] resume")
-        expect(any(line.startswith("resumed from ") and
-                   line.endswith(f"at epoch {CLI_EPOCHS}")
-                   for line in lines[i:]), "cli: no resume line")
-        first = next(line for line in lines[i:]
-                     if line.startswith("Train Epoch"))
-        expect(first.startswith(f"Train Epoch: {CLI_EPOCHS + 1} [0/"),
-               f"cli: resumed at {first!r}")
-        throughput = [line for line in logs if "Throughput" in line]
-        expect(len(throughput) == CLI_EPOCHS - 1, "cli: throughput lines")
-        # an epoch's training: from the line before its first train line
-        # (the pipeline line or the last epoch's test loss) to its epoch line
-        train_s, start = [], None
-        for t, line in rec.lines:
-            if line.startswith(("input pipeline", "====> Test Loss")):
-                start = t
-            elif line.startswith("====> Epoch"):
-                train_s.append(t - start)
-        print(f"[cli] CelebaMVAE(100) bf16 B=100, 20 steps an epoch: "
-              f"{throughput} ; epoch training wall s {train_s} (epochs "
-              f"{epochs}; epoch 1 and the resumed epoch {CLI_EPOCHS + 1} "
-              f"include the warm-up) | {card}")
+    finite test loss; prints the throughput and each epoch's wall time.
+    The run's files stay under root/celeba for phase 6c; returns the
+    checkpoint directory."""
+    tmp = os.path.join(root, "celeba")
+    out_dir = os.path.join(tmp, "models")
+    argv = ["--annealing-epochs", "1", "--log-interval", "10",
+            "--out-dir", out_dir, "--data-dir", os.path.join(tmp, "data")]
+    tests, throughput, train_s = run_train_cli(
+        celeba_cli.main, argv, ["--conv-moments"], out_dir, "cli")
+    epochs = list(range(1, CLI_EPOCHS + 2))
+    print(f"[cli] CelebaMVAE(100) bf16 B=100, 20 steps an epoch: "
+          f"{throughput} ; epoch training wall s {train_s} (epochs "
+          f"{epochs}; epoch 1 and the resumed epoch {CLI_EPOCHS + 1} "
+          f"include the warm-up) | {card}")
 
-        sampler = Sampler.from_checkpoint(os.path.join(out_dir, BEST),
-                                          compute_dtype=torch.bfloat16)
-        images = torch.rand((8, 64, 64, 3), device=dev,
-                            generator=torch.Generator(device=dev)
-                            .manual_seed(7))
-        check_images(sampler.reconstruct({"image": images}), 8)
-        print(f"[cli] {BEST} served one reconstruct request of 8 rows; test "
-              f"losses {tests}")
+    sampler = Sampler.from_checkpoint(os.path.join(out_dir, BEST),
+                                      compute_dtype=torch.bfloat16)
+    images = torch.rand((8, 64, 64, 3), device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(7))
+    check_images(sampler.reconstruct({"image": images}), 8)
+    print(f"[cli] {BEST} served one reconstruct request of 8 rows; test "
+          f"losses {tests}")
+    return out_dir
+
+
+# the MNIST families' CLIs (phase 6c): train, sample, loglike modules, the
+# model class and the IDX variant
+FAMILY_CLIS = {
+    "mnist": (mnist_train, mnist_sample, mnist_loglike, MnistMVAE, "MNIST"),
+    "fashionmnist": (fashion_train, fashion_sample, fashion_loglike,
+                     FashionMnistMVAE, "FashionMNIST"),
+}
+N_FAM_TRAIN, N_FAM_TEST = 2000, 500   # rows of the IDX sets phase 6c writes
+FAM_LAMBDAS = [[1.0, 10.0]] * 3       # experiments/mnist/train.py defaults
+FAM_LR = 1e-3
+IWAE_K = 100                          # the loglike CLIs' default K
+# the IWAE estimate, kernel path vs plain versions on the card (f32): the
+# BCE kernel's softplus from ex2.approx / lg2.approx is within 6.7e-7 of
+# the precise one an element (8.2e-3 over a CelebA row of 12288, PERF.md
+# section 6), against estimates of 500-9000 in magnitude; the rest sums in
+# another order
+IWAE_TOL = dict(rtol=1e-5, atol=0.0)
+
+
+def write_idx_set(root, variant):
+    """N_FAM_TRAIN train and N_FAM_TEST test rows of the synthetic digits
+    as the IDX files the loader reads (root/variant/raw)."""
+    raw = os.path.join(root, variant, "raw")
+    os.makedirs(raw)
+    for stem, n, seed in (("train", N_FAM_TRAIN, 0), ("t10k", N_FAM_TEST, 1)):
+        images, labels = synthetic_mnist(n, seed=seed)
+        write_idx(os.path.join(raw, f"{stem}-images-idx3-ubyte"),
+                  np.round(images * 255))
+        write_idx(os.path.join(raw, f"{stem}-labels-idx1-ubyte"), labels)
+
+
+def run_main(main, argv):
+    """(main(argv)'s value, its stdout lines); the text passes on."""
+    rec = TimedLines(sys.stdout)
+    with contextlib.redirect_stdout(rec):
+        value = main(argv)
+    return value, [line for _, line in rec.lines]
+
+
+def check_family_outputs(out, n, family):
+    """Sampler outputs of an MNIST family: n images in [0, 1], n rows of
+    10 class probabilities that sum to 1."""
+    shape = (784,) if family == "mnist" else (28, 28, 1)
+    expect(tuple(out["image"].shape) == (n,) + shape,
+           f"{family} image {tuple(out['image'].shape)}")
+    expect(tuple(out["text"].shape) == (n, 10),
+           f"{family} text {tuple(out['text'].shape)}")
+    for k, v in out.items():
+        expect(bool(torch.isfinite(v).all()) and v.min() >= 0
+               and v.max() <= 1, f"{family} {k} outside [0, 1]")
+    torch.testing.assert_close(out["text"].sum(-1),
+                               torch.ones(n, device=out["text"].device),
+                               rtol=1e-5, atol=1e-5)
+
+
+def family_device_data(family, data_dir, dev):
+    """The family's IDX train set resident on the card, as the driver
+    keeps it (MNIST's flat rows f32, FashionMNIST's images uint8)."""
+    variant = FAMILY_CLIS[family][4]
+    ds = load_mnist(data_dir, train=True, variant=variant,
+                    flatten=family == "mnist", synthetic_ok=False)
+    return to_device_data(ds, dev)
+
+
+def family_train_timing(dev, card, family, data):
+    """The family's bf16 train step at B=100, windows of K=20 steps of
+    make_multi_train_step, kernel path and plain versions in turns after
+    a warm-up pair (as phase 5), then a device-time breakdown per step."""
+    cls = FAMILY_CLIS[family][3]
+    model = cls(64, torch.bfloat16, device=dev,
+                generator=torch.Generator().manual_seed(40))
+    multi = make_multi_train_step(
+        model, MASKS, FAM_LAMBDAS, lr=FAM_LR, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(41))
+    rng = np.random.default_rng(42)
+    n = next(iter(data.values())).shape[0]
+
+    def window(k=TRAIN_K):
+        return torch.from_numpy(np.stack([rng.permutation(n)[:BATCH]
+                                          for _ in range(k)])).to(dev)
+
+    betas = torch.ones(TRAIN_K, device=dev)
+    order = (False, True) + (False, True, True, False) * 2
+    losses, times = [], {False: [], True: []}
+    for i, plain in enumerate(order):
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            window_losses, ms = timed_window(multi, data, window(), betas)
+        expect(bool(torch.isfinite(window_losses).all()),
+               f"{family} train: loss not finite {window_losses}")
+        losses.append(window_losses.mean().item())
+        if i >= 2:
+            times[plain].append(ms)
+    print(f"[{family}] bf16 B=100 T=3 K={TRAIN_K}: mean loss per window "
+          f"{losses} (K, P | K, P, P, K, K, P, P, K)")
+    print(f"[{family}] bf16 B=100 T=3 step: {times[False]} ms (plain "
+          f"versions {times[True]} ms), host clock per window / K; "
+          f"{pairs_won(times[False], times[True])} | {card}")
+    profile_breakdown(
+        f"{family} train bf16 B=100 T=3 step (window of {PROFILE_K})",
+        lambda: multi(data, window(PROFILE_K), betas[:PROFILE_K]), card,
+        reps=1, wall_reps=1, per=PROFILE_K)
+
+
+def iwae_inputs(family, dev, data_dir):
+    """(f32 model of the family, the first BATCH test rows on the card,
+    eps (IWAE_K, BATCH, D) from a seeded generator on the card)."""
+    if family == "celeba":
+        model = celeba(torch.float32, dev, seed=50)
+        test = load_celeba(data_dir, "test").arrays
+    else:
+        model = FAMILY_CLIS[family][3](
+            64, device=dev, generator=torch.Generator().manual_seed(50))
+        test = load_mnist(data_dir, train=False,
+                          variant=FAMILY_CLIS[family][4],
+                          flatten=family == "mnist",
+                          synthetic_ok=False).arrays
+    batch = {k: torch.from_numpy(v[:BATCH]).to(dev) for k, v in test.items()}
+    eps = torch.randn((IWAE_K, BATCH, model.n_latents), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(51))
+    return model, batch, eps
+
+
+def phase_families(dev, card, root, celeba_dir):
+    """Phase 6c: the MNIST families end to end on the card, and the CelebA
+    sample and loglike CLIs at full width. For MNIST and FashionMNIST: an
+    IDX set of the synthetic digits (N_FAM_TRAIN train, N_FAM_TEST test
+    rows); the train CLI with its shipped defaults (bf16, L=64, batch 100,
+    lr 1e-3) for CLI_EPOCHS epochs, then --resume for one more (the checks
+    of phase 6b); the sample CLI in its four modes from model_best.pth.tar;
+    the loglike CLI at K=100 on the N_FAM_TEST test rows for image, text
+    and joint (finite, negative); Sampler.from_checkpoint answering one
+    request at every endpoint; the bf16 train step timed in turns against
+    the plain versions, with its profile line; the profile line of one
+    IWAE batch (K=100, B=100, f32). Then CelebaMVAE(100) from phase 6b's
+    checkpoint: the loglike CLI (joint, K=100, the CelebA loader's test
+    partition: 500 synthetic rows), the sample CLI with --condition-on-attrs, and its IWAE batch's
+    profile line. Returns {family: its data directory}."""
+    dirs = {"celeba": os.path.join(root, "celeba", "data")}
+    for family, (train, sample, loglike_cli, cls, variant) in \
+            FAMILY_CLIS.items():
+        tmp = os.path.join(root, family)
+        data_dir, out_dir = (os.path.join(tmp, d) for d in ("data", "models"))
+        dirs[family] = data_dir
+        write_idx_set(data_dir, variant)
+        t0 = time.perf_counter()
+        tests, throughput, train_s = run_train_cli(
+            train.main, ["--out-dir", out_dir, "--data-dir", data_dir], [],
+            out_dir, family, real_data=True)
+        print(f"[{family}] {cls.__name__}(64) bf16 B=100, 20 steps an "
+              f"epoch: {throughput} ; epoch training wall s {train_s}; test "
+              f"losses {tests}; the CLI runs {time.perf_counter() - t0} s "
+              f"| {card}")
+        best = os.path.join(out_dir, BEST)
+
+        label = int(load_mnist(data_dir, train=False, variant=variant,
+                               synthetic_ok=False).arrays["text"][0])
+        t0 = time.perf_counter()
+        for i, extra in enumerate((
+                [], ["--condition-on-image", str(label)],
+                ["--condition-on-text", str(label)],
+                ["--condition-on-image", str(label), "--condition-on-text",
+                 str(label)])):
+            d = os.path.join(tmp, f"samples{i}")
+            out, _ = run_main(sample.main, [best, "--out-dir", d,
+                                            "--data-dir", data_dir] + extra)
+            check_family_outputs(out, 64, family)
+            with open(os.path.join(d, "sample_image.png"), "rb") as f:
+                expect(f.read(8) == b"\x89PNG\r\n\x1a\n",
+                       f"{family} sample {extra}: not a PNG")
+            with open(os.path.join(d, "sample_text.txt")) as f:
+                lines = f.read().splitlines()
+            expect(len(lines) == 64 and lines[63].startswith("Text (63): "),
+                   f"{family} sample {extra}: {len(lines)} text lines")
+        print(f"[{family}] sample CLI, four modes of 64 samples: "
+              f"{time.perf_counter() - t0} s | {card}")
+
+        for target in ("image", "text", "joint"):
+            t0 = time.perf_counter()
+            ll, lines = run_main(loglike_cli.main, [
+                best, "--target", target, "--data-dir", data_dir])
+            expect(bool(np.isfinite(ll)) and ll < 0,
+                   f"{family} log p({target}) = {ll}")
+            expect(any(line.startswith(f"====> log p({target}) >= ") and
+                       line.endswith(f"(K={IWAE_K}, N={N_FAM_TEST})")
+                       for line in lines), f"{family} loglike line")
+            print(f"[{family}] loglike CLI {target}: {ll} in "
+                  f"{time.perf_counter() - t0} s | {card}")
+
+        sampler = Sampler.from_checkpoint(best)
+        expect(type(sampler.model) is cls, f"{family}: served "
+               f"{type(sampler.model).__name__}")
+        test = load_mnist(data_dir, train=False, variant=variant,
+                          flatten=family == "mnist", synthetic_ok=False)
+        images = torch.from_numpy(test.arrays["image"][:8]).to(dev)
+        labels = torch.from_numpy(test.arrays["text"][:8]).to(dev)
+        check_family_outputs(sampler.sample(n=8, seed=0), 8, family)
+        for cond in ({"image": images[:1]}, {"text": labels[:1]}):
+            check_family_outputs(sampler.sample(n=8, condition=cond), 8,
+                                 family)
+        for inputs in ({"image": images}, {"text": labels},
+                       {"image": images, "text": labels}):
+            mu, lv = sampler.embed(inputs)
+            expect(mu.shape == lv.shape == (8, 64) and bool(
+                torch.isfinite(mu).all() and torch.isfinite(lv).all()),
+                f"{family} embed {sorted(inputs)}")
+            if len(inputs) == 1:
+                check_family_outputs(sampler.reconstruct(inputs), 8, family)
+        print(f"[{family}] {BEST} served every endpoint (sample, sample|"
+              f"image, sample|text, embed and reconstruct)")
+
+        family_train_timing(dev, card, family,
+                            family_device_data(family, data_dir, dev))
+        model, batch, eps = iwae_inputs(family, dev, data_dir)
+        profile_breakdown(
+            f"{family} IWAE f32 K={IWAE_K} B={BATCH} joint",
+            lambda: iwae_log_marginal(model, batch, [1.0, 1.0],
+                                      list(model.modalities), IWAE_K,
+                                      eps=eps), card)
+
+    best = os.path.join(celeba_dir, BEST)
+    t0 = time.perf_counter()
+    ll, lines = run_main(celeba_loglike.main, [
+        best, "--target", "joint", "--data-dir", dirs["celeba"]])
+    expect(bool(np.isfinite(ll)) and ll < 0, f"celeba log p(joint) = {ll}")
+    n_test = len(load_celeba(dirs["celeba"], "test"))
+    expect(any(line.endswith(f"(K={IWAE_K}, N={n_test})") for line in lines),
+           "celeba loglike line")
+    print(f"[celeba] loglike CLI joint, CelebaMVAE(100) f32: {ll} in "
+          f"{time.perf_counter() - t0} s | {card}")
+    d = os.path.join(root, "celeba", "samples")
+    out, _ = run_main(celeba_sample.main, [
+        best, "--condition-on-attrs", "Smiling", "--out-dir", d,
+        "--data-dir", dirs["celeba"]])
+    check_images(out, 64)
+    with open(os.path.join(d, "sample_attrs.txt")) as f:
+        expect(len(f.read().splitlines()) == 64, "celeba sample_attrs.txt")
+    model, batch, eps = iwae_inputs("celeba", dev, dirs["celeba"])
+    profile_breakdown(
+        f"celeba IWAE f32 K={IWAE_K} B={BATCH} joint",
+        lambda: iwae_log_marginal(model, batch, [1.0, 1.0],
+                                  list(model.modalities), IWAE_K, eps=eps),
+        card, reps=2, wall_reps=3)
+    return dirs
+
+
+def phase_iwae_checks(dev, dirs):
+    """The IWAE estimate on the card against references, with one eps:
+    the kernel path against the plain versions (MNIST and CelebA at
+    K=100, B=100, IWAE_TOL), and the card against the CPU in f32 (MNIST
+    at K=100, B=100; CelebA at K=8, B=4: CARD_TOL)."""
+    for family in ("mnist", "celeba"):
+        model, batch, eps = iwae_inputs(family, dev, dirs[family])
+        names = list(model.modalities)
+        got = iwae_log_marginal(model, batch, [1.0, 1.0], names, IWAE_K,
+                                eps=eps)
+        with ops.plain_versions():
+            want = iwae_log_marginal(model, batch, [1.0, 1.0], names,
+                                     IWAE_K, eps=eps)
+        held(f"{family} IWAE f32 K={IWAE_K} B={BATCH} joint, kernels vs "
+             f"plain (mean {got.mean().item()})", got, want, **IWAE_TOL)
+        k, b = (IWAE_K, BATCH) if family == "mnist" else (8, 4)
+        cpu = copy.deepcopy(model).cpu()
+        want = iwae_log_marginal(cpu, {n: v[:b].cpu() for n, v in
+                                       batch.items()}, [1.0, 1.0], names, k,
+                                 eps=eps[:k, :b].cpu())
+        got = iwae_log_marginal(model, {n: v[:b] for n, v in batch.items()},
+                                [1.0, 1.0], names, k, eps=eps[:k, :b])
+        held(f"{family} IWAE f32 K={k} B={b} joint, card vs CPU", got, want,
+             **CARD_TOL)
 
 
 def loss_above_floor(per_term):
@@ -1199,9 +1536,9 @@ def lap(what):
     print(f"[time] {what}: {time.perf_counter() - _START} s since the start")
 
 
-def run(dev, card, peaks):
-    """Phases 2-7; returns the kernel rows of phase 2 and the launches of
-    phases 3-5 and 6b."""
+def run(dev, card, peaks, root):
+    """Phases 2-7 with their files under root; returns the kernel rows of
+    phase 2 and the launches of phases 3-5, 6b and 6c."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
@@ -1228,15 +1565,18 @@ def run(dev, card, peaks):
     # the kernels each path must have launched
     must = {"serve": ("poe_fwd",),
             "eval": ("poe_fwd", "bce_rowsum_fwd"),
-            "train": tuple(KERNELS), "cli": tuple(KERNELS)}
-    launches = {}
+            "train": tuple(KERNELS), "cli": tuple(KERNELS),
+            "families": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")}
+    launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
             ("eval", lambda: phase_eval(dev, card, models, data, idx)),
             ("train", lambda: phase_train(dev, card, data, trained)),
-            ("cli", lambda: phase_cli(dev, card))):
+            ("cli", lambda: phase_cli(dev, card, root)),
+            ("families", lambda: phase_families(dev, card, root,
+                                                out["cli"]))):
         ops.reset_launch_counts()
-        fn()
+        out[phase] = fn()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         print(f"[launches] {phase}: {counts}")
@@ -1247,6 +1587,7 @@ def run(dev, card, peaks):
             launches[k] = launches.get(k, 0) + v
     phase_eval_checks(dev, models, data, idx)
     phase_train_checks(dev, data, idx, trained)
+    phase_iwae_checks(dev, out["families"])
     lap("checks, the whole run")
     return rows, launches
 
@@ -1273,14 +1614,16 @@ def main():
     lap("start and build")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows, launches = run(dev, card, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        rows, launches = run(dev, card, peaks, root)
 
     line = [{"name": k, **KERNELS[k], "launches": launches[k],
              "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
              "back_to_back_ms": rows[k]["back_to_back_ms"],
              "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
              "bound_by": rows[k]["bound_by"],
-             "library_ms": rows[k]["library_ms"]} for k in KERNELS]
+             "library_ms": rows[k]["library_ms"],
+             "cases": rows[k].get("cases", [])} for k in KERNELS]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,10 +5,13 @@ of it, keeps its module layout and names, and holds each of its Pallas
 kernels as a CUDA kernel written by hand (`ops/`, `csrc/`). Entry points
 run on the CUDA card unless the caller passes `device="cpu"` (`device.py`).
 
-Ported so far: the CelebA model, the multi-term ELBO in eval and train mode
-(`train.loop.make_eval_step`; `make_train_step` and `make_multi_train_step`
-with Adam and the BN running-statistics commit), the serving endpoints
-(`serve.Sampler`) and the weight carry-across (`utils.weights`).
+Ported so far: the CelebA, MNIST and FashionMNIST families (`models/`),
+the multi-term ELBO in eval and train mode (`train.loop.make_eval_step`;
+`make_train_step` and `make_multi_train_step` with Adam and the BN
+running-statistics commit), the IWAE log-likelihood (`core.loglike`), the
+serving endpoints (`serve.Sampler`), the weight carry-across
+(`utils.weights`), and each family's train, sample and loglike CLIs
+(`python -m mvae_tpu_torch.experiments.<family>.<cli>`).
 """
 
 __version__ = "0.1.0"

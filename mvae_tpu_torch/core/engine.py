@@ -81,8 +81,9 @@ def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
     term_lambdas: (T, M) per-term, per-modality loss weights.
     train:        the model must be in the same mode. Train mode needs
                   noise = (eps (T, B, D) standard normal, keep_mask: the
-                  encoder dropout's, model.keep_mask_shape(B) bool), and
-                  commits the BN running statistics after the forward.
+                  encoder dropout's, model.keep_mask_shape(B) bool, or
+                  None for a model whose dropout_rate is 0), and commits
+                  the BN running statistics after the forward.
 
     Returns (total, aux) with aux = {"per_term": (T,), "mu", "logvar":
     the first term's posterior (B, D)}.
@@ -90,8 +91,10 @@ def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
     if train != model.training:
         raise ValueError(f"train={train} but the model is in "
                          f"{'train' if model.training else 'eval'} mode")
-    if train and (noise is None or any(n is None for n in noise)):
-        raise ValueError("train mode takes noise = (eps, keep_mask)")
+    if train and (noise is None or noise[0] is None
+                  or (model.dropout_rate and noise[1] is None)):
+        raise ValueError("train mode takes noise = (eps, keep_mask); the "
+                         "keep_mask may be None only without dropout")
     eps, keep_mask = noise if train else (None, None)
     mu, logvar, enc_moments = model.encode(inputs, keep_mask)   # (M, B, D)
     pd_mu, pd_logvar = masked_poe_all_terms(mu, logvar, term_masks)

@@ -24,6 +24,20 @@ def bce_row_sum(logits, targets):
     return bce_sum(logits, targets)
 
 
+def cross_entropy_with_logits(logits, labels, eps: float = 1e-6):
+    """k-class CE per row: -log_softmax(logits + eps)[label], with eps added
+    to the logits as the reference does (mnist/train.py:77-94; the JAX
+    package's core/losses.py:21-32), in the logits' dtype.
+
+    logits: (N, K); labels: (Nt,) int with N % Nt == 0: row r reads label
+    r mod Nt (the IWAE's K*B sample rows share the B labels), no copy."""
+    n, k = logits.shape
+    nt = labels.shape[0]
+    logp = torch.log_softmax(logits + eps, dim=-1).reshape(n // nt, nt, k)
+    idx = labels.long().view(1, nt, 1).expand(n // nt, nt, 1)
+    return -logp.gather(-1, idx).reshape(n)
+
+
 def kl_divergence(mu, logvar):
     """KL(q || N(0, I)) summed over the last axis:
     -0.5 * sum(1 + logvar - mu^2 - exp(logvar))  (mnist/train.py:56)."""

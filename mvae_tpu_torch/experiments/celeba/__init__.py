@@ -1,1 +1,1 @@
-"""CelebA: `python -m mvae_tpu_torch.experiments.celeba.train`."""
+"""CelebA CLIs of the port: train, sample, loglike."""

@@ -1,0 +1,1 @@
+"""FashionMNIST CLIs of the port: train, sample, loglike."""

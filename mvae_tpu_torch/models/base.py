@@ -15,8 +15,12 @@ Subclasses define:
         z: (N, D); recons: name -> (N, ...) logits; groups: sets of
         train-mode BN statistics over consecutive row blocks (the ELBO
         terms); moments: [nn.norm.Moments] of the decoders' BN calls
-    keep_mask_shape(batch) -> the shape of encode's keep_mask
-    dropout_rate: float                  the rate of that dropout
+    dropout_rate: float                  the rate of encode's dropout; 0
+                                         (the default) for a family
+                                         without one, which trains with
+                                         no keep-mask
+    keep_mask_shape(batch) -> the shape of encode's keep_mask (a family
+        with dropout)
     recon_loss(name, logits, target) -> (N,) per-sample loss summed over
         the event dims; target may hold fewer rows (N % Nt == 0, shared)
     input_spec() -> name -> (event_shape, dtype)
@@ -31,6 +35,7 @@ from mvae_tpu_torch.ops.poe import masked_poe_all_terms
 class MultimodalVAE(nn.Module):
     modalities: tuple = ()
     n_latents: int = 0
+    dropout_rate: float = 0.0
 
     @property
     def device(self) -> torch.device:

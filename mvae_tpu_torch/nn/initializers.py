@@ -3,7 +3,8 @@
 
 nn.Linear / nn.Conv2d / nn.ConvTranspose2d default to
 kaiming_uniform(a=sqrt(5)), which is U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-the weight and the same bound for the bias. Values are drawn on the CPU
+the weight and the same bound for the bias; nn.Embedding to N(0, 1).
+Values are drawn on the CPU
 and copied to the parameter's device, so one seed gives the same weights
 on every device.
 """
@@ -23,6 +24,16 @@ def uniform_(tensor, bound: float, generator: torch.Generator):
     (a CPU generator)."""
     draw = torch.empty(tensor.shape, dtype=torch.float32)
     draw.uniform_(-bound, bound, generator=generator)
+    tensor.copy_(draw)
+    return tensor
+
+
+@torch.no_grad()
+def normal_(tensor, generator: torch.Generator):
+    """Fill `tensor` in place with N(0, 1) drawn from `generator` (a CPU
+    generator)."""
+    draw = torch.empty(tensor.shape, dtype=torch.float32)
+    draw.normal_(generator=generator)
     tensor.copy_(draw)
     return tensor
 

@@ -1,4 +1,5 @@
-"""Core layers: linear, swish, dropout (counterpart of mvae_tpu/nn/layers.py).
+"""Core layers: linear, embedding, swish, dropout and the MLP helper
+(counterpart of mvae_tpu/nn/layers.py).
 
 Weights are stored f32 and cast to the input's dtype at use, so a bf16
 activation runs a bf16 matmul while the parameters stay f32 (the JAX
@@ -9,7 +10,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from mvae_tpu_torch.nn.initializers import kaiming_uniform_bound, uniform_
+from mvae_tpu_torch.nn.initializers import (
+    kaiming_uniform_bound, normal_, uniform_)
 
 
 def linear(x, weight, bias=None):
@@ -44,9 +46,39 @@ class Linear(nn.Module):
         return linear(x, self.weight, self.bias)
 
 
+class Embedding(nn.Module):
+    """Index lookup in a (num, dim) f32 table, torch's key `.weight`. The
+    JAX package's `one_hot @ table` (models/mnist.py:59-61) picks the same
+    values: a one-hot row times the table is one of its rows exactly, in
+    f32, and in bf16 with the table cast first (callers cast the rows)."""
+
+    def __init__(self, num: int, dim: int, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((num, dim), device=device))
+
+    def reset_parameters(self, generator):
+        normal_(self.weight, generator)
+
+    def forward(self, idx):
+        return F.embedding(idx.long(), self.weight)
+
+
 class Swish(nn.Module):
     def forward(self, x):
         return swish(x)
+
+
+def mlp(dims, *, final_activation: bool = False, device=None):
+    """Linear layers dims[0] -> ... -> dims[-1] with a Swish between them
+    (and after the last if final_activation), as one nn.Sequential whose
+    indices are the reference's: the i-th Linear sits at index 2i
+    (counterpart of mlp_init / mlp_apply, mvae_tpu/nn/layers.py:36-50)."""
+    layers = []
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        layers.append(Linear(a, b, device=device))
+        if i < len(dims) - 2 or final_activation:
+            layers.append(Swish())
+    return nn.Sequential(*layers)
 
 
 def dropout(x, keep_mask, rate: float):

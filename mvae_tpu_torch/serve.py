@@ -9,14 +9,23 @@
 Every endpoint is a deterministic function of (weights, inputs, seed).
 Request sizes are bucketed to the next power of two (pad, then slice), as
 in the JAX package, so a traffic mix sees a few fixed batch shapes.
-Outputs are activated: sigmoid of the logits, images NHWC.
+Outputs are activated as in the JAX package (serve.py:113-118): a softmax
+over the classes of a "text" modality of rank 2 or more, a sigmoid of the
+logits otherwise; images NHWC.
 """
 
 import torch
 
 from mvae_tpu_torch.device import resolve_device
-from mvae_tpu_torch.models.celeba import CelebaMVAE
-from mvae_tpu_torch.utils.weights import load_reference_checkpoint
+from mvae_tpu_torch.models import model_ctor
+from mvae_tpu_torch.utils.weights import (
+    checkpoint_family, load_reference_checkpoint)
+
+
+def activate(recons):
+    """Decoder logits -> the endpoints' outputs."""
+    return {k: (torch.softmax(v, dim=-1) if k == "text" and v.ndim >= 2
+                else torch.sigmoid(v)) for k, v in recons.items()}
 
 
 def _bucket(n: int) -> int:
@@ -46,11 +55,15 @@ class Sampler:
 
     @classmethod
     def from_checkpoint(cls, path, *, device=None, compute_dtype=None):
-        """Serve a reference-layout CelebA `.pth.tar` (what the JAX
-        package's utils/torch_export.py:export_checkpoint writes)."""
+        """Serve a reference-layout `.pth.tar` of a ported family: the
+        port's own checkpoints, which name it, and those of the JAX
+        package's utils/torch_export.py:export_checkpoint or the
+        reference, whose keys tell it (utils/weights.py:
+        checkpoint_family)."""
         device = resolve_device(device)
         sd, meta = load_reference_checkpoint(path, device=device)
-        model = CelebaMVAE(meta["n_latents"], compute_dtype, device=device)
+        model = model_ctor(checkpoint_family(sd, meta))(
+            meta["n_latents"], compute_dtype, device=device)
         model.load_state_dict(sd, strict=True)
         return cls(model, device=device)
 
@@ -62,7 +75,7 @@ class Sampler:
         """Activated decode of latents z (N, D): the tail of both sampling
         paths."""
         recons, _ = self.model.decode(self._tensor(z))
-        return {k: torch.sigmoid(v) for k, v in recons.items()}
+        return activate(recons)
 
     def warmup(self, buckets=(1, 64)):
         """Run every endpoint once per batch bucket on zero inputs, each

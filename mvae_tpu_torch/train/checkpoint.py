@@ -6,13 +6,14 @@ The file is `torch.save` of
 
     {"state_dict": the model's reference-layout state_dict,
      "best_loss", "n_latents", "optimizer": the optimizer's state_dict,
-     "epoch", "generator": the noise generator's state, "model": "celeba",
-     "test_loss"}
+     "epoch", "generator": the noise generator's state, "model": the
+     family ("mnist", "fashionmnist", "celeba"), "test_loss"}
 
 written atomically to `checkpoint.pth.tar` and copied to
 `model_best.pth.tar` when the test loss improves. It holds everything a
 bitwise resume needs and loads with `torch.load(weights_only=True)`, so
-Sampler.from_checkpoint serves it and the JAX package reads it through
+Sampler.from_checkpoint serves it, train/driver.py:load_model_checkpoint
+rebuilds its model, and the JAX package reads it through
 mvae_tpu/utils/torch_import.py as it reads the reference's own files.
 """
 

@@ -20,6 +20,9 @@ continues bit for bit where the first stopped.
 
 Not ported yet: the mesh, multi-process feeding, tensor parallelism and
 host streaming (--no-device-data); utils/cli.py refuses their flags.
+
+`load_model_checkpoint` rebuilds a model from a `.pth.tar`: the entry of
+the sample and loglike CLIs.
 """
 
 import time
@@ -33,6 +36,7 @@ from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.train import loop as L
 from mvae_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from mvae_tpu_torch.utils.profiling import maybe_trace
+from mvae_tpu_torch.utils.weights import load_reference_checkpoint
 
 
 def to_device_data(ds, device):
@@ -102,10 +106,14 @@ def evaluate(eval_step, data, n: int, batch_size: int) -> float:
 
 
 def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
-                 *, out_dir, meta, device=None):
+                 *, out_dir, meta, eval_term_lambdas=None, device=None):
     """Train `model` (already on `device`: None is the CUDA card, raises
-    without one) for epochs start .. args.epochs; meta: {"model",
-    "n_latents"}, written into every checkpoint. Returns the model."""
+    without one) for epochs start .. args.epochs; meta: {"model": the
+    family, "n_latents"}, written into every checkpoint.
+    eval_term_lambdas: the per-epoch eval's weights, where they differ
+    from training's (the MNIST families evaluate with 1s, as the
+    reference's test() calls its ELBO without weights; driver.py:38-40,
+    190-191). Returns the model."""
     device = resolve_device(device)
     seed = args.seed
     generator = noise_generator(seed, device)
@@ -129,8 +137,10 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
             print(f"warm-started from {args.resume} (params only; "
                   f"fresh optimizer)")
 
-    eval_step = L.make_eval_step(model, term_masks, term_lambdas,
-                                 device=device, device_data=True)
+    eval_step = L.make_eval_step(
+        model, term_masks,
+        term_lambdas if eval_term_lambdas is None else eval_term_lambdas,
+        device=device, device_data=True)
     train_dev = to_device_data(train_ds, device)
     test_dev = to_device_data(test_ds, device)
     B, K = args.batch_size, max(1, args.log_interval)
@@ -177,3 +187,16 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
                              test_loss=float(test_loss)),
                         is_best, out_dir)
     return model
+
+
+def load_model_checkpoint(path, model_ctor, *, device=None):
+    """Rebuild (model, meta) from a `.pth.tar`, the port's own or a
+    reference-layout file (driver.py:411-419): model_ctor(meta["n_latents"])
+    in f32, as the JAX package builds it, on `device` (None: the CUDA card,
+    raises without one), in eval mode, the file's weights loaded with
+    strict=True, so a file of another family is refused."""
+    device = resolve_device(device)
+    sd, meta = load_reference_checkpoint(path, device=device)
+    model = model_ctor(meta["n_latents"], device=device)
+    model.load_state_dict(sd, strict=True)
+    return model, meta

@@ -74,10 +74,13 @@ def draw_noise(model, n_terms: int, batch: int, generator):
     """The train step's noise from `generator` (a torch.Generator on the
     model's device): eps (T, B, D) standard normal for the reparametrization
     and the encoder dropout's keep-mask, Bernoulli(1 - rate) as
-    `jax.random.bernoulli` draws it (uniform < keep)."""
+    `jax.random.bernoulli` draws it (uniform < keep); a model without
+    dropout gets None and no draw."""
     dev = model.device
     eps = torch.randn((n_terms, batch, model.n_latents), generator=generator,
                       device=dev)
+    if not model.dropout_rate:
+        return eps, None
     keep = 1.0 - model.dropout_rate
     u = torch.rand(model.keep_mask_shape(batch), generator=generator,
                    device=dev)
@@ -135,7 +138,7 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
     data: name -> the whole dataset on the device (uint8 images); each
     step gathers its rows with index_select and decodes them in the
     model's decode dtype. noise: optional (eps (K, T, B, D), keep_mask
-    (K, B, H)) in place of the generator's draws.
+    (K, B, H) or None without dropout) in place of the generator's draws.
 
     The K steps run as K eager steps; capturing the window as one CUDA
     graph is a later speed item.
@@ -147,7 +150,8 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
     def multi_step(data, idxs, betas, noise=None):
         losses = []
         for k in range(idxs.shape[0]):
-            nk = None if noise is None else (noise[0][k], noise[1][k])
+            nk = None if noise is None else (
+                noise[0][k], None if noise[1] is None else noise[1][k])
             losses.append(step((data, idxs[k]), betas[k], nk)[0])
         return torch.stack(losses)
 

@@ -1,5 +1,5 @@
-"""The train CLI's argument parser (counterpart of mvae_tpu/utils/cli.py:
-7-65): the reference's flag surface with the JAX package's defaults, without
+"""The CLIs' argument parsers (counterpart of mvae_tpu/utils/cli.py:7-78):
+the reference's flag surface with the JAX package's defaults, without
 --cuda (the port runs on the card unless --device says otherwise) and
 --exact-decode (it decodes real images with PIL, the exact path, always),
 plus --device.
@@ -14,6 +14,14 @@ import argparse
 
 NOT_PORTED = ("no_device_data", "distributed", "coordinator", "process_id",
               "n_processes")
+
+
+def device_flag(p):
+    """--device, on every CLI of the port."""
+    p.add_argument('--device', type=str, default=None,
+                   help='torch device to run on [default: the CUDA card; '
+                        'raises without one]; "cpu" runs the plain PyTorch '
+                        'versions of the kernels')
 
 
 def train_parser(*, n_latents, epochs, annealing_epochs, lr, batch_size=100,
@@ -31,10 +39,7 @@ def train_parser(*, n_latents, epochs, annealing_epochs, lr, batch_size=100,
                    help='steps per logging window (one loss readback)')
     for name, default in lambda_flags:
         p.add_argument(f'--{name}', type=float, default=default)
-    p.add_argument('--device', type=str, default=None,
-                   help='torch device to train on [default: the CUDA card; '
-                        'raises without one]; "cpu" runs the plain PyTorch '
-                        'versions of the kernels')
+    device_flag(p)
     p.add_argument('--data-dir', type=str, default='./data')
     p.add_argument('--out-dir', type=str, default='./trained_models')
     p.add_argument('--resume', type=str, default=None,
@@ -77,3 +82,18 @@ def parse_train_args(parser, argv=None):
                          "the port trains on one device, with the dataset "
                          "resident on it")
     return args
+
+
+def sample_parser(**extra_flags):
+    """The sample CLIs' parser (mvae_tpu/utils/cli.py:68-78) with --device;
+    extra_flags: name -> add_argument keywords (the conditioning flags)."""
+    p = argparse.ArgumentParser()
+    p.add_argument('model_path', type=str, help='path to trained model file')
+    p.add_argument('--n-samples', type=int, default=64)
+    device_flag(p)
+    p.add_argument('--data-dir', type=str, default='./data')
+    p.add_argument('--out-dir', type=str, default='.')
+    p.add_argument('--seed', type=int, default=0)
+    for name, kw in extra_flags.items():
+        p.add_argument(f'--{name.replace("_", "-")}', **kw)
+    return p

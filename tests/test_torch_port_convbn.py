@@ -253,7 +253,7 @@ def test_train_step_fused_route_commits_like_jax(fused_step):
     the encoder's three conv BNs were committed from the fused moments."""
     (_, _, _, new_state), _, pm, params, _ = fused_step
     want = state_dict_from_jax(
-        params, jax.tree_util.tree_map(np.asarray, new_state))
+        "celeba", params, jax.tree_util.tree_map(np.asarray, new_state))
     sd = pm.state_dict()
     keys = [k for k in sd if k.endswith(("running_mean", "running_var"))]
     assert len(keys) == 22
@@ -284,7 +284,7 @@ def bf16_fused_readings():
                          conv_moments=fused)
         _port_elbo(pm, batch, noise, torch.bfloat16)
         ports[fused] = pm.state_dict()
-    return state_dict_from_jax(params, jax.tree_util.tree_map(
+    return state_dict_from_jax("celeba", params, jax.tree_util.tree_map(
         np.asarray, want[3])), ports
 
 

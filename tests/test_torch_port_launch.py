@@ -266,7 +266,10 @@ def test_bn_bwd_partials_unaligned_tensors_load_by_element(op):
 # logits; train: bf16) and attribute rows, then K off the chunk and off
 # the row split, K = 1, N = 1, rows of 33 chunks (just wide), 32 (just
 # narrow) and 1000, rows long enough for a cluster (of 8 at most), an odd
-# K over a cluster, narrow rows of 9 chunks
+# K over a cluster, narrow rows of 9 chunks; then the MNIST families' 784
+# pixels: MNIST's step (f32 logits and targets), FashionMNIST's train step
+# (bf16 both) and eval step (f32 logits, bf16 targets), and the IWAE's
+# K * B = 100 * 100 sample rows
 BCE_SHAPES = [(300, 12288, "f32", "bf16"), (300, 12288, "bf16", "bf16"),
               (300, 12288, "f32", "f32"), (300, 18, "f32", "f32"),
               (8, 12290, "bf16", "f32"), (300, 12296, "f32", "bf16"),
@@ -275,6 +278,9 @@ BCE_SHAPES = [(300, 12288, "f32", "bf16"), (300, 12288, "bf16", "bf16"),
               (3, 1000, "bf16", "f32"), (2, 1 << 18, "f32", "f32"),
               (4, 24576, "bf16", "bf16"), (6, 8193, "f32", "bf16"),
               (300, 36, "f32", "f32")]
+BCE_784 = [(300, 784, "f32", "f32"), (300, 784, "bf16", "bf16"),
+           (300, 784, "f32", "bf16"), (10000, 784, "f32", "f32")]
+BCE_SHAPES += BCE_784
 _SIZE = {"f32": 4, "bf16": 2}
 
 
@@ -352,6 +358,34 @@ def test_bce_attribute_rows_take_the_narrow_mapping():
     per_block = elbo.BCE_THREADS // 32
     assert lay["threads"] // lay["lanes"] == per_block > 1
     assert lay["grid"] == (-(-300 // per_block), 1)
+
+
+@pytest.mark.parametrize("shape", BCE_784)
+def test_bce_784_rows_take_one_plain_block_a_row(shape):
+    """A 784-pixel row: one plain block a row (no cluster), 16-byte chunks
+    of the narrower type, and threads enough that each loads its chunks
+    in one trip of BCE_UNROLL."""
+    lay = _bce(shape)
+    vec = 16 // min(_SIZE[shape[2]], _SIZE[shape[3]])
+    assert lay["vec"] == vec and lay["splits"] == 1
+    assert lay["grid"] == (shape[0], 1)
+    assert lay["lanes"] == lay["threads"] < elbo.BCE_THREADS
+    assert 784 // vec <= lay["threads"] * elbo.BCE_UNROLL < 2 * 784 // vec
+
+
+@pytest.mark.parametrize("n,nt", [(10000, 100), (300, 100), (12, 4)])
+def test_bce_shared_target_rows_are_read_by_each_group(n, nt):
+    """Logit row r reads target row r mod Nt (csrc/bce_rowsum.cu:83): over
+    the geometry's loads, every chunk of every target row is read once by
+    each of the N / Nt groups of rows (the IWAE's K samples, the ELBO's T
+    terms), and a row's loads read one target row."""
+    lay = elbo.bce_launch(n, 784, 4, 4, True)
+    chunks = 784 // lay["vec"]
+    rows, found = _bce_chunks_of_threads(lay, n, 784)
+    target = rows % nt
+    cover = np.bincount(target * chunks + found, minlength=nt * chunks)
+    assert (cover == n // nt).all()
+    assert (np.bincount(rows, minlength=n) == chunks).all()
 
 
 @pytest.mark.parametrize("shape,aligned", [

@@ -63,7 +63,7 @@ def port_celeba(params, state, n_latents=L, compute_dtype=None,
     model = CelebaMVAE(n_latents, compute_dtype, conv_moments=conv_moments,
                        device="cpu")
     sd = {k: torch.tensor(v)
-          for k, v in state_dict_from_jax(params, state).items()}
+          for k, v in state_dict_from_jax("celeba", params, state).items()}
     model.load_state_dict(sd, strict=True)
     return model
 

@@ -15,8 +15,10 @@ import torch
 import mvae_tpu_torch
 import mvae_tpu_torch.experiments.celeba.train as celeba_cli
 from mvae_tpu_torch.core.engine import multi_term_elbo
+from mvae_tpu_torch.models import FashionMnistMVAE, MnistMVAE
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.serve import Sampler
+from mvae_tpu_torch.train.driver import load_model_checkpoint
 from mvae_tpu_torch.train.loop import (
     make_eval_step, make_multi_train_step, make_train_step)
 from mvae_tpu_torch.utils.weights import load_reference_checkpoint
@@ -48,13 +50,22 @@ def test_import_pulls_in_no_jax_and_no_mvae_tpu():
     assert res.returncode == 0, res.stderr
 
 
+# every CLI of the port: python -m mvae_tpu_torch.experiments.<family>.<cli>
+CLIS = ["experiments.celeba.train", "experiments.celeba.sample",
+        "experiments.celeba.loglike"] + [
+    f"experiments.{family}.{cli}" for family in ("mnist", "fashionmnist")
+    for cli in ("train", "sample", "loglike")]
+
+
 def test_import_rule_covers_the_trainer():
-    """The walk above reaches the data loaders, the driver, the checkpoint
-    code and the CLI."""
+    """The walk above reaches the data loaders, the models, the driver, the
+    checkpoint code, the IWAE, the PNG writer and every CLI."""
     mods = set(_all_modules())
-    for name in ("data.pipeline", "data.celeba", "train.driver",
-                 "train.checkpoint", "utils.cli", "utils.profiling",
-                 "experiments.celeba.train", "ops.convbn"):
+    for name in ["data.pipeline", "data.celeba", "data.mnist",
+                 "models.mnist", "models.fashionmnist", "core.loglike",
+                 "train.driver", "train.checkpoint", "train.loglike_cli",
+                 "utils.cli", "utils.png", "utils.profiling",
+                 "ops.convbn"] + CLIS:
         assert f"mvae_tpu_torch.{name}" in mods, name
 
 
@@ -70,8 +81,9 @@ def test_sources_name_no_jax_and_no_mvae_tpu_module():
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
         monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        CelebaMVAE(8)
+    for cls in (CelebaMVAE, MnistMVAE, FashionMnistMVAE):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(8)
     model = CelebaMVAE(8, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_eval_step(model, MASKS, LAMBDAS)
@@ -87,6 +99,45 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Sampler.from_checkpoint(path)
     assert Sampler.from_checkpoint(path, device="cpu").model.n_latents == 8
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model_checkpoint(path, CelebaMVAE)
+    assert load_model_checkpoint(path, CelebaMVAE, device="cpu")[
+        0].n_latents == 8
+
+
+@pytest.mark.parametrize("cli", [c for c in CLIS if not c.endswith("train")])
+def test_sample_and_loglike_clis_raise_without_cuda(monkeypatch, tmp_path,
+                                                    cli):
+    """The sample and loglike CLIs run on the card unless --device cpu:
+    without one they raise before they read the checkpoint."""
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
+                        torch.backends.cudnn.allow_tf32)
+    main = importlib.import_module(f"mvae_tpu_torch.{cli}").main
+    missing = str(tmp_path / "missing.pth.tar")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([missing, "--data-dir", str(tmp_path)])
+    with pytest.raises(FileNotFoundError):
+        main([missing, "--device", "cpu", "--data-dir", str(tmp_path)])
+
+
+def test_cpu_resolution_sets_up_the_vector_math_on_one_thread(monkeypatch):
+    """Resolving to the CPU runs warm_cpu_math once: one exp on one
+    intra-op thread, the thread count restored after, so a process's first
+    multithreaded exp does not meet MKL's first-call race."""
+    from mvae_tpu_torch import device as dev
+    seen = []
+    real_exp = torch.exp
+    monkeypatch.setattr(torch, "exp", lambda x: seen.append(
+        torch.get_num_threads()) or real_exp(x))
+    threads = torch.get_num_threads()
+    dev.warm_cpu_math.__wrapped__()
+    assert seen == [1] and torch.get_num_threads() == threads
+    dev.warm_cpu_math.cache_clear()
+    assert dev.resolve_device("cpu") == torch.device("cpu")
+    assert dev.resolve_device("cpu") == torch.device("cpu")
+    assert seen == [1, 1] and dev.warm_cpu_math.cache_info().hits == 1
 
 
 def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,

@@ -28,7 +28,7 @@ def jax_model():
 def test_state_dict_from_jax_is_the_exporter_bit_for_bit(jax_model):
     _, params, state = jax_model
     want = export_state_dict("celeba", params, state)
-    got = state_dict_from_jax(params, state)
+    got = state_dict_from_jax("celeba", params, state)
     assert list(got) == list(want)
     for k in want:
         assert got[k].dtype == want[k].dtype, k
@@ -38,7 +38,7 @@ def test_state_dict_from_jax_is_the_exporter_bit_for_bit(jax_model):
 def test_state_dict_loads_strict_into_the_port(jax_model):
     _, params, state = jax_model
     model = CelebaMVAE(L, device="cpu")
-    sd = state_dict_from_jax(params, state)
+    sd = state_dict_from_jax("celeba", params, state)
     model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()},
                           strict=True)
     assert set(model.state_dict()) == set(sd)
