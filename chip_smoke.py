@@ -3,10 +3,10 @@
 NVIDIA GPU: builds the CUDA kernels from `mvae_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the serving
 endpoints, the eval-mode ELBO, the training step and the training CLI of
-the shipped CelebA model at full width, then the MNIST and FashionMNIST
-families end to end (train, sample and loglike CLIs, serving) and the
-CelebA sample and loglike CLIs, and shows that those paths went through
-the kernels.
+the shipped CelebA model at full width, then the MNIST, FashionMNIST,
+MultiMNIST and CelebA-19 families end to end (train, sample and loglike
+CLIs, serving) and the CelebA sample and loglike CLIs, and shows that those
+paths went through the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -18,7 +18,12 @@ Phases (any failure exits non-zero; nothing is caught):
      BN'd convs, bf16 and f32 (per-step sums too); the MNIST families'
      shapes: the PoE at D=64 (T=1 and T=3, B=100), the BCE's 784-pixel
      rows with each family's dtypes and the IWAE's 100*100 sample rows
-     against 100 shared target rows; every kernel launched
+     against 100 shared target rows; the MultiMNIST and celeba19
+     shapes: the PoE at the expert cap 32 (T=21 and T=1, M=19), the
+     BCE's 2500-wide rows (bf16: element loads), celeba19's (2100, 12288)
+     train rows in the f32 math and the bf16 math, its eval and IWAE rows,
+     the four BN passes at MultiMNIST's planes (S = 144, 36, 4, 625) and
+     celeba19's decoder at G=21; every kernel launched
      twice gives bit-identical results. Each kernel is timed two ways:
      device_ms (one launch between events, the L2 flushed before it:
      carries the measuring floor of the `[kernel] floor` line) and
@@ -48,6 +53,20 @@ Phases (any failure exits non-zero; nothing is caught):
      turns against the plain versions; profile lines of a train step and
      of an IWAE batch (K=100, B=100). Then the CelebA loglike CLI (K=100,
      500 rows) and sample CLI (--condition-on-attrs) from 6b's checkpoint
+  6d. MultiMNIST: shards of 2000 / 500 rows from the synthetic digits;
+     the train CLI with its defaults (bf16, L=64, B=100) for 2 epochs,
+     --resume for a third; the sample CLI from the prior and conditioned
+     on a digit string, an image of it and both; the loglike CLI at K=100
+     for image, text and joint; Sampler.from_checkpoint at every endpoint;
+     the bf16 train step in turns against the plain versions; profile
+     lines of a step and of an IWAE batch
+  6e. celeba19 on 6b's synthetic CelebA set: the train CLI in bf16 at
+     --approx-m 1 (T=21; the image BCE's bf16 math) for 2 epochs on the
+     fused route, --resume for a third, one more with --fast-term-decode;
+     the sample CLI (prior, --condition-on-attrs Smiling); the joint
+     loglike CLI at K=100; Sampler.from_checkpoint; the train step in
+     turns against the plain versions, reference-exact and fast; profile
+     lines of both steps and of an IWAE batch
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -55,11 +74,15 @@ Phases (any failure exits non-zero; nothing is caught):
      CPU (TF32 off) on one step with the same noise; the loss of the last
      window below the first's; running statistics finite and moved;
      the IWAE estimate, kernel path vs plain versions (MNIST, CelebA,
-     K=100, B=100) and f32 card vs CPU
-  8. the kernels line: launches on phases 3-5, 6b and 6c, error, times,
-     bounds, and each timed case of the PoE and the BCE
-Phases 3-5 and 6c end with a torch.profiler breakdown of device time per
-call.
+     K=100, B=100) and f32 card vs CPU; for MultiMNIST and celeba19 one
+     train step, kernel path vs plain versions (loss above its floor,
+     every gradient) in bf16 and f32 (celeba19 in bf16 with the BCE's bf16
+     math and its f32 math), and f32 card vs CPU
+  8. the kernels line: launches on phases 3-5 and 6b-6e, error, times,
+     bounds, and each timed case of the PoE, the BCE and the families'
+     BN layers
+Phases 3-5 and 6c-6e end with a torch.profiler breakdown of device time
+per call.
 Weights are random from seed 0, the BN statistics and affine parameters
 too. The last line is {"ok": true, "device": {...}}.
 
@@ -97,9 +120,19 @@ from mvae_tpu_torch.experiments.celeba import train as celeba_cli
 from mvae_tpu_torch.experiments.fashionmnist import (
     loglike as fashion_loglike, sample as fashion_sample,
     train as fashion_train)
+from mvae_tpu_torch.experiments.celeba19 import (
+    loglike as c19_loglike, sample as c19_sample, train as c19_train)
 from mvae_tpu_torch.experiments.mnist import (
     loglike as mnist_loglike, sample as mnist_sample, train as mnist_train)
-from mvae_tpu_torch.models import FashionMnistMVAE, MnistMVAE
+from mvae_tpu_torch.experiments.multimnist import (
+    loglike as mm_loglike, sample as mm_sample, train as mm_train)
+from mvae_tpu_torch.core.engine import fast_decode_terms
+from mvae_tpu_torch.core.subsets import (
+    celeba19_recon_support, celeba19_step_terms)
+from mvae_tpu_torch.data.multimnist import load_multimnist, make_dataset
+from mvae_tpu_torch.data.text import decode_tokens
+from mvae_tpu_torch.models import (
+    Celeba19MVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE)
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
@@ -135,6 +168,10 @@ CARD_TOL = dict(rtol=1e-4, atol=1e-5)
 BN_SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 BN_OUT_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
               torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# bn_dx's dscale and dbias add the groups' (C,) terms in another order than
+# torch.sum; at celeba19's G = 21 the terms cancel, so they are held to the
+# bound of a reordered f32 sum: this times the terms' summed magnitudes
+GROUP_SUM_RTOL = 1e-5
 # one train step, kernel path vs plain versions: the loss above its ln 2
 # floor as in the eval checks; each parameter's gradient in relative
 # Frobenius norm: f32 at 1e-4 (the port vs JAX read 5.5e-6 on the CPU);
@@ -208,6 +245,22 @@ BN_LAYERS = (
     ("image dec convT2", 1, 3, 100, 64, 256, torch.bfloat16),
     ("image dec convT3", 1, 3, 100, 32, 1024, torch.bfloat16),
     ("attrs dec BN1d", 3, 3, 100, 512, 1, torch.float32),
+)
+# the BN layers of the MultiMNIST and celeba19 bf16 train steps at
+# B=100 that CelebA's do not cover: MultiMNIST's planes of S = 144, 36, 4
+# (encoder) and 36, 144, 625 (decoder, G = 3), whose bf16 S but 144 holds
+# no whole 16-byte chunk, and celeba19's decoder at G = 21 terms (its
+# encoder's are CelebA's); timed, apart from CelebA's per-step sums
+FAMILY_BN_LAYERS = (
+    ("multimnist enc conv2", 1, 1, 100, 64, 144, torch.bfloat16),
+    ("multimnist enc conv3", 1, 1, 100, 128, 36, torch.bfloat16),
+    ("multimnist enc conv4", 1, 1, 100, 256, 4, torch.bfloat16),
+    ("multimnist dec convT1", 1, 3, 100, 128, 36, torch.bfloat16),
+    ("multimnist dec convT2", 1, 3, 100, 64, 144, torch.bfloat16),
+    ("multimnist dec convT3", 1, 3, 100, 32, 625, torch.bfloat16),
+    ("celeba19 dec convT1", 1, 21, 100, 128, 64, torch.bfloat16),
+    ("celeba19 dec convT2", 1, 21, 100, 64, 256, torch.bfloat16),
+    ("celeba19 dec convT3", 1, 21, 100, 32, 1024, torch.bfloat16),
 )
 BN_MAIN_LAYER = "image dec convT3"      # the largest launch
 ENC_CONV_BN = ("image enc conv2", "image enc conv3", "image enc conv4")
@@ -378,15 +431,23 @@ def phase_kernels(dev, card, peaks, flush):
     # the MNIST families' cases (D = 64: the IWAE's proposal and infer at
     # T = 1, the train step at T = 3) draw from their own generator too
     g_fam = torch.Generator(device=dev).manual_seed(8)
-    m = 2
-    for t, b, d, gen in ((1, 1, 100, g), (1, 64, 100, g), (3, 100, 100, g),
-                         (1, 100, 64, g_fam), (3, 100, 64, g_fam)):
+    # celeba19's: a step's 21 terms and infer's / the IWAE
+    # proposal's one row over its 19 experts, at the expert cap 32
+    g_19 = torch.Generator(device=dev).manual_seed(9)
+    step19 = celeba19_step_terms(np.random.default_rng(0), 1, 18, 1.0,
+                                 10.0)[0].tolist()
+    for t, m, b, d, gen, rows_ in (
+            (1, 2, 1, 100, g, None), (1, 2, 64, 100, g, None),
+            (3, 2, 100, 100, g, None), (1, 2, 100, 64, g_fam, None),
+            (3, 2, 100, 64, g_fam, None), (21, 19, 100, 100, g_19, step19),
+            (1, 19, 100, 100, g_19, [[1.0] * 19])):
         mu = torch.randn((m, b, d), generator=gen, device=dev)
         lv = torch.randn((m, b, d), generator=gen, device=dev)
-        masks = torch.tensor(MASKS[:t] if t == 3 else [[1.0, 1.0]],
-                             device=dev)
+        if rows_ is None:
+            rows_ = MASKS[:t] if t == 3 else [[1.0, 1.0]]
+        masks = torch.tensor(rows_, device=dev)
         g_mu, g_lv = torch.randn((2, t, b, d), device=dev, generator=(
-            g_up if gen is g else g_fam))
+            g_up if gen is g else gen))
         c, case = b * d, f"T={t} M={m} B={b} D={d}"
         # (name, kernel, plain version, inputs, bytes, operations)
         for name, kern, plain, args, nbytes, nops in (
@@ -415,44 +476,68 @@ def phase_kernels(dev, card, peaks, flush):
     # FashionMNIST's bf16 train step (bf16 both) and eval step (f32 logits,
     # bf16 targets), and the IWAE's K * B = 100 * 100 sample rows against
     # the B target rows (f32, the loglike CLI's)
+    # MultiMNIST's 2500 pixels (the bf16 train step, element loads;
+    # the eval step; the IWAE's sample rows), celeba19's train step (2100
+    # rows against 100 targets) in the f32 math and the bf16 math, its
+    # joint eval and its IWAE's image rows; their own generator
+    g_new = torch.Generator(device=dev).manual_seed(10)
     bce_main = {}
-    for n, nt, k, xdt, tdt, main in ((300, 300, 12288, f32, f32, False),
-                                     (300, 300, 12288, f32, bf16, False),
-                                     (300, 100, 12288, f32, bf16, "eval"),
-                                     (300, 100, 12288, bf16, bf16, "train"),
-                                     (300, 300, 18, f32, f32, False),
-                                     (300, 100, 18, f32, f32, False),
-                                     (300, 100, 784, f32, f32, False),
-                                     (300, 100, 784, bf16, bf16, False),
-                                     (300, 100, 784, f32, bf16, False),
-                                     (10000, 100, 784, f32, f32, False)):
-        gen = g if k != 784 else g_fam
+    for i, (n, nt, k, xdt, tdt, main, bf) in enumerate((
+            (300, 300, 12288, f32, f32, False, False),
+            (300, 300, 12288, f32, bf16, False, False),
+            (300, 100, 12288, f32, bf16, "eval", False),
+            (300, 100, 12288, bf16, bf16, "train", False),
+            (300, 300, 18, f32, f32, False, False),
+            (300, 100, 18, f32, f32, False, False),
+            (300, 100, 784, f32, f32, False, False),
+            (300, 100, 784, bf16, bf16, False, False),
+            (300, 100, 784, f32, bf16, False, False),
+            (10000, 100, 784, f32, f32, False, False),
+            (300, 100, 2500, bf16, bf16, False, False),
+            (300, 100, 2500, f32, bf16, False, False),
+            (10000, 100, 2500, f32, f32, False, False),
+            (2100, 100, 12288, bf16, bf16, "c19 f32 math", False),
+            (2100, 100, 12288, bf16, bf16, "c19 bf16 math", True),
+            (100, 100, 12288, f32, bf16, False, False),
+            (10000, 100, 12288, f32, f32, False, False))):
+        gen = g_new if i >= 10 else (g if k != 784 else g_fam)
+        if main in ("c19 f32 math", "c19 bf16 math"):   # the same inputs
+            gen = torch.Generator(device=dev).manual_seed(11)
         x = (3 * torch.randn((n, k), generator=gen, device=dev)).to(xdt)
         tt = torch.rand((nt, k), generator=gen, device=dev).to(tdt)
-        got = ops.bce_rowsum_fwd(x, tt)
-        want = bce_rowsum_plain(x, tt)
-        expect(torch.equal(got, ops.bce_rowsum_fwd(x, tt)),
-               f"bce_rowsum_fwd ({n},{k}): two launches differ")
+        got = ops.bce_rowsum_fwd(x, tt, bf)
+        want = bce_rowsum_plain(x, tt, bf)
+        expect(torch.equal(got, ops.bce_rowsum_fwd(x, tt, bf)),
+               f"bce_rowsum_fwd ({n},{k}) bf16_math={bf}: two launches "
+               f"differ")
         case = (f"logits ({n},{k}) {str(xdt).split('.')[-1]}, targets "
-                f"({nt},{k}) {str(tdt).split('.')[-1]}")
+                f"({nt},{k}) {str(tdt).split('.')[-1]}"
+                + (", bf16 math" if bf else ""))
         # the library call takes one dtype: bf16 logits and targets are
-        # upcast to f32 beforehand (twice their bytes); the nt target rows
-        # broadcast over the n // nt terms, as the kernel reads them
+        # upcast to f32 beforehand (twice their bytes), but for the bf16
+        # math, which it computes in bf16; the nt target rows broadcast
+        # over the n // nt terms, as the kernel reads them
         r = n // nt
-        x3, t3 = x.float().view(r, nt, k), tt.float().expand(r, nt, k)
+        x3, t3 = x.view(r, nt, k), tt.to(x.dtype).expand(r, nt, k)
+        if not bf:
+            x3, t3 = x3.float(), t3.float()
         line = report(
             "bce_rowsum_fwd", case, got, want, BCE_TOL,
-            device_ms(lambda: ops.bce_rowsum_fwd(x, tt), flush),
-            back_to_back_ms(ops.bce_rowsum_fwd, (x, tt), flush),
-            device_ms(lambda: bce_rowsum_plain(x, tt), flush),
+            device_ms(lambda: ops.bce_rowsum_fwd(x, tt, bf), flush),
+            back_to_back_ms(ops.bce_rowsum_fwd, (x, tt, bf), flush),
+            device_ms(lambda: bce_rowsum_plain(x, tt, bf), flush),
             device_ms(lambda: F.binary_cross_entropy_with_logits(
                 x3, t3, reduction="none").sum(-1), flush),
             n * k * x.element_size() + nt * k * tt.element_size() + n * 4,
             9 * n * k, main == "eval")
         if main:
             bce_main[main] = line
+        del x, tt, x3, t3
     print(f"[kernel] bce_rowsum_fwd main cases: eval step {bce_main['eval']}"
           f"; train step {bce_main['train']} | {card}")
+    print(f"[kernel] bce_rowsum_fwd celeba19 train step, (2100, 12288) bf16: "
+          f"f32 math {bce_main['c19 f32 math']}; bf16 math "
+          f"{bce_main['c19 bf16 math']} | {card}")
     return rows
 
 
@@ -471,7 +556,8 @@ def phase_bn_kernels(dev, card, peaks, flush):
                 for route in ("fused", "unfused")}
     cases = [layer + (True,) for layer in BN_LAYERS] + [
         (name + " (f32)", n, gg, nn, c, sp, torch.float32, False)
-        for name, n, gg, nn, c, sp, dt in BN_LAYERS if dt == torch.bfloat16]
+        for name, n, gg, nn, c, sp, dt in BN_LAYERS if dt == torch.bfloat16
+    ] + [layer + ("family",) for layer in FAMILY_BN_LAYERS]
     for layer, count, gsz, n, c, sp, dt, timed in cases:
         x4 = (0.5 + 1.5 * torch.randn((gsz, n, c, sp), generator=g,
                                       device=dev)).to(dt)
@@ -512,7 +598,22 @@ def phase_bn_kernels(dev, card, peaks, flush):
             else:
                 pairs = [(got[0], want[0], BN_OUT_TOL[dt])] + [
                     (k, p, BN_SUM_TOL) for k, p in zip(got[1:], want[1:])]
-            err = 0.0
+            if name == "bn_dx" and gsz > 3:
+                # dscale and dbias over G = 21 groups: the bound of a
+                # reordered f32 sum (GROUP_SUM_RTOL)
+                terms = (bn_ops.bn_dx_coeffs(sdz_p, sdzx_p, m, a, mean,
+                                             invstd)[0], sdz_p)
+                for k, p, t in zip(got[1:], want[1:], terms):
+                    limit = (BN_SUM_TOL["atol"]
+                             + GROUP_SUM_RTOL * t.abs().sum(0))
+                    expect(bool(((k - p).abs() <= limit).all()),
+                           f"bn_dx {layer}: group sums apart")
+                group_err = max((k.double() - p.double()).abs().max().item()
+                                for k, p in zip(got[1:], want[1:]))
+                pairs = pairs[:1]
+            else:
+                group_err = 0.0
+            err = group_err
             for k, p, tol in pairs:
                 torch.testing.assert_close(k.float(), p.float(), **tol)
                 err = max(err, (k.double() - p.double()).abs().max().item())
@@ -531,6 +632,11 @@ def phase_bn_kernels(dev, card, peaks, flush):
                   f"back_to_back_ms {t_b2b} plain_ms {t_p} library_ms "
                   f"{t_lib} bound_ms {b_ms} ({b_by}) x{count} per step "
                   f"| {card}")
+            if timed == "family":
+                row.setdefault("cases", []).append(dict(
+                    case=case, ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
+                    library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
+                continue
             for route in per_step:
                 if route == "fused" and layer in ENC_CONV_BN:
                     continue
@@ -812,10 +918,11 @@ def phase_train(dev, card, data, out):
     the CLI's 20 annealing epochs. Records each window's mean loss and the
     running statistics before training, for the checks."""
     # a warm-up pair, then K, P, P, K twice (K: kernel path, P: plain);
-    # the routes likewise, F, U, U, F four times (F: fused, U: unfused):
-    # the default follows them, and the host's noise is large
+    # the routes likewise, F, U, U, F twice (F: fused, U: unfused): the
+    # default follows them (earlier rounds of four, PERF.md), and the host's
+    # noise is large
     order = (False, True) + (False, True, True, False) * 2
-    route_order = (False, True) + (False, True, True, False) * 4
+    route_order = (False, True) + (False, True, True, False) * 2
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
         model = celeba(dtype, dev, seed=10)
@@ -859,7 +966,7 @@ def phase_train(dev, card, data, out):
                 r_times[not unfused].append(ms)
         print(f"[train] {dt} B=100 T=3 step, encoder route: fused "
               f"(conv2d_moments) {r_times[True]} ms, unfused {r_times[False]}"
-              f" ms, in turns F, U, U, F four times, host clock per window "
+              f" ms, in turns F, U, U, F twice, host clock per window "
               f"/ K; fused against unfused: "
               f"{pairs_won(r_times[True], r_times[False])} | {card}")
         for fused, label in ((True, "fused"), (False, "unfused")):
@@ -1053,42 +1160,15 @@ def family_device_data(family, data_dir, dev):
 
 
 def family_train_timing(dev, card, family, data):
-    """The family's bf16 train step at B=100, windows of K=20 steps of
-    make_multi_train_step, kernel path and plain versions in turns after
-    a warm-up pair (as phase 5), then a device-time breakdown per step."""
-    cls = FAMILY_CLIS[family][3]
-    model = cls(64, torch.bfloat16, device=dev,
-                generator=torch.Generator().manual_seed(40))
+    """The family's bf16 train step at B=100 in turns against the plain
+    versions, with its profile line (timed_turns)."""
+    model = FAMILY_CLIS[family][3](
+        64, torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(40))
     multi = make_multi_train_step(
         model, MASKS, FAM_LAMBDAS, lr=FAM_LR, device=dev,
         generator=torch.Generator(device=dev).manual_seed(41))
-    rng = np.random.default_rng(42)
-    n = next(iter(data.values())).shape[0]
-
-    def window(k=TRAIN_K):
-        return torch.from_numpy(np.stack([rng.permutation(n)[:BATCH]
-                                          for _ in range(k)])).to(dev)
-
-    betas = torch.ones(TRAIN_K, device=dev)
-    order = (False, True) + (False, True, True, False) * 2
-    losses, times = [], {False: [], True: []}
-    for i, plain in enumerate(order):
-        with ops.plain_versions() if plain else contextlib.nullcontext():
-            window_losses, ms = timed_window(multi, data, window(), betas)
-        expect(bool(torch.isfinite(window_losses).all()),
-               f"{family} train: loss not finite {window_losses}")
-        losses.append(window_losses.mean().item())
-        if i >= 2:
-            times[plain].append(ms)
-    print(f"[{family}] bf16 B=100 T=3 K={TRAIN_K}: mean loss per window "
-          f"{losses} (K, P | K, P, P, K, K, P, P, K)")
-    print(f"[{family}] bf16 B=100 T=3 step: {times[False]} ms (plain "
-          f"versions {times[True]} ms), host clock per window / K; "
-          f"{pairs_won(times[False], times[True])} | {card}")
-    profile_breakdown(
-        f"{family} train bf16 B=100 T=3 step (window of {PROFILE_K})",
-        lambda: multi(data, window(PROFILE_K), betas[:PROFILE_K]), card,
-        reps=1, wall_reps=1, per=PROFILE_K)
+    timed_turns(dev, card, f"{family} T=3", multi, data, lambda k: {})
 
 
 def iwae_inputs(family, dev, data_dir):
@@ -1097,6 +1177,14 @@ def iwae_inputs(family, dev, data_dir):
     if family == "celeba":
         model = celeba(torch.float32, dev, seed=50)
         test = load_celeba(data_dir, "test").arrays
+    elif family == "celeba19":
+        model = Celeba19MVAE(100, device=dev,
+                             generator=torch.Generator().manual_seed(50))
+        test = load_celeba(data_dir, "test").arrays
+    elif family == "multimnist":
+        model = MultiMnistMVAE(64, device=dev,
+                               generator=torch.Generator().manual_seed(50))
+        test = load_multimnist(data_dir, train=False).arrays
     else:
         model = FAMILY_CLIS[family][3](
             64, device=dev, generator=torch.Generator().manual_seed(50))
@@ -1165,16 +1253,8 @@ def phase_families(dev, card, root, celeba_dir):
               f"{time.perf_counter() - t0} s | {card}")
 
         for target in ("image", "text", "joint"):
-            t0 = time.perf_counter()
-            ll, lines = run_main(loglike_cli.main, [
-                best, "--target", target, "--data-dir", data_dir])
-            expect(bool(np.isfinite(ll)) and ll < 0,
-                   f"{family} log p({target}) = {ll}")
-            expect(any(line.startswith(f"====> log p({target}) >= ") and
-                       line.endswith(f"(K={IWAE_K}, N={N_FAM_TEST})")
-                       for line in lines), f"{family} loglike line")
-            print(f"[{family}] loglike CLI {target}: {ll} in "
-                  f"{time.perf_counter() - t0} s | {card}")
+            run_loglike_cli(loglike_cli.main, best, data_dir, target,
+                            N_FAM_TEST, family, card)
 
         sampler = Sampler.from_checkpoint(best)
         expect(type(sampler.model) is cls, f"{family}: served "
@@ -1208,15 +1288,8 @@ def phase_families(dev, card, root, celeba_dir):
                                       eps=eps), card)
 
     best = os.path.join(celeba_dir, BEST)
-    t0 = time.perf_counter()
-    ll, lines = run_main(celeba_loglike.main, [
-        best, "--target", "joint", "--data-dir", dirs["celeba"]])
-    expect(bool(np.isfinite(ll)) and ll < 0, f"celeba log p(joint) = {ll}")
-    n_test = len(load_celeba(dirs["celeba"], "test"))
-    expect(any(line.endswith(f"(K={IWAE_K}, N={n_test})") for line in lines),
-           "celeba loglike line")
-    print(f"[celeba] loglike CLI joint, CelebaMVAE(100) f32: {ll} in "
-          f"{time.perf_counter() - t0} s | {card}")
+    run_loglike_cli(celeba_loglike.main, best, dirs["celeba"], "joint",
+                    len(load_celeba(dirs["celeba"], "test")), "celeba", card)
     d = os.path.join(root, "celeba", "samples")
     out, _ = run_main(celeba_sample.main, [
         best, "--condition-on-attrs", "Smiling", "--out-dir", d,
@@ -1257,6 +1330,345 @@ def phase_iwae_checks(dev, dirs):
                                 [1.0, 1.0], names, k, eps=eps[:k, :b])
         held(f"{family} IWAE f32 K={k} B={b} joint, card vs CPU", got, want,
              **CARD_TOL)
+
+
+# --------------------------------------------------------------------------
+# phases 6d and 6e: the MultiMNIST and celeba19 families
+# --------------------------------------------------------------------------
+
+N_MM_TRAIN, N_MM_TEST = 2000, 500     # rows of the shards phase 6d writes
+MM_LAMBDAS = [[1.0, 10.0]] * 3        # experiments/multimnist/train.py
+C19_LAMBDAS = (1.0, 10.0)             # experiments/celeba19/train.py
+
+
+def c19_terms(rng):
+    """One celeba19 step's (21, 19) masks and lambdas (--approx-m 1)."""
+    return celeba19_step_terms(rng, 1, 18, *C19_LAMBDAS)
+
+
+def check_mm_outputs(out, n):
+    """Sampler outputs of MultiMNIST: n 50x50 images in [0, 1], n rows of
+    4 positions' 12 character probabilities that sum to 1."""
+    expect(tuple(out["image"].shape) == (n, 50, 50, 1),
+           f"multimnist image {tuple(out['image'].shape)}")
+    expect(tuple(out["text"].shape) == (n, 4, 12),
+           f"multimnist text {tuple(out['text'].shape)}")
+    for k, v in out.items():
+        expect(bool(torch.isfinite(v).all()) and v.min() >= 0
+               and v.max() <= 1, f"multimnist {k} outside [0, 1]")
+    torch.testing.assert_close(out["text"].sum(-1), torch.ones(
+        (n, 4), device=out["text"].device), rtol=1e-5, atol=1e-5)
+
+
+def timed_turns(dev, card, name, multi, data, steps_extra):
+    """A family's bf16 train step at B=100 in windows of K=20 steps of
+    make_multi_train_step, kernel path and plain versions in turns after a
+    warm-up pair (as phase 5), then a device-time breakdown per step.
+    steps_extra(k): the window's extra arguments (celeba19's masks)."""
+    rng = np.random.default_rng(42)
+    n = next(iter(data.values())).shape[0]
+
+    def window(k=TRAIN_K):
+        return torch.from_numpy(np.stack([rng.permutation(n)[:BATCH]
+                                          for _ in range(k)])).to(dev)
+
+    betas = torch.ones(TRAIN_K, device=dev)
+    order = (False, True) + (False, True, True, False) * 2
+    losses, times = [], {False: [], True: []}
+    for i, plain in enumerate(order):
+        extra = steps_extra(TRAIN_K)
+        torch.cuda.synchronize()
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            window_losses = multi(data, window(), betas, **extra)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TRAIN_K
+        expect(bool(torch.isfinite(window_losses).all()),
+               f"{name} train: loss not finite {window_losses}")
+        losses.append(window_losses.mean().item())
+        if i >= 2:
+            times[plain].append(ms)
+    print(f"[{name}] bf16 B=100 K={TRAIN_K}: mean loss per window {losses} "
+          f"(K, P | K, P, P, K, K, P, P, K)")
+    print(f"[{name}] bf16 B=100 step: {times[False]} ms (plain versions "
+          f"{times[True]} ms), host clock per window / K; "
+          f"{pairs_won(times[False], times[True])} | {card}")
+    profile_breakdown(
+        f"{name} train bf16 B=100 step (window of {PROFILE_K})",
+        lambda: multi(data, window(PROFILE_K), betas[:PROFILE_K],
+                      **steps_extra(PROFILE_K)), card,
+        reps=1, wall_reps=1, per=PROFILE_K)
+
+
+def run_loglike_cli(main, best, data_dir, target, n_test, what, card):
+    t0 = time.perf_counter()
+    ll, lines = run_main(main, [best, "--target", target, "--data-dir",
+                                data_dir])
+    expect(bool(np.isfinite(ll)) and ll < 0, f"{what} log p({target}) = {ll}")
+    expect(any(line.startswith(f"====> log p({target}) >= ") and
+               line.endswith(f"(K={IWAE_K}, N={n_test})") for line in lines),
+           f"{what} loglike line")
+    print(f"[{what}] loglike CLI {target}: {ll} in "
+          f"{time.perf_counter() - t0} s | {card}")
+
+
+def phase_multimnist(dev, card, root):
+    """Phase 6d: MultiMNIST end to end on the card. Shards of N_MM_TRAIN /
+    N_MM_TEST rows from the synthetic digits (the numpy generator); the
+    train CLI with its shipped defaults (bf16, L=64, batch 100, lr 1e-3)
+    for CLI_EPOCHS epochs, then --resume for one more; the sample CLI from
+    the prior, a digit string, a test image of it and both; the loglike CLI
+    at K=100 for image, text and joint; Sampler.from_checkpoint at every
+    endpoint; the bf16 train step in turns against the plain versions with
+    its profile line; one IWAE batch's profile line. Returns the data
+    directory."""
+    tmp = os.path.join(root, "multimnist")
+    data_dir, out_dir = (os.path.join(tmp, d) for d in ("data", "models"))
+    t0 = time.perf_counter()
+    make_dataset(data_dir, n_train=N_MM_TRAIN, n_test=N_MM_TEST)
+    print(f"[multimnist] shards of {N_MM_TRAIN} / {N_MM_TEST} rows written in "
+          f"{time.perf_counter() - t0} s (numpy generator, host)")
+    t0 = time.perf_counter()
+    tests, throughput, train_s = run_train_cli(
+        mm_train.main, ["--out-dir", out_dir, "--data-dir", data_dir], [],
+        out_dir, "multimnist")
+    print(f"[multimnist] MultiMnistMVAE(64) bf16 B=100, 20 steps an epoch: "
+          f"{throughput} ; epoch training wall s {train_s}; test losses "
+          f"{tests}; the CLI runs {time.perf_counter() - t0} s | {card}")
+    best = os.path.join(out_dir, BEST)
+
+    test = load_multimnist(data_dir, train=False)
+    text = decode_tokens(test.arrays["text"][0])
+    t0 = time.perf_counter()
+    for i, extra in enumerate(([], ["--condition-on-text", text],
+                               ["--condition-on-image", text],
+                               ["--condition-on-image", text,
+                                "--condition-on-text", text])):
+        d = os.path.join(tmp, f"samples{i}")
+        out, _ = run_main(mm_sample.main, [best, "--out-dir", d,
+                                           "--data-dir", data_dir] + extra)
+        check_mm_outputs(out, 64)
+        with open(os.path.join(d, "sample_image.png"), "rb") as f:
+            expect(f.read(8) == b"\x89PNG\r\n\x1a\n",
+                   f"multimnist sample {extra}: not a PNG")
+        with open(os.path.join(d, "sample_text.txt")) as f:
+            lines = f.read().splitlines()
+        expect(len(lines) == 64 and lines[63].startswith("Text (63): "),
+               f"multimnist sample {extra}: {len(lines)} text lines")
+    print(f"[multimnist] sample CLI, four modes of 64 samples (string "
+          f"{text!r}): {time.perf_counter() - t0} s | {card}")
+    for target in ("image", "text", "joint"):
+        run_loglike_cli(mm_loglike.main, best, data_dir, target, N_MM_TEST,
+                        "multimnist", card)
+
+    sampler = Sampler.from_checkpoint(best)
+    expect(type(sampler.model) is MultiMnistMVAE, "multimnist: served "
+           f"{type(sampler.model).__name__}")
+    images = torch.from_numpy(test.arrays["image"][:8]).to(dev)
+    texts = torch.from_numpy(test.arrays["text"][:8]).to(dev)
+    check_mm_outputs(sampler.sample(n=8, seed=0), 8)
+    for cond in ({"image": images[:1]}, {"text": texts[:1]}):
+        check_mm_outputs(sampler.sample(n=8, condition=cond), 8)
+    for inputs in ({"image": images}, {"text": texts},
+                   {"image": images, "text": texts}):
+        mu, lv = sampler.embed(inputs)
+        expect(mu.shape == lv.shape == (8, 64) and bool(
+            torch.isfinite(mu).all() and torch.isfinite(lv).all()),
+            f"multimnist embed {sorted(inputs)}")
+        if len(inputs) == 1:
+            check_mm_outputs(sampler.reconstruct(inputs), 8)
+    print(f"[multimnist] {BEST} served every endpoint (sample, sample|image, "
+          f"sample|text, embed and reconstruct)")
+
+    model = MultiMnistMVAE(64, torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(40))
+    multi = make_multi_train_step(
+        model, MASKS, MM_LAMBDAS, lr=FAM_LR, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(41))
+    timed_turns(dev, card, "multimnist", multi, to_device_data(
+        load_multimnist(data_dir, train=True), dev), lambda k: {})
+    model, batch, eps = iwae_inputs("multimnist", dev, data_dir)
+    profile_breakdown(
+        f"multimnist IWAE f32 K={IWAE_K} B={BATCH} joint",
+        lambda: iwae_log_marginal(model, batch, [1.0, 1.0],
+                                  list(model.modalities), IWAE_K, eps=eps),
+        card)
+    return data_dir
+
+
+def phase_celeba19(dev, card, root, data_dir):
+    """Phase 6e: celeba19 end to end on the card, on the synthetic CelebA
+    set of phase 6b's data directory (2000 train, 500 val, 500 test rows).
+    The train CLI in bf16 at --approx-m 1 (the image BCE's bf16 math, the
+    CLI's default) for CLI_EPOCHS epochs on the encoder's fused route
+    (--conv-moments), --resume for one more on the default route, then one
+    more with --fast-term-decode (the f32 math); the sample CLI with
+    --condition-on-attrs Smiling and from the prior; the loglike CLI
+    (joint, K=100); Sampler.from_checkpoint; the bf16 train step in turns
+    against the plain versions with its profile line, the same under
+    --fast-term-decode, and one IWAE batch's profile line."""
+    out_dir = os.path.join(root, "celeba19", "models")
+    argv = ["--out-dir", out_dir, "--data-dir", data_dir]
+    t0 = time.perf_counter()
+    tests, throughput, train_s = run_train_cli(
+        c19_train.main, argv, ["--conv-moments"], out_dir, "celeba19")
+    _, lines = run_main(c19_train.main, argv + [
+        "--epochs", str(CLI_EPOCHS + 2), "--fast-term-decode", "--resume",
+        os.path.join(out_dir, CKPT)])
+    expect(any(line.startswith("resumed from ")
+               and line.endswith(f"at epoch {CLI_EPOCHS + 1}")
+               for line in lines), "celeba19 fast: no resume line")
+    fast = [float(line.split()[-1]) for line in lines
+            if line.startswith("====> Test Loss")]
+    expect(len(fast) == 1 and np.isfinite(fast[0]),
+           f"celeba19 fast: test losses {fast}")
+    print(f"[celeba19] Celeba19MVAE(100) bf16 B=100 T=21, 20 steps an "
+          f"epoch: {throughput} ; epoch training wall s {train_s}; test "
+          f"losses {tests}, then {fast} after an epoch of "
+          f"--fast-term-decode; the CLI runs {time.perf_counter() - t0} s "
+          f"| {card}")
+    best = os.path.join(out_dir, BEST)
+    for i, extra in enumerate(([], ["--condition-on-attrs", "Smiling"])):
+        d = os.path.join(root, "celeba19", f"samples{i}")
+        out, _ = run_main(c19_sample.main, [best, "--out-dir", d,
+                                            "--data-dir", data_dir] + extra)
+        check_images(out, 64)
+        with open(os.path.join(d, "sample_attrs.txt")) as f:
+            expect(len(f.read().splitlines()) == 64,
+                   f"celeba19 sample {extra}: sample_attrs.txt")
+    run_loglike_cli(c19_loglike.main, best, data_dir, "joint",
+                    len(load_celeba(data_dir, "test")), "celeba19", card)
+    sampler = Sampler.from_checkpoint(best)
+    expect(type(sampler.model) is Celeba19MVAE, "celeba19: served "
+           f"{type(sampler.model).__name__}")
+    test = load_celeba(data_dir, "test").arrays
+    images = torch.from_numpy(test["image"][:8]).to(dev)
+    attrs = torch.from_numpy(test["attrs"][:8]).to(dev)
+    check_images(sampler.sample(n=8, seed=0), 8)
+    check_images(sampler.sample(n=8, condition={"attrs": attrs[:1]}), 8)
+    for inputs in ({"image": images}, {"attrs": attrs},
+                   {"image": images, "attrs": attrs}):
+        mu, lv = sampler.embed(inputs)
+        expect(mu.shape == lv.shape == (8, 100) and bool(
+            torch.isfinite(mu).all()), f"celeba19 embed {sorted(inputs)}")
+        check_images(sampler.reconstruct(inputs), 8)
+    print(f"[celeba19] {BEST} served every endpoint")
+
+    data = to_device_data(load_celeba(data_dir, "train"), dev)
+    rng = np.random.default_rng(43)
+
+    def terms(k):
+        ms, ls = zip(*[c19_terms(rng) for _ in range(k)])
+        return {"masks": torch.from_numpy(np.stack(ms)).to(dev),
+                "lambdas": torch.from_numpy(np.stack(ls)).to(dev)}
+
+    for fast in (False, True):
+        model = Celeba19MVAE(100, torch.bfloat16, bf16_loss=not fast,
+                             device=dev,
+                             generator=torch.Generator().manual_seed(44))
+        multi = make_multi_train_step(
+            model, None, None, lr=LR, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(45),
+            recon_support=celeba19_recon_support(1), fast_skip_decode=fast)
+        timed_turns(dev, card, "celeba19" + (" --fast-term-decode" if fast
+                                             else " T=21"), multi, data,
+                    terms)
+    model, batch, eps = iwae_inputs("celeba19", dev, data_dir)
+    profile_breakdown(
+        f"celeba19 IWAE f32 K={IWAE_K} B={BATCH} joint",
+        lambda: iwae_log_marginal(model, batch, [1.0] * 19,
+                                  list(model.loglike_targets), IWAE_K,
+                                  eps=eps), card, reps=2, wall_reps=3)
+
+
+def family_floor(model):
+    """Each expert's loss of all-zero logits, which random weights mostly
+    pay: BCE(0, t) = ln 2 a pixel or attribute, CE(0) = ln 12 a text
+    position."""
+    per = {"image": np.log(2.0) * int(np.prod(
+        model.input_spec()["image"][0])), "text": 4 * np.log(12.0)}
+    return torch.tensor([per.get(m, np.log(2.0)) for m in model.modalities],
+                        dtype=torch.float64)
+
+
+def family_step(model, batch, masks, lambdas, noise, **kw):
+    """One train-mode ELBO and its backward, no update: (per_term less its
+    floor, parameter gradients)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    dev = model.device
+    m = torch.as_tensor(masks, device=dev)
+    lam = torch.as_tensor(lambdas, device=dev)
+    total, aux = multi_term_elbo(model, batch, m, lam, 1.0, train=True,
+                                 noise=noise, **kw)
+    total.backward()
+    floor = (m.double().cpu() * lam.double().cpu()) @ family_floor(model)
+    return aux["per_term"].detach().double().cpu() - floor, {
+        k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def phase_family_checks(dev, dirs):
+    """Phase 7 for MultiMNIST and celeba19: one train step, kernel path
+    against plain versions (loss above its floor at STEP_RTOL, every
+    parameter gradient at GRAD_RTOL) in bf16 and f32, celeba19 in bf16
+    with the BCE's bf16 math and with its f32 math; then in f32 the card
+    against the CPU (TF32 off) on 16 rows with the same noise."""
+    mm = load_multimnist(dirs["multimnist"], train=True).arrays
+    cel = load_celeba(dirs["celeba"], "train").arrays
+    rows = {"multimnist": {k: v[:BATCH] for k, v in mm.items()},
+            "celeba19": {k: v[:BATCH] for k, v in cel.items()}}
+    masks19, lambdas19 = c19_terms(np.random.default_rng(46))
+    setups = (
+        ("multimnist", torch.bfloat16, {}), ("multimnist", torch.float32, {}),
+        ("celeba19", torch.bfloat16, {"bf16_loss": True}),
+        ("celeba19", torch.bfloat16, {"bf16_loss": False}),
+        ("celeba19", torch.float32, {}))
+    for family, dtype, kw in setups:
+        dt = str(dtype).split(".")[-1] + (
+            f" bf16_loss={kw['bf16_loss']}" if kw else "")
+        cls = MultiMnistMVAE if family == "multimnist" else Celeba19MVAE
+        masks, lambdas = ((MASKS, MM_LAMBDAS) if family == "multimnist"
+                          else (masks19, lambdas19))
+        model = cls(64 if family == "multimnist" else 100,
+                    None if dtype == torch.float32 else dtype, device=dev,
+                    generator=torch.Generator().manual_seed(47), **kw)
+        twin = copy.deepcopy(model)
+        batch = decode_batch({k: torch.from_numpy(v).to(dev)
+                              for k, v in rows[family].items()},
+                             resolve_decode_dtype(model))
+        noise = draw_noise(model, len(masks), BATCH, torch.Generator(
+            device=dev).manual_seed(48))
+        k_terms, k_grads = family_step(model, batch, masks, lambdas, noise)
+        with ops.plain_versions():
+            p_terms, p_grads = family_step(twin, batch, masks, lambdas,
+                                           noise)
+        held(f"{family} {dt} B=100 train step loss above floor, kernels vs "
+             f"plain", k_terms, p_terms, STEP_RTOL[dtype], 0.0)
+        grads_held(f"{family} {dt} B=100 train step, kernels vs plain",
+                   k_grads, p_grads, GRAD_RTOL[dtype], GRAD_NOISE_ATOL[dtype],
+                   bn_fed_biases(model))
+    for family, cls, n_lat in (("multimnist", MultiMnistMVAE, 64),
+                               ("celeba19", Celeba19MVAE, 100)):
+        masks, lambdas = ((MASKS, MM_LAMBDAS) if family == "multimnist"
+                          else (masks19, lambdas19))
+        gpu = cls(n_lat, device=dev,
+                  generator=torch.Generator().manual_seed(49))
+        cpu = cls(n_lat, device="cpu",
+                  generator=torch.Generator().manual_seed(49))
+        small = {k: torch.from_numpy(v[:16]) for k, v in
+                 rows[family].items()}
+        noise = draw_noise(cpu, len(masks), len(small["image"]),
+                           torch.Generator().manual_seed(6))
+        c_terms, c_grads = family_step(cpu, decode_batch(small), masks,
+                                       lambdas, noise)
+        g_terms, g_grads = family_step(
+            gpu, decode_batch({k: v.to(dev) for k, v in small.items()}),
+            masks, lambdas, tuple(n.to(dev) for n in noise))
+        held(f"{family} float32 B=16 train step loss above floor, card vs "
+             f"CPU", g_terms, c_terms, 1e-4, 0.0)
+        grads_held(f"{family} float32 B=16 train step, card vs CPU", g_grads,
+                   c_grads, GRAD_RTOL[torch.float32],
+                   GRAD_NOISE_ATOL[torch.float32], bn_fed_biases(cpu))
 
 
 def loss_above_floor(per_term):
@@ -1566,7 +1978,9 @@ def run(dev, card, peaks, root):
     must = {"serve": ("poe_fwd",),
             "eval": ("poe_fwd", "bce_rowsum_fwd"),
             "train": tuple(KERNELS), "cli": tuple(KERNELS),
-            "families": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")}
+            "families": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd"),
+            "multimnist": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
+            + BN_KERNELS, "celeba19": tuple(KERNELS)}
     launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
@@ -1574,7 +1988,10 @@ def run(dev, card, peaks, root):
             ("train", lambda: phase_train(dev, card, data, trained)),
             ("cli", lambda: phase_cli(dev, card, root)),
             ("families", lambda: phase_families(dev, card, root,
-                                                out["cli"]))):
+                                                out["cli"])),
+            ("multimnist", lambda: phase_multimnist(dev, card, root)),
+            ("celeba19", lambda: phase_celeba19(
+                dev, card, root, out["families"]["celeba"]))):
         ops.reset_launch_counts()
         out[phase] = fn()
         torch.cuda.synchronize()
@@ -1588,6 +2005,8 @@ def run(dev, card, peaks, root):
     phase_eval_checks(dev, models, data, idx)
     phase_train_checks(dev, data, idx, trained)
     phase_iwae_checks(dev, out["families"])
+    phase_family_checks(dev, {"multimnist": out["multimnist"],
+                              "celeba": out["families"]["celeba"]})
     lap("checks, the whole run")
     return rows, launches
 

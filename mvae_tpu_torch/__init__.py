@@ -5,7 +5,9 @@ of it, keeps its module layout and names, and holds each of its Pallas
 kernels as a CUDA kernel written by hand (`ops/`, `csrc/`). Entry points
 run on the CUDA card unless the caller passes `device="cpu"` (`device.py`).
 
-Ported so far: the CelebA, MNIST and FashionMNIST families (`models/`),
+Ported so far: the CelebA, MNIST, FashionMNIST, MultiMNIST and CelebA-19
+families (`models/`; the GRU of MultiMNIST's text in `nn/rnn.py`,
+CelebA-19's sampled subset terms in `core/subsets.py`),
 the multi-term ELBO in eval and train mode (`train.loop.make_eval_step`;
 `make_train_step` and `make_multi_train_step` with Adam and the BN
 running-statistics commit), the IWAE log-likelihood (`core.loglike`), the

@@ -19,7 +19,14 @@
   6. Train mode: commit the BN running statistics (commit_ema_states).
 
 The engine draws no random numbers: train mode takes `noise = (eps,
-keep_mask)` from the caller.
+keep_mask[, decode_keep_mask])` from the caller.
+
+--fast-term-decode (`decode_terms`, celeba19): a decoder group of the
+model's `skip_decode_groups` runs only on the rows of the terms whose
+static recon support holds it (fast_decode_terms), as the JAX package's
+`_decode_grouped(skip_nograd=True)` does; losses and gradients do not
+change, the skipped terms' BN commits are the JAX package's for a term
+that returns the old state.
 """
 
 import torch
@@ -45,7 +52,9 @@ def commit_ema_states(model, enc_moments, dec_moments, term_masks):
     The variance committed is the unbiased one, var * n / (n - 1).
 
     enc_moments: modality -> [Moments] (G = 1); dec_moments: [Moments]
-    (G = T); term_masks: (T, M).
+    (G = T, or G of the T terms that Moments.terms names: each other term
+    commits s_t = old, the state a skipped decode returns in the JAX
+    package, engine.py:_decode_grouped); term_masks: (T, M).
     """
     mom = BN_MOMENTUM
     t = term_masks.shape[0]
@@ -58,7 +67,9 @@ def commit_ema_states(model, enc_moments, dec_moments, term_masks):
     for m in dec_moments:
         for buf, stat in ((m.bn.running_mean, m.mean),
                           (m.bn.running_var, unbiased(m))):
-            s = (1.0 - mom) * buf + mom * stat                  # (T, C)
+            s = (1.0 - mom) * buf + mom * stat                  # (G, C)
+            if m.terms is not None:
+                s = buf.expand(t, -1).index_copy(0, m.terms, s)  # (T, C)
             buf.copy_((1.0 - mom) ** t * buf
                       + torch.sum(w * (s - (1.0 - mom) * buf), dim=0))
     for name, moments in enc_moments.items():
@@ -71,8 +82,18 @@ def commit_ema_states(model, enc_moments, dec_moments, term_masks):
                 buf.add_((q / mom) * (s - buf))
 
 
+def fast_decode_terms(model, recon_support, device):
+    """--fast-term-decode's decode_terms: for each of the model's
+    skip_decode_groups, the (T',) terms whose static recon support
+    (numpy (T, M) 0/1) holds that modality."""
+    return {g: torch.as_tensor(
+        [t for t, row in enumerate(recon_support)
+         if row[model.modality_index(g)]], dtype=torch.long, device=device)
+        for g in getattr(model, "skip_decode_groups", ())}
+
+
 def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
-                    train: bool = False, noise=None):
+                    train: bool = False, noise=None, decode_terms=None):
     """Sum over T subset-ELBO terms.
 
     inputs:       name -> (B, ...) tensors, every modality present.
@@ -82,8 +103,11 @@ def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
     train:        the model must be in the same mode. Train mode needs
                   noise = (eps (T, B, D) standard normal, keep_mask: the
                   encoder dropout's, model.keep_mask_shape(B) bool, or
-                  None for a model whose dropout_rate is 0), and commits
+                  None for a model whose dropout_rate is 0[, the
+                  decoder dropout's model.decode_keep_mask_shape(T * B),
+                  for a model with a decode_dropout_rate]), and commits
                   the BN running statistics after the forward.
+    decode_terms: fast_decode_terms(...), train mode only, or None.
 
     Returns (total, aux) with aux = {"per_term": (T,), "mu", "logvar":
     the first term's posterior (B, D)}.
@@ -91,16 +115,22 @@ def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
     if train != model.training:
         raise ValueError(f"train={train} but the model is in "
                          f"{'train' if model.training else 'eval'} mode")
+    dec_dropout = getattr(model, "decode_dropout_rate", 0.0)
     if train and (noise is None or noise[0] is None
-                  or (model.dropout_rate and noise[1] is None)):
-        raise ValueError("train mode takes noise = (eps, keep_mask); the "
-                         "keep_mask may be None only without dropout")
-    eps, keep_mask = noise if train else (None, None)
+                  or (model.dropout_rate and noise[1] is None)
+                  or (dec_dropout and (len(noise) < 3 or noise[2] is None))):
+        raise ValueError("train mode takes noise = (eps, keep_mask[, "
+                         "decode_keep_mask]); a keep_mask may be None only "
+                         "without that dropout")
+    eps, keep_mask = noise[:2] if train else (None, None)
     mu, logvar, enc_moments = model.encode(inputs, keep_mask)   # (M, B, D)
     pd_mu, pd_logvar = masked_poe_all_terms(mu, logvar, term_masks)
     z = reparametrize(pd_mu, pd_logvar, eps)                     # (T, B, D)
     t, b, d = z.shape
-    recons, dec_moments = model.decode(z.reshape(t * b, d), groups=t)
+    kw = {} if decode_terms is None else {"decode_terms": decode_terms}
+    if train and dec_dropout:
+        kw["keep_mask"] = noise[2]
+    recons, dec_moments = model.decode(z.reshape(t * b, d), groups=t, **kw)
     recon_stack = model.recon_losses(recons, inputs).reshape(t, b, -1)
     w = (term_masks * term_lambdas)[:, None, :]                # (T, 1, M)
     recon = torch.sum(recon_stack * w, dim=-1)                 # (T, B)

@@ -14,14 +14,16 @@ def binary_cross_entropy_with_logits(logits, targets):
             + torch.log1p(torch.exp(-logits.abs())))
 
 
-def bce_row_sum(logits, targets):
+def bce_row_sum(logits, targets, bf16_math=False):
     """Row sums of the stable BCE in f32: (N, K) logits, (Nt, K) targets
     with N % Nt == 0 (each group of Nt rows shares the targets) -> (N,).
 
     Logits and targets may each be f32 or bf16; both are read as they are
     and upcast inside (ops.elbo.bce_sum: the kernel on the card, the plain
-    version on the CPU)."""
-    return bce_sum(logits, targets)
+    version on the CPU). bf16_math=True with bf16 logits computes the
+    elementwise math in bf16 steps, the sums in f32 (the JAX package's
+    MVAE_BF16_LOSS=1 branch, as an argument; ops/elbo.py)."""
+    return bce_sum(logits, targets, bf16_math)
 
 
 def cross_entropy_with_logits(logits, labels, eps: float = 1e-6):

@@ -30,6 +30,13 @@
 // from launch to launch, with no atomics, in one launch. Logits and
 // targets are each f32 or bf16 (template instantiations), upcast in
 // registers, so the caller never makes a cast copy.
+//
+// bf16 math (bf16 logits, kBf16Math): the elementwise terms round to bf16
+// at the points ops/elbo.py fixes (bce_bf16 below) and the row still sums
+// in f32 -- the JAX package's MVAE_BF16_LOSS branch, whose own rounding
+// points XLA may skip. It takes the precise expf and log1pf, whose f32
+// results PyTorch's bf16 exp and log1p round too, so an element equals the
+// plain version's bit for bit and only the order of the row sum differs.
 
 #include "reduce.cuh"
 
@@ -63,7 +70,29 @@ __device__ __forceinline__ float bce(float x, float t) {
 // kUnroll chunks a thread in flight. Wide rows: lanes = blockDim.x (one row a
 // block, the grid.y blocks of a row one cluster); narrow: lanes <= 32,
 // grid.y = 1.
-template <typename TX, typename TT, int V>
+// x rounded to bf16 and back: one of the bf16 math's rounding points.
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One element's BCE in bf16 steps (ops/elbo.py): with t rounded to bf16,
+//   a = bf16(x t), b = bf16(max(x, 0) - a), e = bf16(exp(-|x|)),
+//   l = bf16(log1p(e)), element = bf16(b + l),
+// each operation in f32 from bf16 operands (x t is exact there), rounded
+// once; the _rn intrinsics keep the compiler from contracting them.
+__device__ __forceinline__ float bce_bf16(float x, float t) {
+  const float a = rbf(__fmul_rn(x, rbf(t)));
+  const float b = rbf(__fsub_rn(fmaxf(x, 0.0f), a));
+  const float l = rbf(log1pf(rbf(expf(-fabsf(x)))));
+  return rbf(__fadd_rn(b, l));
+}
+
+template <bool kBf16Math>
+__device__ __forceinline__ float bce_elem(float x, float t) {
+  return kBf16Math ? bce_bf16(x, t) : bce(x, t);
+}
+
+template <typename TX, typename TT, int V, bool kBf16Math>
 __global__ void __launch_bounds__(kThreads)
 bce_rowsum_kernel(const TX* __restrict__ x, const TT* __restrict__ t,
                   float* __restrict__ out, int n_rows, int n_cols,
@@ -96,7 +125,8 @@ bce_rowsum_kernel(const TX* __restrict__ x, const TT* __restrict__ t,
       for (int u = 0; u < U; ++u)
         if (c + u * lanes < c1)
 #pragma unroll
-          for (int e = 0; e < V; ++e) acc[0] += bce(xc[u].at(e), tc[u].at(e));
+          for (int e = 0; e < V; ++e)
+            acc[0] += bce_elem<kBf16Math>(xc[u].at(e), tc[u].at(e));
     }
   }
   if (wide) {
@@ -114,7 +144,7 @@ struct BceLaunch {
   int vec, lanes, threads, splits, span;
 };
 
-template <typename TX, typename TT>
+template <typename TX, typename TT, bool kBf16Math = false>
 int launch(const void* x, const void* t, float* out, int n_rows, int n_cols,
            int n_target_rows, const BceLaunch& l, cudaStream_t stream) {
   // a chunk spans one 16-byte load of the narrower type
@@ -140,22 +170,23 @@ int launch(const void* x, const void* t, float* out, int n_rows, int n_cols,
                           (const TT*)t, out, n_rows, n_cols, n_target_rows,
                           l.span, lanes_log2);
   };
-  return l.vec == V ? go(bce_rowsum_kernel<TX, TT, V>)
-                    : go(bce_rowsum_kernel<TX, TT, 1>);
+  return l.vec == V ? go(bce_rowsum_kernel<TX, TT, V, kBf16Math>)
+                    : go(bce_rowsum_kernel<TX, TT, 1, kBf16Math>);
 }
 
 }  // namespace
 
 // x: (n_rows, n_cols) f32 or bf16 (x_bf16 = 1), contiguous; t: (n_target_rows,
 // n_cols) f32 or bf16 (t_bf16 = 1), contiguous, n_rows % n_target_rows == 0;
-// out: (n_rows,) f32; geo (5 ints): ops/elbo.py:bce_launch's vec, lanes,
-// threads, splits, span. Returns the cudaError_t of the launch.
+// bf16_math = 1 (bf16 x only): the bf16 steps; out: (n_rows,) f32; geo (5
+// ints): ops/elbo.py:bce_launch's vec, lanes, threads, splits, span.
+// Returns the cudaError_t of the launch.
 extern "C" int mvae_bce_rowsum_fwd(const void* x, int x_bf16, const void* t,
-                                   int t_bf16, void* out, int n_rows,
-                                   int n_cols, int n_target_rows,
+                                   int t_bf16, int bf16_math, void* out,
+                                   int n_rows, int n_cols, int n_target_rows,
                                    const int* geo, void* stream) {
   if (n_rows < 1 || n_cols < 1 || n_target_rows < 1 ||
-      n_rows % n_target_rows != 0) {
+      n_rows % n_target_rows != 0 || (bf16_math && !x_bf16)) {
     return (int)cudaErrorInvalidValue;
   }
   const BceLaunch l{geo[0], geo[1], geo[2], geo[3], geo[4]};
@@ -167,6 +198,12 @@ extern "C" int mvae_bce_rowsum_fwd(const void* x, int x_bf16, const void* t,
   if (!x_bf16 && t_bf16) {
     return launch<float, __nv_bfloat16>(x, t, o, n_rows, n_cols,
                                         n_target_rows, l, s);
+  }
+  if (bf16_math) {
+    return t_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, true>(
+                        x, t, o, n_rows, n_cols, n_target_rows, l, s)
+                  : launch<__nv_bfloat16, float, true>(
+                        x, t, o, n_rows, n_cols, n_target_rows, l, s);
   }
   if (x_bf16 && !t_bf16) {
     return launch<__nv_bfloat16, float>(x, t, o, n_rows, n_cols,

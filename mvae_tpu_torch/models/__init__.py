@@ -2,11 +2,14 @@
 for the families ported so far)."""
 
 from mvae_tpu_torch.models.celeba import CelebaMVAE
+from mvae_tpu_torch.models.celeba19 import Celeba19MVAE
 from mvae_tpu_torch.models.fashionmnist import FashionMnistMVAE
 from mvae_tpu_torch.models.mnist import MnistMVAE
+from mvae_tpu_torch.models.multimnist import MultiMnistMVAE
 
 FAMILIES = {"mnist": MnistMVAE, "fashionmnist": FashionMnistMVAE,
-            "celeba": CelebaMVAE}
+            "celeba": CelebaMVAE, "multimnist": MultiMnistMVAE,
+            "celeba19": Celeba19MVAE}
 
 
 def model_ctor(family: str):
@@ -16,5 +19,5 @@ def model_ctor(family: str):
     return FAMILIES[family]
 
 
-__all__ = ["CelebaMVAE", "FAMILIES", "FashionMnistMVAE", "MnistMVAE",
-           "model_ctor"]
+__all__ = ["Celeba19MVAE", "CelebaMVAE", "FAMILIES", "FashionMnistMVAE",
+           "MnistMVAE", "MultiMnistMVAE", "model_ctor"]

@@ -59,31 +59,41 @@ def _mlp_bn(dims, d_out, device):
 
 
 class ImageEncoder(nn.Module):
-    def __init__(self, n_latents, compute_dtype, conv_moments, device):
+    """The DCGAN image encoder: `specs` convs from `channels` to 256
+    channels of side x side, then the posterior head. CelebA's by
+    default; MultiMNIST's takes its own specs (models/multimnist.py)."""
+
+    def __init__(self, n_latents, compute_dtype, conv_moments, device, *,
+                 channels=3, specs=ENC_SPECS, side=5):
         super().__init__()
-        self.features = ConvStack(3, ENC_SPECS, compute_dtype=compute_dtype,
+        self.features = ConvStack(channels, specs,
+                                  compute_dtype=compute_dtype,
                                   conv_moments=conv_moments, device=device)
-        self.classifier = PosteriorHead(256 * 5 * 5, n_latents,
+        self.classifier = PosteriorHead(256 * side * side, n_latents,
                                         compute_dtype=compute_dtype,
                                         device=device)
 
-    def forward(self, x, keep_mask=None):   # x: (B, 3, 64, 64)
+    def forward(self, x, keep_mask=None):   # x: (B, C, H, W)
         h = self.features(x)
         return self.classifier(h.reshape(h.shape[0], -1), keep_mask)
 
 
 class ImageDecoder(nn.Module):
-    def __init__(self, n_latents, compute_dtype, device):
+    """fc L -> 256 x side x side with a swish, then the `specs` convTs."""
+
+    def __init__(self, n_latents, compute_dtype, device, *, specs=DEC_SPECS,
+                 side=5):
         super().__init__()
+        self.side = side
         self.upsample = nn.Sequential(
-            Linear(n_latents, 256 * 5 * 5, device=device), Swish())
-        self.hallucinate = DeconvStack(256, DEC_SPECS,
+            Linear(n_latents, 256 * side * side, device=device), Swish())
+        self.hallucinate = DeconvStack(256, specs,
                                        compute_dtype=compute_dtype,
                                        device=device)
 
-    def forward(self, z):                   # -> (N, 3, 64, 64) f32 logits
+    def forward(self, z):                   # -> (N, C, H, W) logits
         h = self.upsample(z)
-        return self.hallucinate(h.reshape(-1, 256, 5, 5))
+        return self.hallucinate(h.reshape(-1, 256, self.side, self.side))
 
 
 class MlpBN(nn.Module):

@@ -49,13 +49,16 @@ class Moments(NamedTuple):
     mean: torch.Tensor      # (G, C) f32, biased
     var: torch.Tensor       # (G, C) f32, biased
     n: int                  # elements a group and channel: rows * positions
+    terms: object = None    # (G,) long: the ELBO terms of the G groups
+                            # where they are not all T (--fast-term-decode)
 
 
 class BatchNorm(nn.Module):
     """Keys and buffers of torch's BatchNorm1d/2d (weight, bias,
     running_mean, running_var, num_batches_tracked), channel axis 1.
     `groups`: how many sets of batch statistics a train-mode call keeps,
-    over consecutive blocks of rows (the decoders' ELBO terms)."""
+    over consecutive blocks of rows (the decoders' ELBO terms); `terms`:
+    which ELBO terms those groups are, where not all of them."""
 
     def __init__(self, c: int, *, device=None):
         super().__init__()
@@ -66,6 +69,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
         self.groups = 1
+        self.terms = None
         self.moments = None
 
     @torch.no_grad()
@@ -83,7 +87,8 @@ class BatchNorm(nn.Module):
                                   self.weight, self.bias)
         y, mean, var = bn_swish_train(x, self.weight, self.bias, self.groups)
         self.moments = Moments(self, mean, var,
-                               x.numel() // (self.groups * x.shape[1]))
+                               x.numel() // (self.groups * x.shape[1]),
+                               self.terms)
         return y
 
 
@@ -134,10 +139,13 @@ class BNSwishSequential(nn.Sequential):
         return x
 
 
-def set_bn_groups(module: nn.Module, groups: int):
+def set_bn_groups(module: nn.Module, groups: int, terms=None):
+    """Set the train-mode BNs under `module` to `groups` sets of
+    statistics; terms: the ELBO terms they are, None for all."""
     for m in module.modules():
         if isinstance(m, BatchNorm):
             m.groups = groups
+            m.terms = terms
 
 
 def pop_moments(module: nn.Module) -> list:

@@ -122,7 +122,7 @@ def library():
                    ctypes.c_float)
     lib.mvae_poe_fwd.argtypes = [p] * 5 + [i, i, ll, i, p]
     lib.mvae_poe_bwd.argtypes = [p] * 7 + [i, i, ll, i, p]
-    lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, p, i, i, i, p, p]
+    lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, i, p, i, i, i, p, p]
     lib.mvae_bce_rowsum_fwd.restype = i
     lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p, p]
     lib.mvae_bn_normalize.argtypes = [p, i, p, p, p, p, f, p, p] + [i] * 4 + [

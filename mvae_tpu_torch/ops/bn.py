@@ -151,7 +151,9 @@ def reduce_launch(g: int, n: int, c: int, s: int, itemsize: int,
     Either way the block's rows are one block of PLANE_THREADS where its
     threads would load at most REDUCE_LOADS chunks each; else they are
     split over blocks of SPLIT_THREADS, as many as bring the grid to
-    REDUCE_TARGET_BLOCKS."""
+    REDUCE_TARGET_BLOCKS. Where the planes alone reach that many blocks
+    (celeba19's decoder at G = 21), the rows stay one block of
+    PLANE_THREADS."""
     columns = int(s * itemsize < 16)
     if columns:
         vec, per_row = 1, s
@@ -179,6 +181,9 @@ def reduce_launch(g: int, n: int, c: int, s: int, itemsize: int,
         tpr, _ = along(threads)
         splits = max(1, min(MAX_CLUSTER, n,
                             -(-REDUCE_TARGET_BLOCKS // across)))
+        if splits == 1:
+            threads = PLANE_THREADS
+            tpr, _ = along(threads)
     rows = -(-n // splits)
     splits = -(-n // rows)
     return dict(columns=columns, vec=vec, splits=splits, rows=rows,

@@ -10,8 +10,9 @@ Every endpoint is a deterministic function of (weights, inputs, seed).
 Request sizes are bucketed to the next power of two (pad, then slice), as
 in the JAX package, so a traffic mix sees a few fixed batch shapes.
 Outputs are activated as in the JAX package (serve.py:113-118): a softmax
-over the classes of a "text" modality of rank 2 or more, a sigmoid of the
-logits otherwise; images NHWC.
+over the last axis (the classes) of a "text" modality of rank 2 or more
+(MNIST's (N, 10), MultiMNIST's (N, 4, 12)), a sigmoid of the logits
+otherwise; images NHWC.
 """
 
 import torch
@@ -96,17 +97,20 @@ class Sampler:
                 self.reconstruct({name: zeros(name, m)})
 
     @torch.inference_mode()
-    def sample(self, n: int = 1, condition: dict = None, seed: int = 0):
+    def sample(self, n: int = 1, condition: dict = None, seed: int = 0,
+               **infer_options):
         """n samples of every modality, from the prior or conditioned on a
         dict of modality arrays with leading batch dim 1. The draw is made
-        at the bucket size from a generator seeded with `seed`."""
+        at the bucket size from a generator seeded with `seed`.
+        infer_options: the model's own (celeba19's attrs_mask, the
+        attribute experts that join the condition)."""
         m = _bucket(n)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         z = torch.randn((m, self.model.n_latents), generator=gen,
                         device=self.device)
         if condition:
             cond = {k: self._tensor(v) for k, v in condition.items()}
-            mu, logvar = self.model.infer(cond)
+            mu, logvar = self.model.infer(cond, **infer_options)
             z = mu[0] + z * torch.exp(0.5 * logvar[0])
         return {k: v[:n] for k, v in self.decode_latents(z).items()}
 

@@ -80,7 +80,7 @@ def bce_at(geo):
         out = torch.empty((x.shape[0],), device=x.device)
         rc = lib.mvae_bce_rowsum_fwd(
             x.data_ptr(), int(x.dtype == torch.bfloat16), t.data_ptr(),
-            int(t.dtype == torch.bfloat16), out.data_ptr(), *x.shape,
+            int(t.dtype == torch.bfloat16), 0, out.data_ptr(), *x.shape,
             t.shape[0], arr, _cuda.stream(x.device))
         _cuda.check(f"bce at {geo}", rc)
         return out

@@ -16,7 +16,12 @@ annealing_factor_from_step of its global step in f64, rounded to f32
 (:260-268). The reparametrization noise and the dropout masks come from a
 torch.Generator on the device, seeded from --seed (a stream apart from the
 initial weights'), whose state the checkpoint keeps, so a resumed run
-continues bit for bit where the first stopped.
+continues bit for bit where the first stopped. A family with sampled ELBO
+terms (celeba19, `make_masks`) draws each step's (T, M) masks and lambdas
+on the host from np.random.default_rng(seed + 1), k draws a window, as
+the JAX package does (:221, 269-272); the checkpoint keeps that
+Generator's state too, so a resume continues its sequence (the JAX
+package restarts it).
 
 Not ported yet: the mesh, multi-process feeding, tensor parallelism and
 host streaming (--no-device-data); utils/cli.py refuses their flags.
@@ -106,20 +111,31 @@ def evaluate(eval_step, data, n: int, batch_size: int) -> float:
 
 
 def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
-                 *, out_dir, meta, eval_term_lambdas=None, device=None):
+                 *, out_dir, meta, eval_term_lambdas=None, device=None,
+                 make_masks=None, eval_term_masks=None, recon_support=None,
+                 fast_skip_decode=False):
     """Train `model` (already on `device`: None is the CUDA card, raises
     without one) for epochs start .. args.epochs; meta: {"model": the
     family, "n_latents"}, written into every checkpoint.
-    eval_term_lambdas: the per-epoch eval's weights, where they differ
-    from training's (the MNIST families evaluate with 1s, as the
-    reference's test() calls its ELBO without weights; driver.py:38-40,
-    190-191). Returns the model."""
+    eval_term_masks, eval_term_lambdas: the per-epoch eval's terms and
+    weights, where they differ from training's (the MNIST families
+    evaluate with 1s, as the reference's test() calls its ELBO without
+    weights; celeba19 evaluates the joint term alone; driver.py:38-40,
+    190-191). make_masks: fn(np Generator) -> one step's (masks, lambdas)
+    for a family with sampled terms (celeba19), whose steps then take
+    those in place of term_masks and term_lambdas. recon_support,
+    fast_skip_decode: make_train_step's (--fast-term-decode). Returns the
+    model."""
     device = resolve_device(device)
     seed = args.seed
     generator = noise_generator(seed, device)
-    multi_step = L.make_multi_train_step(model, term_masks, term_lambdas,
-                                         lr=args.lr, generator=generator,
-                                         device=device)
+    mask_rng = np.random.default_rng(seed + 1)
+    dynamic = make_masks is not None
+    multi_step = L.make_multi_train_step(
+        model, None if dynamic else term_masks,
+        None if dynamic else term_lambdas, lr=args.lr, generator=generator,
+        device=device, recon_support=recon_support,
+        fast_skip_decode=fast_skip_decode)
     optimizer = multi_step.optimizer
     start_epoch, best_loss = 1, float("inf")
     if args.resume:
@@ -128,6 +144,8 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
         if {"optimizer", "epoch", "generator"} <= set(ckpt):
             optimizer.load_state_dict(ckpt["optimizer"])
             generator.set_state(ckpt["generator"])
+            if "mask_rng" in ckpt:
+                mask_rng.bit_generator.state = ckpt["mask_rng"]
             start_epoch = ckpt["epoch"] + 1
             best_loss = ckpt["best_loss"]
             print(f"resumed from {args.resume} at epoch {ckpt['epoch']}")
@@ -138,7 +156,7 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
                   f"fresh optimizer)")
 
     eval_step = L.make_eval_step(
-        model, term_masks,
+        model, term_masks if eval_term_masks is None else eval_term_masks,
         term_lambdas if eval_term_lambdas is None else eval_term_lambdas,
         device=device, device_data=True)
     train_dev = to_device_data(train_ds, device)
@@ -161,10 +179,15 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
             # first pays the kernel build and cuDNN's algorithm search)
             trace_now = bool(args.profile_dir and epoch == start_epoch
                              and (lo == K or (n_batches <= K and lo == 0)))
+            terms = {}
+            if dynamic:
+                ms, ls = zip(*[make_masks(mask_rng) for _ in range(k)])
+                terms = {key: torch.from_numpy(np.stack(v)).float().to(device)
+                         for key, v in (("masks", ms), ("lambdas", ls))}
             with maybe_trace(args.profile_dir, trace_now, device):
                 losses = multi_step(train_dev,
                                     torch.from_numpy(idxs).to(device),
-                                    betas.to(device)).tolist()
+                                    betas.to(device), **terms).tolist()
             for v in losses:                  # one readback a window
                 meter.update(v, B)
             n_steps += k
@@ -180,11 +203,12 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
         L.log_test(test_loss)
         is_best = test_loss < best_loss
         best_loss = min(test_loss, best_loss)
+        extra = {"mask_rng": mask_rng.bit_generator.state} if dynamic else {}
         save_checkpoint(dict(meta, state_dict=model.state_dict(),
                              optimizer=optimizer.state_dict(), epoch=epoch,
                              generator=generator.get_state(),
                              best_loss=float(best_loss),
-                             test_loss=float(test_loss)),
+                             test_loss=float(test_loss), **extra),
                         is_best, out_dir)
     return model
 

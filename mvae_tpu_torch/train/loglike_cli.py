@@ -46,10 +46,12 @@ def run_loglike(argv, model_ctor, load_test_ds):
     torch.backends.cudnn.allow_tf32 = False
     model, _ = load_model_checkpoint(args.model_path, model_ctor,
                                      device=device)
-    if args.target not in model.modalities + ("joint",):
-        p.error(f"--target must be one of {model.modalities + ('joint',)}")
-    targets = (list(model.modalities) if args.target == "joint"
-               else [args.target])
+    # the inputs whose losses log p(x|z) sums: the modalities, or the
+    # model's loglike_targets (celeba19's image and attrs inputs)
+    names = tuple(getattr(model, "loglike_targets", model.modalities))
+    if args.target not in names + ("joint",):
+        p.error(f"--target must be one of {names + ('joint',)}")
+    targets = list(names) if args.target == "joint" else [args.target]
     proposal = [1.0] * len(model.modalities)
     test_ds = load_test_ds(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)

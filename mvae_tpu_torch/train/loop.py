@@ -3,7 +3,7 @@
 
 import torch
 
-from mvae_tpu_torch.core.engine import multi_term_elbo
+from mvae_tpu_torch.core.engine import fast_decode_terms, multi_term_elbo
 from mvae_tpu_torch.device import resolve_device
 
 
@@ -75,22 +75,37 @@ def draw_noise(model, n_terms: int, batch: int, generator):
     model's device): eps (T, B, D) standard normal for the reparametrization
     and the encoder dropout's keep-mask, Bernoulli(1 - rate) as
     `jax.random.bernoulli` draws it (uniform < keep); a model without
-    dropout gets None and no draw."""
+    dropout gets None and no draw. A model with a decoder dropout
+    (decode_dropout_rate: MultiMNIST's text decoder) gets a third entry,
+    its keep-masks for the T * B decoded rows, drawn after the others, so
+    the other families' streams are those of a model without it."""
     dev = model.device
     eps = torch.randn((n_terms, batch, model.n_latents), generator=generator,
                       device=dev)
-    if not model.dropout_rate:
-        return eps, None
-    keep = 1.0 - model.dropout_rate
-    u = torch.rand(model.keep_mask_shape(batch), generator=generator,
-                   device=dev)
-    return eps, u < keep
+    keep = None
+    if model.dropout_rate:
+        u = torch.rand(model.keep_mask_shape(batch), generator=generator,
+                       device=dev)
+        keep = u < 1.0 - model.dropout_rate
+    rate = getattr(model, "decode_dropout_rate", 0.0)
+    if not rate:
+        return eps, keep
+    u = torch.rand(model.decode_keep_mask_shape(n_terms * batch),
+                   generator=generator, device=dev)
+    return eps, keep, u < 1.0 - rate
 
 
 def make_train_step(model, term_masks, term_lambdas, *, lr: float,
-                    generator, device=None, device_data: bool = False):
+                    generator, device=None, device_data: bool = False,
+                    recon_support=None, fast_skip_decode: bool = False):
     """One training step: the train-mode multi-term ELBO, its backward, an
     Adam update and the BN running-statistics commit.
+
+    term_masks, term_lambdas: (T, M), or None for a step that takes each
+    step's own (celeba19's sampled terms). fast_skip_decode: decode the
+    model's skip_decode_groups only for the terms whose recon_support
+    (numpy (T, M) 0/1) holds them (--fast-term-decode,
+    core/engine.py:fast_decode_terms).
 
     Adam is torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8), the same
     update as optax.adam (m_hat / (sqrt(v_hat) + eps)), its state in f32;
@@ -99,19 +114,26 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     device and device_data as in make_eval_step. Each call puts the model
     in train mode.
 
-    Step signature: train_step(batch, beta, noise=None) -> (loss, per_term
-    (T,)), detached tensors on the device, read by nobody. noise = (eps,
-    keep_mask) replaces the draw (tests feed the JAX package's).
+    Step signature: train_step(batch, beta, noise=None, masks=None,
+    lambdas=None) -> (loss, per_term (T,)), detached tensors on the
+    device, read by nobody. noise = (eps, keep_mask[, decode_keep_mask])
+    replaces the draw (tests feed the JAX package's); masks, lambdas:
+    this step's (T, M) tensors on the device, in place of the step's own.
     """
     device = _check_device(model, device, "train step")
-    masks = torch.as_tensor(term_masks, dtype=torch.float32, device=device)
-    lambdas = torch.as_tensor(term_lambdas, dtype=torch.float32,
-                              device=device)
+    masks = lambdas = None
+    if term_masks is not None:
+        masks = torch.as_tensor(term_masks, dtype=torch.float32,
+                                device=device)
+        lambdas = torch.as_tensor(term_lambdas, dtype=torch.float32,
+                                  device=device)
+    decode_terms = (fast_decode_terms(model, recon_support, device)
+                    if fast_skip_decode else None)
     decode_dt = resolve_decode_dtype(model)
     optimizer = torch.optim.Adam(model.parameters(), lr=lr,
                                  betas=(0.9, 0.999), eps=1e-8)
 
-    def train_step(batch, beta, noise=None):
+    def train_step(batch, beta, noise=None, masks=masks, lambdas=lambdas):
         model.train()
         batch = decode_batch(_gather(batch, device_data), decode_dt)
         if noise is None:
@@ -119,7 +141,8 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
             noise = draw_noise(model, masks.shape[0], b, generator)
         optimizer.zero_grad(set_to_none=True)
         total, aux = multi_term_elbo(model, batch, masks, lambdas, beta,
-                                     train=True, noise=noise)
+                                     train=True, noise=noise,
+                                     decode_terms=decode_terms)
         total.backward()
         optimizer.step()
         return total.detach(), aux["per_term"].detach()
@@ -129,30 +152,37 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
 
 
 def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
-                          generator, device=None):
+                          generator, device=None, recon_support=None,
+                          fast_skip_decode: bool = False):
     """K training steps per call over the device-resident dataset, with one
     loss buffer to read back (train/loop.py:146-212).
 
-    Step signature: multi_step(data, idxs (K, B), betas (K,), noise=None)
-    -> losses (K,), a tensor on the device that the caller reads once.
-    data: name -> the whole dataset on the device (uint8 images); each
-    step gathers its rows with index_select and decodes them in the
-    model's decode dtype. noise: optional (eps (K, T, B, D), keep_mask
-    (K, B, H) or None without dropout) in place of the generator's draws.
+    Step signature: multi_step(data, idxs (K, B), betas (K,), noise=None,
+    masks=None, lambdas=None) -> losses (K,), a tensor on the device that
+    the caller reads once. data: name -> the whole dataset on the device
+    (uint8 images); each step gathers its rows with index_select and
+    decodes them in the model's decode dtype. noise: optional (eps (K, T,
+    B, D), keep_mask (K, B, H) or None without dropout[, the decoder's
+    (K, ...) keep-masks]) in place of the generator's draws. masks,
+    lambdas: (K, T, M), each step's terms, where the step has none of its
+    own (term_masks None); the other arguments as make_train_step's.
 
     The K steps run as K eager steps; capturing the window as one CUDA
     graph is a later speed item.
     """
     step = make_train_step(model, term_masks, term_lambdas, lr=lr,
                            generator=generator, device=device,
-                           device_data=True)
+                           device_data=True, recon_support=recon_support,
+                           fast_skip_decode=fast_skip_decode)
 
-    def multi_step(data, idxs, betas, noise=None):
+    def multi_step(data, idxs, betas, noise=None, masks=None, lambdas=None):
         losses = []
         for k in range(idxs.shape[0]):
-            nk = None if noise is None else (
-                noise[0][k], None if noise[1] is None else noise[1][k])
-            losses.append(step((data, idxs[k]), betas[k], nk)[0])
+            nk = None if noise is None else tuple(
+                None if n is None else n[k] for n in noise)
+            terms = {} if masks is None else dict(masks=masks[k],
+                                                  lambdas=lambdas[k])
+            losses.append(step((data, idxs[k]), betas[k], nk, **terms)[0])
         return torch.stack(losses)
 
     multi_step.optimizer = step.optimizer

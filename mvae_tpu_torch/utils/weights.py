@@ -3,12 +3,14 @@ into the port's reference-layout `state_dict`.
 
 `state_dict_from_jax(family, ...)` is the port's own copy of the
 exporters of the ported families in mvae_tpu/utils/torch_export.py
-(:31-153, 182-209): Linear weights transpose to (out, in), HWIO conv
+(:31-234): Linear weights transpose to (out, in), HWIO conv
 kernels become OIHW (the transposed conv's stored (k, k, c_out, c_in)
 becomes torch's (c_in, c_out, k, k)), the fc layers that feed or follow a
 `view(-1, C, H, W)` permute between the JAX package's (h, w, c) order and
 torch's (c, h, w) order, MNIST's single 2L heads split into the
-reference's fc31 / fc32, and embedding tables keep their layout.
+reference's fc31 / fc32, embedding tables keep their layout, GRU cells
+become nn.GRU's `_l{layer}[_reverse]` tensors, and celeba19's stacked
+experts unstack along their expert axis.
 """
 
 import numpy as np
@@ -73,6 +75,14 @@ def _x_embed(sd, p, emb):
     sd[p + ".weight"] = _np(emb["table"])
 
 
+def _x_gru(sd, p, layer, g, reverse=False):
+    sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+    sd[f"{p}.weight_ih{sfx}"] = _np(g["w_ih"]).T.copy()
+    sd[f"{p}.weight_hh{sfx}"] = _np(g["w_hh"]).T.copy()
+    sd[f"{p}.bias_ih{sfx}"] = _np(g["b_ih"])
+    sd[f"{p}.bias_hh{sfx}"] = _np(g["b_hh"])
+
+
 def _x_dcgan_enc(sd, mod, conv_ix, bn_ix, params, state):
     for j, ci in enumerate(conv_ix):
         _x_conv(sd, f"{mod}.features.{ci}", params[j]["conv"])
@@ -89,15 +99,17 @@ def _x_dcgan_dec(sd, mod, conv_ix, bn_ix, params, state):
                   params[j]["bn"], state[j])
 
 
-def _x_celeba_image_side(sd, params, state):
+def _x_celeba_image_side(sd, params, state, side=5):
+    """The DCGAN image encoder and decoder (CelebA's, and MultiMNIST's with
+    side 2)."""
     enc = params["image_enc"]
     _x_dcgan_enc(sd, "image_encoder", (0, 2, 5, 8), (3, 6, 9),
                  enc["conv"], state["enc"]["image"])
-    _x_lin_flat(sd, "image_encoder.classifier.0", 256, 5, 5,
+    _x_lin_flat(sd, "image_encoder.classifier.0", 256, side, side,
                 enc["head"]["fc"])
     _x_lin(sd, "image_encoder.classifier.3", enc["head"]["out"])
     dec = params["image_dec"]
-    _x_lin_up(sd, "image_decoder.upsample.0", 256, 5, 5, dec["up"])
+    _x_lin_up(sd, "image_decoder.upsample.0", 256, side, side, dec["up"])
     _x_dcgan_dec(sd, "image_decoder", (0, 3, 6, 9), (1, 4, 7),
                  dec["deconv"], state["dec"]["image"])
 
@@ -157,8 +169,49 @@ def _export_fashionmnist(params, state):
     return sd
 
 
+def _export_multimnist(params, state):
+    sd = {}
+    _x_celeba_image_side(sd, params, state, side=2)
+    te = params["text_enc"]
+    _x_embed(sd, "text_encoder.embed", te["embed"])
+    _x_gru(sd, "text_encoder.gru", 0, te["gru_f"])
+    _x_gru(sd, "text_encoder.gru", 0, te["gru_b"], reverse=True)
+    _x_lin(sd, "text_encoder.h2p", te["h2p"])
+    td = params["text_dec"]
+    _x_embed(sd, "text_decoder.embed", td["embed"])
+    _x_lin(sd, "text_decoder.z2h", td["z2h"])
+    _x_gru(sd, "text_decoder.gru", 0, td["gru1"])
+    _x_gru(sd, "text_decoder.gru", 1, td["gru2"])
+    _x_lin(sd, "text_decoder.h2o", td["h2o"])
+    return sd
+
+
+def _export_celeba19(params, state, n_attrs=18):
+    sd = {}
+    _x_celeba_image_side(sd, params, state)
+
+    def unstack(prefix, idx, stacked):
+        w, b = _np(stacked["w"]), _np(stacked["b"])
+        for i in range(n_attrs):
+            sd[f"{prefix}.{i}.net.{idx}.weight"] = w[i].T.copy()
+            sd[f"{prefix}.{i}.net.{idx}.bias"] = b[i].copy()
+
+    ae = params["attr_enc_experts"]
+    emb = _np(ae["embed"])                              # (18, 2, 512)
+    for i in range(n_attrs):
+        sd[f"attr_encoders.{i}.net.0.weight"] = emb[i].copy()
+    unstack("attr_encoders", 2, ae["fc"])
+    unstack("attr_encoders", 4, ae["head"])
+    ad = params["attr_dec_experts"]
+    for j, idx in enumerate((0, 2, 4)):
+        unstack("attr_decoders", idx, ad["fc"][j])
+    unstack("attr_decoders", 6, ad["head"])
+    return sd
+
+
 EXPORTERS = {"mnist": _export_mnist, "fashionmnist": _export_fashionmnist,
-             "celeba": _export_celeba}
+             "celeba": _export_celeba, "multimnist": _export_multimnist,
+             "celeba19": _export_celeba19}
 
 
 def state_dict_from_jax(family, params, state):
@@ -179,6 +232,8 @@ def checkpoint_family(state_dict, meta) -> str:
     if "model" in meta:
         return meta["model"]
     for family, key in (("celeba", "attrs_encoder.net.0.weight"),
+                        ("celeba19", "attr_encoders.0.net.0.weight"),
+                        ("multimnist", "text_encoder.gru.weight_ih_l0"),
                         ("fashionmnist", "text_encoder.net.0.weight"),
                         ("mnist", "text_encoder.fc1.weight")):
         if key in state_dict:

@@ -14,7 +14,12 @@ import torch
 
 from mvae_tpu_torch import ops
 from mvae_tpu_torch.core.engine import multi_term_elbo
+from mvae_tpu_torch.core.engine import fast_decode_terms
+from mvae_tpu_torch.core.subsets import (
+    celeba19_recon_support, celeba19_step_terms)
 from mvae_tpu_torch.models.celeba import CelebaMVAE
+from mvae_tpu_torch.models.celeba19 import Celeba19MVAE
+from mvae_tpu_torch.models.multimnist import MultiMnistMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops import convbn
@@ -38,6 +43,12 @@ BCE_TOL = dict(rtol=1e-5, atol=1e-4)
 BN_SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 BN_OUT_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
               torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# bn_dx's dscale and dbias add the G groups' (C,) terms in another order
+# than torch.sum does; at celeba19's G = 21 the terms cancel (a sum of 0.87
+# from terms of several units read 9.8e-6 apart), so with more than 3
+# groups they are held to the bound of a reordered f32 sum: this rtol times
+# the sum of the terms' magnitudes, plus BN_SUM_TOL's atol
+GROUP_SUM_RTOL = 1e-5
 # conv2d_moments against its plain version (cuDNN, TF32 off): f32 y sums
 # up to 2048 products in another order; bf16 y rounds an f32 accumulator
 # once on both sides, so a rare y sits one bf16 step apart (2^-7
@@ -65,7 +76,13 @@ BN_SHAPES = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
              (1, 100, 512, 1), (3, 100, 128, 64), (3, 100, 64, 256),
              (3, 100, 32, 1024), (3, 100, 512, 1), (1, 1, 7, 1),
              (1, 33, 50, 1), (2, 3, 4, 25), (2, 5, 40, 3), (1, 1000, 8, 16),
-             (1, 2, 3, 4096), (1, 1000, 20, 1), (3, 300, 9, 2)]
+             (1, 2, 3, 4096), (1, 1000, 20, 1), (3, 300, 9, 2),
+             # MultiMNIST's encoder and decoder (S = 144, 36, 4; 36, 144,
+             # 625: bf16 planes of no whole 16-byte chunk but at 144),
+             # then celeba19's decoder at G = 21 terms
+             (1, 100, 64, 144), (1, 100, 128, 36), (1, 100, 256, 4),
+             (3, 100, 128, 36), (3, 100, 64, 144), (3, 100, 32, 625),
+             (21, 100, 128, 64), (21, 100, 64, 256), (21, 100, 32, 1024)]
 
 
 @pytest.fixture
@@ -78,8 +95,10 @@ def cuda():
 
 
 # (T, M, B): serving's one mask row, the steps' three terms, celeba19's
-# expert count over more terms than poe_bwd has in flight
-POE_CASES = [(1, 2, 1), (1, 2, 64), (3, 2, 100), (5, 19, 7)]
+# expert count over more terms than poe_bwd has in flight, and celeba19's
+# step (T = 21) and infer / IWAE proposal (T = 1) at the expert cap 32
+POE_CASES = [(1, 2, 1), (1, 2, 64), (3, 2, 100), (5, 19, 7), (21, 19, 100),
+             (1, 19, 100)]
 # (T, M, B, D) with B*D off the 128 columns of a block (1, 7, 10003) or not
 # (6400), at each expert cap
 POE_RAGGED = [(3, 2, 1, 1), (3, 2, 1, 7), (3, 2, 64, 100), (3, 2, 7, 1429),
@@ -175,6 +194,20 @@ BCE_CASES = [
     (5, 5, 132, torch.float32, torch.float32),          # 33 chunks: wide
     (4, 4, 50000, torch.bfloat16, torch.bfloat16),      # a cluster of 3,
                                                         # K off its spans
+    (300, 100, 2500, torch.bfloat16, torch.bfloat16),   # MultiMNIST's
+    (300, 100, 2500, torch.float32, torch.bfloat16),    # steps (element
+    (10000, 100, 2500, torch.float32, torch.float32),   # loads) and IWAE
+    (2100, 100, 12288, torch.bfloat16, torch.bfloat16),  # celeba19's step
+]
+# the bf16-math mode (bf16 logits): celeba19's train step (2100 image rows
+# against 100 targets; the 18-wide attribute rows), MultiMNIST's 2500
+# pixels and targets in f32. Each element equals the plain version's bit
+# for bit (the precise expf and log1pf, as PyTorch's bf16 ops take them);
+# the row sums differ in order only, at BCE_TOL
+BCE_BF16_CASES = [
+    (2100, 100, 12288, torch.bfloat16, torch.bfloat16),
+    (2100, 100, 18, torch.bfloat16, torch.bfloat16),
+    (300, 100, 2500, torch.bfloat16, torch.float32),
 ]
 
 
@@ -214,6 +247,20 @@ def test_bce_kernel_is_the_same_from_run_to_run(cuda, n, nt, k, x_dt, t_dt):
     first = ops.bce_rowsum_fwd(x, t)
     for _ in range(3):
         assert torch.equal(ops.bce_rowsum_fwd(x, t), first)
+
+
+@pytest.mark.parametrize("n,nt,k,x_dt,t_dt", BCE_BF16_CASES)
+def test_bce_bf16_math_matches_plain_and_reruns(cuda, n, nt, k, x_dt, t_dt):
+    """bf16_math: the kernel against its plain version's bf16 steps, one
+    launch, bit-identical on a rerun, and apart from the f32 math."""
+    x, t = _bce_inputs(cuda, n, nt, k, x_dt, t_dt)
+    before = ops.bce_rowsum_fwd.launches
+    got = ops.bce_sum(x, t, bf16_math=True)
+    torch.cuda.synchronize()
+    assert ops.bce_rowsum_fwd.launches == before + 1
+    torch.testing.assert_close(got, bce_rowsum_plain(x, t, True), **BCE_TOL)
+    assert torch.equal(ops.bce_rowsum_fwd(x, t, True), got)
+    assert not torch.equal(ops.bce_rowsum_fwd(x, t), got)
 
 
 def _strided(x):
@@ -427,8 +474,13 @@ def _bn_passes_match_plain(x4, g4, scale, bias):
     assert got[0].dtype == dtype and got[0].shape == x4.shape
     torch.testing.assert_close(got[0].float(), want[0].float(),
                                **BN_OUT_TOL[dtype])
-    for k, p in zip(got[1:], want[1:]):
-        torch.testing.assert_close(k, p, **BN_SUM_TOL)
+    sdzxh = bn_ops.bn_dx_coeffs(sdz, sdzx, m, a, mean, invstd)[0]
+    for k, p, terms in zip(got[1:], want[1:], (sdzxh, sdz)):
+        if x4.shape[0] <= 3:
+            torch.testing.assert_close(k, p, **BN_SUM_TOL)
+        else:
+            bound = BN_SUM_TOL["atol"] + GROUP_SUM_RTOL * terms.abs().sum(0)
+            assert ((k - p).abs() <= bound).all(), (k - p).abs().max()
     torch.cuda.synchronize()
     after = ops.launch_counts()
     for k in ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx"):
@@ -671,3 +723,108 @@ def test_multi_train_step_on_the_card(cuda):
     for k, v in model.state_dict().items():
         if not k.endswith("num_batches_tracked"):
             assert not torch.equal(v, before[k]), k
+
+
+def _family_step(model, batch, masks, lambdas, noise, **kw):
+    model.train()
+    model.zero_grad(set_to_none=True)
+    dev = model.device
+    total, _ = multi_term_elbo(model, batch, torch.tensor(masks, device=dev),
+                               torch.tensor(lambdas, device=dev), 1.0,
+                               train=True, noise=noise, **kw)
+    total.backward()
+    return total.detach(), {k: p.grad.clone()
+                            for k, p in model.named_parameters()}
+
+
+def _grads_close(grads, p_grads):
+    """Every gradient within 1e-4 of the plain versions' in relative norm
+    (f32, TF32 off); the backward GRU's weight_hh meets h0 = 0 only, so
+    both sides' are exactly 0."""
+    for k, want in p_grads.items():
+        gap = (grads[k] - want).norm().item()
+        assert gap <= 1e-4 * want.norm().item(), (k, gap)
+
+
+def test_multimnist_step_goes_through_the_kernels(cuda):
+    """One MultiMNIST train-mode ELBO and its backward on the card, the
+    encoder's conv3 on the fused route: 1 PoE forward and backward, 1 BCE
+    launch (the text is a CE), conv2d_moments once (conv3), each BN pass
+    once for each of the other 5 BN layers (S = 144, 4; 36, 144, 625);
+    loss and gradients against the plain versions."""
+    model = MultiMnistMVAE(8, conv_moments=True, device=cuda)
+    twin = copy.deepcopy(model)
+    rng = np.random.default_rng(0)
+    batch = decode_batch({
+        "image": torch.from_numpy(rng.integers(0, 256, (4, 50, 50, 1),
+                                               dtype=np.uint8)).to(cuda),
+        "text": torch.from_numpy(rng.integers(0, 12, (4, 4)).astype(
+            np.int32)).to(cuda)})
+    noise = draw_noise(model, 3, 4,
+                       torch.Generator(device=cuda).manual_seed(1))
+    assert len(noise) == 3
+    ops.reset_launch_counts()
+    total, grads = _family_step(model, batch, MASKS, LAMBDAS, noise)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "poe_fwd": 1, "poe_bwd": 1, "bce_rowsum_fwd": 1, "bn_moments": 5,
+        "bn_normalize": 5, "bn_bwd_partials": 5, "bn_dx": 5,
+        "conv2d_moments": 1}
+    with ops.plain_versions():
+        p_total, p_grads = _family_step(twin, batch, MASKS, LAMBDAS, noise)
+    torch.testing.assert_close(total, p_total, rtol=1e-5, atol=0)
+    _grads_close(grads, p_grads)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_celeba19_step_goes_through_the_kernels(cuda, fast):
+    """One celeba19 train-mode ELBO at T = 21 (one sampled term) and its
+    backward on the card: 1 PoE forward and backward at M = 19 (the expert
+    cap 32), 1 BCE launch (the image rows; the attributes' scalar BCEs
+    are elementwise), each BN pass once for each of the encoder's 3 and
+    the decoder's 3 BN layers (G = 21, or G = 3 under --fast-term-decode);
+    loss and gradients against the plain versions."""
+    model = Celeba19MVAE(8, device=cuda)
+    twin = copy.deepcopy(model)
+    batch = decode_batch(_batch(cuda))
+    masks, lambdas = celeba19_step_terms(np.random.default_rng(2), 1, 18,
+                                         1.0, 10.0)
+    kw = {}
+    if fast:
+        kw["decode_terms"] = fast_decode_terms(
+            model, celeba19_recon_support(1), cuda)
+    noise = draw_noise(model, 21, 4,
+                       torch.Generator(device=cuda).manual_seed(1))
+    ops.reset_launch_counts()
+    total, grads = _family_step(model, batch, masks, lambdas, noise, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "poe_fwd": 1, "poe_bwd": 1, "bce_rowsum_fwd": 1, "bn_moments": 6,
+        "bn_normalize": 6, "bn_bwd_partials": 6, "bn_dx": 6,
+        "conv2d_moments": 0}
+    with ops.plain_versions():
+        p_total, p_grads = _family_step(twin, batch, masks, lambdas, noise,
+                                        **kw)
+    torch.testing.assert_close(total, p_total, rtol=1e-5, atol=0)
+    _grads_close(grads, p_grads)
+
+
+def test_celeba19_iwae_goes_through_the_kernels(cuda):
+    """The celeba19 IWAE (the loglike CLI's joint target: the image's and
+    the attributes' row-summed BCEs) on the card: one PoE launch at M = 19,
+    one BCE launch for each target input, and the estimate within rtol
+    1e-5 of the plain versions'."""
+    from mvae_tpu_torch.core.loglike import iwae_log_marginal
+    model = Celeba19MVAE(8, device=cuda)
+    batch = decode_batch(_batch(cuda))
+    eps = torch.randn((3, 4, 8), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(2))
+    args = (model, batch, [1.0] * 19, list(model.loglike_targets), 3)
+    ops.reset_launch_counts()
+    got = iwae_log_marginal(*args, eps=eps)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["poe_fwd"] == 1 and counts["bce_rowsum_fwd"] == 2
+    with ops.plain_versions():
+        want = iwae_log_marginal(*args, eps=eps)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

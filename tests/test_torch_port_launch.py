@@ -164,6 +164,12 @@ BN_CELEBA = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
 BN_RAGGED = [(1, 1, 7, 1), (2, 5, 40, 3), (1, 33, 50, 1), (2, 3, 4, 25),
              (1, 1000, 8, 16), (1, 2, 3, 200), (1, 1000, 20, 1),
              (3, 300, 9, 2)]
+# the MultiMNIST train step's 3 + 3 BN layers (S = 144, 36, 4 in the
+# encoder; 36, 144, 625 in the decoder, G = 3: planes whose bf16 S holds
+# no whole 16-byte chunk but at 144), then celeba19's decoder at G = 21
+BN_MULTIMNIST = [(1, 100, 64, 144), (1, 100, 128, 36), (1, 100, 256, 4),
+                 (3, 100, 128, 36), (3, 100, 64, 144), (3, 100, 32, 625)]
+BN_CELEBA19 = [(21, 100, 128, 64), (21, 100, 64, 256), (21, 100, 32, 1024)]
 
 
 # the two reductions of csrc/bn_swish.cu by the tensors an element reads:
@@ -181,7 +187,8 @@ def _reduce(shape, itemsize, op, aligned=(True, True)):
 
 @pytest.mark.parametrize("op", sorted(REDUCTIONS))
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", BN_CELEBA + BN_RAGGED)
+@pytest.mark.parametrize("shape", BN_CELEBA + BN_MULTIMNIST + BN_CELEBA19
+                         + BN_RAGGED)
 def test_bn_bwd_partials_rows_in_exactly_one_block(shape, dtype, op):
     """Both reductions (bn_moments, bn_bwd_partials): every row of every
     plane lies in exactly one block, no block is empty, splits <= N and
@@ -281,6 +288,14 @@ BCE_SHAPES = [(300, 12288, "f32", "bf16"), (300, 12288, "bf16", "bf16"),
 BCE_784 = [(300, 784, "f32", "f32"), (300, 784, "bf16", "bf16"),
            (300, 784, "f32", "bf16"), (10000, 784, "f32", "f32")]
 BCE_SHAPES += BCE_784
+# MultiMNIST's 2500 pixels: the bf16 train step (bf16 both: 2500 holds no
+# whole 16-byte chunk of bf16), the eval step (f32 logits, bf16 targets)
+# and the IWAE's sample rows (f32); celeba19's train step, T * B = 2100
+# rows against 100 targets, and its joint eval
+BCE_FAMILIES = [(300, 2500, "bf16", "bf16"), (300, 2500, "f32", "bf16"),
+                (10000, 2500, "f32", "f32"), (2100, 12288, "bf16", "bf16"),
+                (100, 12288, "f32", "bf16")]
+BCE_SHAPES += BCE_FAMILIES
 _SIZE = {"f32": 4, "bf16": 2}
 
 
@@ -390,7 +405,8 @@ def test_bce_shared_target_rows_are_read_by_each_group(n, nt):
 
 @pytest.mark.parametrize("shape,aligned", [
     ((300, 12288, "f32", "bf16"), False), ((8, 12290, "bf16", "f32"), True),
-    ((300, 12294, "f32", "f32"), True), ((300, 18, "f32", "f32"), True)])
+    ((300, 12294, "f32", "f32"), True), ((300, 18, "f32", "f32"), True),
+    ((300, 2500, "bf16", "bf16"), True), ((300, 2500, "f32", "bf16"), True)])
 def test_bce_unaligned_or_ragged_rows_load_by_element(shape, aligned):
     """A tensor off a 16-byte boundary, or K not a whole number of 16-byte
     chunks of the narrower type, loads element by element."""
@@ -403,7 +419,8 @@ def test_bce_unaligned_or_ragged_rows_load_by_element(shape, aligned):
 # CelebA layers, then S = 1 with C off the chunk and an odd numel, S = 25,
 # S = 3 and 5 with odd numels, (G, C) = (2, 4000)
 STREAM_SHAPES = BN_CELEBA + [(1, 5, 7, 1), (2, 3, 4, 25), (1, 3, 5, 3),
-                             (3, 7, 9, 5), (1, 33, 50, 1), (2, 20, 4000, 1)]
+                             (3, 7, 9, 5), (1, 33, 50, 1),
+                             (2, 20, 4000, 1)] + BN_MULTIMNIST
 # each tensor's address modulo 16: aligned; x and the output both 2 or 4
 # bytes past a boundary (a head); x off by one element against the rest
 # (no 16-byte chunk lines up in all, one element a chunk)
@@ -558,9 +575,50 @@ def test_bn_stream_whole_chunks_only_where_s_holds_them(dtype):
                                        (itemsize, itemsize))["whole"]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bn_stream_element_loads_at_multimnist_planes(dtype):
+    """MultiMNIST's planes: S = 625 holds no whole chunk in either dtype,
+    S = 36 and 4 only a whole f32 chunk (4 elements), S = 144 both: the
+    streams take `whole` chunks only there, and every other element forms
+    its own channel (the element-load path PERF.md times)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // itemsize
+    for shape in BN_MULTIMNIST:
+        for launch in (bn_ops.normalize_launch, bn_ops.dx_launch):
+            lay = launch(*shape, itemsize)
+            assert lay["whole"] == (shape[3] % vec == 0), shape
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BN_CELEBA19)
+def test_bn_stream_at_21_term_groups(shape, dtype):
+    """celeba19's decoder planes at G = 21 (up to 68.8M elements): the
+    streams' chunks cover the elements (head + chunks * vec + tail), whole
+    chunks, a whole wave of blocks, and the (g, c) the kernel forms for a
+    sample of 2^20 elements across the range (every group boundary and
+    random ones) is each element's own."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    g, n, c, s = shape
+    numel = g * n * c * s
+    for kind in sorted(STREAM_KINDS):
+        lay, *_ = _stream(shape, dtype, kind, "aligned")
+        assert lay["head"] + lay["chunks"] * lay["vec"] + lay["tail"] == numel
+        assert lay["whole"] and lay["vec"] == 16 // itemsize
+        assert lay["blocks"] % SM_COUNT == 0
+        assert lay["chunks"] > (lay["blocks"] - SM_COUNT) * lay["threads"]
+    rng = np.random.default_rng(g + c)
+    bounds = np.arange(g)[:, None] * (n * c * s) + np.array([-1, 0, 1])
+    e = np.concatenate([bounds.ravel()[1:], numel - 1 - np.arange(4),
+                        rng.integers(0, numel, 1 << 20)]).astype(np.int64)
+    np.testing.assert_array_equal(_channel_of(lay, c, e),
+                                  e // (n * c * s) * c + e // s % c)
+
+
 # poe_fwd and poe_bwd (csrc/poe.cu): one column a thread in blocks of the
 # kernels' constant kThreads, as many blocks as cover the columns; B*D
-# columns of one row and of a few, the CelebA steps' 10^4 and one past it
+# columns of one row and of a few, MultiMNIST's 6400 (B = 100, D = 64),
+# the CelebA and celeba19 steps' 10^4 (celeba19 at T = 21 and T = 1 with
+# M = 19, the expert cap 32) and one past it
 POE_COLS = [1, 7, 6400, 10000, 10003]
 POE_SOURCE = Path(poe.__file__).parents[1] / "csrc" / "poe.cu"
 

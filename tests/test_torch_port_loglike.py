@@ -207,5 +207,5 @@ def test_sampler_from_checkpoint_builds_the_family(tmp_path, cls, family,
 
 
 def test_state_dict_from_jax_refuses_an_unported_family():
-    with pytest.raises(ValueError, match="multimnist"):
-        state_dict_from_jax("multimnist", {}, {})
+    with pytest.raises(ValueError, match="vision"):
+        state_dict_from_jax("vision", {}, {})

@@ -15,7 +15,8 @@ import torch
 import mvae_tpu_torch
 import mvae_tpu_torch.experiments.celeba.train as celeba_cli
 from mvae_tpu_torch.core.engine import multi_term_elbo
-from mvae_tpu_torch.models import FashionMnistMVAE, MnistMVAE
+from mvae_tpu_torch.models import (
+    Celeba19MVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE)
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.train.driver import load_model_checkpoint
@@ -53,7 +54,8 @@ def test_import_pulls_in_no_jax_and_no_mvae_tpu():
 # every CLI of the port: python -m mvae_tpu_torch.experiments.<family>.<cli>
 CLIS = ["experiments.celeba.train", "experiments.celeba.sample",
         "experiments.celeba.loglike"] + [
-    f"experiments.{family}.{cli}" for family in ("mnist", "fashionmnist")
+    f"experiments.{family}.{cli}" for family in ("mnist", "fashionmnist",
+                                                 "multimnist", "celeba19")
     for cli in ("train", "sample", "loglike")]
 
 
@@ -62,10 +64,13 @@ def test_import_rule_covers_the_trainer():
     checkpoint code, the IWAE, the PNG writer and every CLI."""
     mods = set(_all_modules())
     for name in ["data.pipeline", "data.celeba", "data.mnist",
-                 "models.mnist", "models.fashionmnist", "core.loglike",
-                 "train.driver", "train.checkpoint", "train.loglike_cli",
-                 "utils.cli", "utils.png", "utils.profiling",
-                 "ops.convbn"] + CLIS:
+                 "data.multimnist", "data.text", "models.mnist",
+                 "models.fashionmnist", "models.multimnist",
+                 "models.celeba19", "nn.rnn", "core.subsets",
+                 "core.loglike", "train.driver", "train.checkpoint",
+                 "train.loglike_cli", "utils.cli", "utils.png",
+                 "utils.profiling", "ops.convbn",
+                 "experiments.multimnist.datasets"] + CLIS:
         assert f"mvae_tpu_torch.{name}" in mods, name
 
 
@@ -81,7 +86,8 @@ def test_sources_name_no_jax_and_no_mvae_tpu_module():
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
         monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for cls in (CelebaMVAE, MnistMVAE, FashionMnistMVAE):
+    for cls in (CelebaMVAE, MnistMVAE, FashionMnistMVAE, MultiMnistMVAE,
+                Celeba19MVAE):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(8)
     model = CelebaMVAE(8, device="cpu")
@@ -165,6 +171,27 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
         with pytest.raises(SystemExit):
             celeba_cli.main(["--device", "cpu", flag])
         assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("family,loader", [("multimnist", "load_multimnist"),
+                                           ("celeba19", "load_celeba")])
+def test_family_train_clis_raise_without_cuda_unless_asked_for_cpu(
+        monkeypatch, tmp_path, family, loader):
+    """The MultiMNIST and celeba19 train CLIs resolve their device before
+    they load data, as the CelebA one does."""
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
+                        torch.backends.cudnn.allow_tf32)
+    cli = importlib.import_module(f"mvae_tpu_torch.experiments.{family}.train")
+    loads = []
+    monkeypatch.setattr(cli, loader, lambda *a, **k: loads.append(a) or 1 / 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--out-dir", str(tmp_path)])
+    assert loads == []
+    with pytest.raises(ZeroDivisionError):
+        cli.main(["--device", "cpu", "--out-dir", str(tmp_path)])
+    assert len(loads) == 1
 
 
 def test_train_mode_is_refused_until_ported():
