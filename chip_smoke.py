@@ -4,9 +4,9 @@ NVIDIA GPU: builds the CUDA kernels from `mvae_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the serving
 endpoints, the eval-mode ELBO, the training step and the training CLI of
 the shipped CelebA model at full width, then the MNIST, FashionMNIST,
-MultiMNIST and CelebA-19 families end to end (train, sample and loglike
-CLIs, serving) and the CelebA sample and loglike CLIs, and shows that those
-paths went through the kernels.
+MultiMNIST, CelebA-19 and vision families end to end (train, sample and
+loglike CLIs, serving) and the CelebA sample and loglike CLIs, and shows
+that those paths went through the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -23,7 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
      BCE's 2500-wide rows (bf16: element loads), celeba19's (2100, 12288)
      train rows in the f32 math and the bf16 math, its eval and IWAE rows,
      the four BN passes at MultiMNIST's planes (S = 144, 36, 4, 625) and
-     celeba19's decoder at G=21; every kernel launched
+     celeba19's decoder at G=21; vision's shapes: the PoE at T=7 and T=1
+     over M=6 (the expert cap 8), B=50, D=250, the BCE's (350, 12288)
+     and (350, 4096) bf16 train rows against 50 targets, its eval and
+     IWAE rows, the four BN passes at its six encoders' B=50 planes and
+     six decoders' G=7 planes, conv2d_moments at its B=50 convs (bf16);
+     every kernel launched
      twice gives bit-identical results. Each kernel is timed two ways:
      device_ms (one launch between events, the L2 flushed before it:
      carries the measuring floor of the `[kernel] floor` line) and
@@ -67,6 +72,16 @@ Phases (any failure exits non-zero; nothing is caught):
      loglike CLI at K=100; Sampler.from_checkpoint; the train step in
      turns against the plain versions, reference-exact and fast; profile
      lines of both steps and of an IWAE batch
+  6f. vision on 6b's synthetic CelebA set: derive_modalities on the card
+     (timed, its hysteresis iterations), the train CLI at its defaults
+     (bf16, L=250, B=50, T=7 terms that each reconstruct all six
+     modalities) for 2 epochs on the fused route, --resume for a third,
+     a fourth streamed from the host (--no-device-data), a reconstruction
+     grid each epoch; the sample CLI conditioned on a test image read as
+     each of the six modalities; the joint loglike CLI at K=100;
+     Sampler.from_checkpoint at every endpoint; the bf16 train step in
+     turns against the plain versions; profile lines of the step and of
+     an IWAE batch (two decode chunks)
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -77,11 +92,13 @@ Phases (any failure exits non-zero; nothing is caught):
      K=100, B=100) and f32 card vs CPU; for MultiMNIST and celeba19 one
      train step, kernel path vs plain versions (loss above its floor,
      every gradient) in bf16 and f32 (celeba19 in bf16 with the BCE's bf16
-     math and its f32 math), and f32 card vs CPU
-  8. the kernels line: launches on phases 3-5 and 6b-6e, error, times,
+     math and its f32 math), and f32 card vs CPU; the same for vision's
+     T=7 step, and Canny on the card against the CPU (edges equal but at
+     ties)
+  8. the kernels line: launches on phases 3-5 and 6b-6f, error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
-Phases 3-5 and 6c-6e end with a torch.profiler breakdown of device time
+Phases 3-5 and 6c-6f end with a torch.profiler breakdown of device time
 per call.
 Weights are random from seed 0, the BN statistics and affine parameters
 too. The last line is {"ok": true, "device": {...}}.
@@ -130,9 +147,16 @@ from mvae_tpu_torch.core.engine import fast_decode_terms
 from mvae_tpu_torch.core.subsets import (
     celeba19_recon_support, celeba19_step_terms)
 from mvae_tpu_torch.data.multimnist import load_multimnist, make_dataset
+from mvae_tpu_torch.data.pipeline import ArrayDataset
+from mvae_tpu_torch.data.vision import derive_modalities, load_celeb_vision
+from mvae_tpu_torch.experiments.vision import (
+    loglike as v_loglike, sample as v_sample, train as v_train)
+from mvae_tpu_torch.image import transforms as image_ops
 from mvae_tpu_torch.data.text import decode_tokens
 from mvae_tpu_torch.models import (
-    Celeba19MVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE)
+    Celeba19MVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE, VisionMVAE)
+from mvae_tpu_torch.models.vision import (
+    CHANNELS as V_CHANNELS, MODALITIES as V_MODALITIES)
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
@@ -145,6 +169,7 @@ from mvae_tpu_torch.train.driver import to_device_data
 from mvae_tpu_torch.train.loop import (
     decode_batch, draw_noise, make_eval_step, make_multi_train_step,
     resolve_decode_dtype)
+from mvae_tpu_torch.utils.png import write_png
 
 MASKS = [[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]]
 LAMBDAS = [[1.0, 10.0]] * 3        # experiments/celeba/train.py:21
@@ -262,6 +287,17 @@ FAMILY_BN_LAYERS = (
     ("celeba19 dec convT2", 1, 21, 100, 64, 256, torch.bfloat16),
     ("celeba19 dec convT3", 1, 21, 100, 32, 1024, torch.bfloat16),
 )
+# the BN layers of vision's bf16 train step at its B=50: six encoders'
+# (B = 50 rows) and six decoders' (G = 7 terms), "x6 per step"; timed
+# apart from CelebA's per-step sums
+VISION_BN_LAYERS = (
+    ("vision enc conv2", 6, 1, 50, 64, 256, torch.bfloat16),
+    ("vision enc conv3", 6, 1, 50, 128, 64, torch.bfloat16),
+    ("vision enc conv4", 6, 1, 50, 256, 25, torch.bfloat16),
+    ("vision dec convT1", 6, 7, 50, 128, 64, torch.bfloat16),
+    ("vision dec convT2", 6, 7, 50, 64, 256, torch.bfloat16),
+    ("vision dec convT3", 6, 7, 50, 32, 1024, torch.bfloat16),
+)
 BN_MAIN_LAYER = "image dec convT3"      # the largest launch
 ENC_CONV_BN = ("image enc conv2", "image enc conv3", "image enc conv4")
 # the encoder's BN'd convs at B=100: (layer, B, C_in, H, C_out, stride,
@@ -270,6 +306,10 @@ CONV_LAYERS = (("image enc conv2", 100, 32, 32, 64, 2, 1),
                ("image enc conv3", 100, 64, 16, 128, 2, 1),
                ("image enc conv4", 100, 128, 8, 256, 1, 0))
 CONV_MAIN = ("image enc conv2", torch.bfloat16)
+# vision's six encoders' BN'd convs on the fused route, B=50, bf16
+VISION_CONV_LAYERS = (("vision enc conv2", 50, 32, 32, 64, 2, 1),
+                      ("vision enc conv3", 50, 64, 16, 128, 2, 1),
+                      ("vision enc conv4", 50, 128, 8, 256, 1, 0))
 CLI_EPOCHS = 2          # then --resume for one more
 
 
@@ -436,11 +476,16 @@ def phase_kernels(dev, card, peaks, flush):
     g_19 = torch.Generator(device=dev).manual_seed(9)
     step19 = celeba19_step_terms(np.random.default_rng(0), 1, 18, 1.0,
                                  10.0)[0].tolist()
+    # vision's: a step's 7 terms and infer's / the IWAE proposal's one row
+    # over its 6 experts (the expert cap 8), B=50, D=250
+    g_v = torch.Generator(device=dev).manual_seed(12)
     for t, m, b, d, gen, rows_ in (
             (1, 2, 1, 100, g, None), (1, 2, 64, 100, g, None),
             (3, 2, 100, 100, g, None), (1, 2, 100, 64, g_fam, None),
             (3, 2, 100, 64, g_fam, None), (21, 19, 100, 100, g_19, step19),
-            (1, 19, 100, 100, g_19, [[1.0] * 19])):
+            (1, 19, 100, 100, g_19, [[1.0] * 19]),
+            (7, 6, 50, 250, g_v, v_train.TERM_MASKS.tolist()),
+            (1, 6, 50, 250, g_v, [[1.0] * 6])):
         mu = torch.randn((m, b, d), generator=gen, device=dev)
         lv = torch.randn((m, b, d), generator=gen, device=dev)
         if rows_ is None:
@@ -479,8 +524,13 @@ def phase_kernels(dev, card, peaks, flush):
     # MultiMNIST's 2500 pixels (the bf16 train step, element loads;
     # the eval step; the IWAE's sample rows), celeba19's train step (2100
     # rows against 100 targets) in the f32 math and the bf16 math, its
-    # joint eval and its IWAE's image rows; their own generator
+    # joint eval and its IWAE's image rows; their own generator; then
+    # vision's (their own generator too): the bf16 train step's T * B = 350
+    # rows against 50 targets, 12288 wide (image, obscured, watermark) and
+    # 4096 (gray, edge, mask), the joint eval's 50 rows of each, the IWAE's
+    # chunk of 50 samples of 100 rows of each (f32)
     g_new = torch.Generator(device=dev).manual_seed(10)
+    g_vis = torch.Generator(device=dev).manual_seed(13)
     bce_main = {}
     for i, (n, nt, k, xdt, tdt, main, bf) in enumerate((
             (300, 300, 12288, f32, f32, False, False),
@@ -499,8 +549,15 @@ def phase_kernels(dev, card, peaks, flush):
             (2100, 100, 12288, bf16, bf16, "c19 f32 math", False),
             (2100, 100, 12288, bf16, bf16, "c19 bf16 math", True),
             (100, 100, 12288, f32, bf16, False, False),
-            (10000, 100, 12288, f32, f32, False, False))):
-        gen = g_new if i >= 10 else (g if k != 784 else g_fam)
+            (10000, 100, 12288, f32, f32, False, False),
+            (350, 50, 12288, bf16, bf16, False, False),
+            (350, 50, 4096, bf16, bf16, "vision train 4096", False),
+            (50, 50, 12288, f32, bf16, False, False),
+            (50, 50, 4096, f32, bf16, False, False),
+            (5000, 100, 12288, f32, f32, False, False),
+            (5000, 100, 4096, f32, f32, False, False))):
+        gen = (g_vis if i >= 17 else g_new if i >= 10
+               else (g if k != 784 else g_fam))
         if main in ("c19 f32 math", "c19 bf16 math"):   # the same inputs
             gen = torch.Generator(device=dev).manual_seed(11)
         x = (3 * torch.randn((n, k), generator=gen, device=dev)).to(xdt)
@@ -538,6 +595,8 @@ def phase_kernels(dev, card, peaks, flush):
     print(f"[kernel] bce_rowsum_fwd celeba19 train step, (2100, 12288) bf16: "
           f"f32 math {bce_main['c19 f32 math']}; bf16 math "
           f"{bce_main['c19 bf16 math']} | {card}")
+    print(f"[kernel] bce_rowsum_fwd vision train step, (350, 4096) bf16 "
+          f"rows: {bce_main['vision train 4096']} | {card}")
     return rows
 
 
@@ -557,7 +616,7 @@ def phase_bn_kernels(dev, card, peaks, flush):
     cases = [layer + (True,) for layer in BN_LAYERS] + [
         (name + " (f32)", n, gg, nn, c, sp, torch.float32, False)
         for name, n, gg, nn, c, sp, dt in BN_LAYERS if dt == torch.bfloat16
-    ] + [layer + ("family",) for layer in FAMILY_BN_LAYERS]
+    ] + [layer + ("family",) for layer in FAMILY_BN_LAYERS + VISION_BN_LAYERS]
     for layer, count, gsz, n, c, sp, dt, timed in cases:
         x4 = (0.5 + 1.5 * torch.randn((gsz, n, c, sp), generator=g,
                                       device=dev)).to(dt)
@@ -599,7 +658,7 @@ def phase_bn_kernels(dev, card, peaks, flush):
                 pairs = [(got[0], want[0], BN_OUT_TOL[dt])] + [
                     (k, p, BN_SUM_TOL) for k, p in zip(got[1:], want[1:])]
             if name == "bn_dx" and gsz > 3:
-                # dscale and dbias over G = 21 groups: the bound of a
+                # dscale and dbias over G = 7 or 21 groups: the bound of a
                 # reordered f32 sum (GROUP_SUM_RTOL)
                 terms = (bn_ops.bn_dx_coeffs(sdz_p, sdzx_p, m, a, mean,
                                              invstd)[0], sdz_p)
@@ -657,64 +716,72 @@ def phase_bn_kernels(dev, card, peaks, flush):
 def phase_conv_kernels(dev, card, peaks, flush):
     """conv2d_moments against its plain version at the encoder's three BN'd
     convs, bf16 (the CLI's step) and f32 (--f32), timed, with per-step
-    sums. The library yardstick is two calls, F.conv2d then torch.var_mean
-    of its output: no one PyTorch call computes the conv and its moments."""
+    sums; then at vision's three at B=50 (bf16, each x6 a step on the
+    fused route). The library yardstick is two calls, F.conv2d then
+    torch.var_mean of its output: no one PyTorch call computes the conv
+    and its moments."""
     g = torch.Generator(device=dev).manual_seed(2)
-    row = {"max_abs_err": 0.0}
+    row = {"max_abs_err": 0.0, "cases": []}
+    keys = ("ms", "back_to_back_ms", "plain_ms", "library_ms", "bound_ms")
+
+    def one(layer, b, c_in, h, c_out, stride, pad, dt):
+        x = (2 * torch.rand((b, c_in, h, h), generator=g,
+                            device=dev)).to(dt)
+        w = (torch.randn((c_out, c_in, 4, 4), generator=g, device=dev)
+             / (16 * c_in) ** 0.5).to(dt)
+        y, s, q = convbn.conv2d_moments_fwd(x, w, stride, pad)
+        for got, want in zip(convbn.conv2d_moments_fwd(x, w, stride, pad),
+                             (y, s, q)):
+            expect(torch.equal(got, want), f"conv2d_moments {layer}: two "
+                   "launches differ")
+        py, ps, pq = convbn.conv2d_moments_plain(x, w, stride, pad)
+        torch.testing.assert_close(y.float(), py.float(), **CONV_Y_TOL[dt])
+        pixels = y.numel() // c_out
+        got, want = torch.stack((s, q)) / pixels, torch.stack(
+            (ps, pq)) / pixels
+        torch.testing.assert_close(got, want, **CONV_SUM_TOL[dt])
+        err = max((y.double() - py.double()).abs().max().item(),
+                  (got.double() - want.double()).abs().max().item())
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        t_k = device_ms(lambda: convbn.conv2d_moments_fwd(
+            x, w, stride, pad), flush)
+        t_b2b = back_to_back_ms(convbn.conv2d_moments_fwd,
+                                (x, w, stride, pad), flush)
+        t_p = device_ms(lambda: convbn.conv2d_moments_plain(
+            x, w, stride, pad), flush)
+        t_lib = device_ms(lambda: torch.var_mean(F.conv2d(
+            x, w, stride=stride, padding=pad), dim=(0, 2, 3),
+            correction=0), flush)
+        isz = x.element_size()
+        nbytes = (x.numel() + w.numel() + y.numel()) * isz + 2 * c_out * 4
+        nops = 2 * y.numel() * c_in * 16 + 3 * y.numel()
+        b_ms, b_by = bound(nbytes, nops, peaks,
+                           peaks[2] if dt == torch.bfloat16 else None)
+        case = (f"{layer}: x ({b}, {c_in}, {h}, {h}) -> y ({b}, {c_out}"
+                f", {y.shape[2]}, {y.shape[3]}) {str(dt).split('.')[-1]}")
+        print(f"[kernel] conv2d_moments {case}: max_abs_err {err} ms "
+              f"{t_k} back_to_back_ms {t_b2b} plain_ms {t_p} library_ms "
+              f"{t_lib} (F.conv2d + "
+              f"torch.var_mean, two calls) bound_ms {b_ms} ({b_by}) | "
+              f"{card}")
+        out = dict(case=case, ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
+                   library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+        row["cases"].append(out)
+        return out
+
     for dt in (torch.bfloat16, torch.float32):
-        keys = ("ms", "back_to_back_ms", "plain_ms", "library_ms",
-                "bound_ms")
         per_step = dict.fromkeys(keys, 0.0)
-        for layer, b, c_in, h, c_out, stride, pad in CONV_LAYERS:
-            x = (2 * torch.rand((b, c_in, h, h), generator=g,
-                                device=dev)).to(dt)
-            w = (torch.randn((c_out, c_in, 4, 4), generator=g, device=dev)
-                 / (16 * c_in) ** 0.5).to(dt)
-            y, s, q = convbn.conv2d_moments_fwd(x, w, stride, pad)
-            for got, want in zip(convbn.conv2d_moments_fwd(x, w, stride, pad),
-                                 (y, s, q)):
-                expect(torch.equal(got, want), f"conv2d_moments {layer}: two "
-                       "launches differ")
-            py, ps, pq = convbn.conv2d_moments_plain(x, w, stride, pad)
-            torch.testing.assert_close(y.float(), py.float(),
-                                       **CONV_Y_TOL[dt])
-            pixels = y.numel() // c_out
-            got, want = torch.stack((s, q)) / pixels, torch.stack(
-                (ps, pq)) / pixels
-            torch.testing.assert_close(got, want, **CONV_SUM_TOL[dt])
-            err = max((y.double() - py.double()).abs().max().item(),
-                      (got.double() - want.double()).abs().max().item())
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            t_k = device_ms(lambda: convbn.conv2d_moments_fwd(
-                x, w, stride, pad), flush)
-            t_b2b = back_to_back_ms(convbn.conv2d_moments_fwd,
-                                    (x, w, stride, pad), flush)
-            t_p = device_ms(lambda: convbn.conv2d_moments_plain(
-                x, w, stride, pad), flush)
-            t_lib = device_ms(lambda: torch.var_mean(F.conv2d(
-                x, w, stride=stride, padding=pad), dim=(0, 2, 3),
-                correction=0), flush)
-            isz = x.element_size()
-            nbytes = (x.numel() + w.numel() + y.numel()) * isz + 2 * c_out * 4
-            nops = 2 * y.numel() * c_in * 16 + 3 * y.numel()
-            b_ms, b_by = bound(nbytes, nops, peaks,
-                               peaks[2] if dt == torch.bfloat16 else None)
-            case = (f"{layer}: x ({b}, {c_in}, {h}, {h}) -> y ({b}, {c_out}"
-                    f", {y.shape[2]}, {y.shape[3]}) {str(dt).split('.')[-1]}")
-            print(f"[kernel] conv2d_moments {case}: max_abs_err {err} ms "
-                  f"{t_k} back_to_back_ms {t_b2b} plain_ms {t_p} library_ms "
-                  f"{t_lib} (F.conv2d + "
-                  f"torch.var_mean, two calls) bound_ms {b_ms} ({b_by}) | "
-                  f"{card}")
-            for key, v in zip(keys, (t_k, t_b2b, t_p, t_lib, b_ms)):
-                per_step[key] += v
+        for layer, *shape in CONV_LAYERS:
+            out = one(layer, *shape, dt)
+            for key in keys:
+                per_step[key] += out[key]
             if (layer, dt) == CONV_MAIN:
-                row.update(ms=t_k, back_to_back_ms=t_b2b, plain_ms=t_p,
-                           library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
-                           case=case)
+                row.update(out)
         print(f"[kernel] conv2d_moments per train step, "
               f"{str(dt).split('.')[-1]} (3 layers): "
               + " ".join(f"{k} {per_step[k]}" for k in keys) + f" | {card}")
+    for layer, *shape in VISION_CONV_LAYERS:
+        one(layer, *shape, torch.bfloat16)
     return {"conv2d_moments": row}
 
 
@@ -1360,41 +1427,43 @@ def check_mm_outputs(out, n):
         (n, 4), device=out["text"].device), rtol=1e-5, atol=1e-5)
 
 
-def timed_turns(dev, card, name, multi, data, steps_extra):
-    """A family's bf16 train step at B=100 in windows of K=20 steps of
-    make_multi_train_step, kernel path and plain versions in turns after a
-    warm-up pair (as phase 5), then a device-time breakdown per step.
-    steps_extra(k): the window's extra arguments (celeba19's masks)."""
+def timed_turns(dev, card, name, multi, data, steps_extra, batch=BATCH,
+                k_steps=TRAIN_K):
+    """A family's bf16 train step at B=batch in windows of k_steps steps
+    of make_multi_train_step, kernel path and plain versions in turns
+    after a warm-up pair (as phase 5), then a device-time breakdown per
+    step. steps_extra(k): the window's extra arguments (celeba19's
+    masks)."""
     rng = np.random.default_rng(42)
     n = next(iter(data.values())).shape[0]
 
-    def window(k=TRAIN_K):
-        return torch.from_numpy(np.stack([rng.permutation(n)[:BATCH]
+    def window(k=k_steps):
+        return torch.from_numpy(np.stack([rng.permutation(n)[:batch]
                                           for _ in range(k)])).to(dev)
 
-    betas = torch.ones(TRAIN_K, device=dev)
+    betas = torch.ones(k_steps, device=dev)
     order = (False, True) + (False, True, True, False) * 2
     losses, times = [], {False: [], True: []}
     for i, plain in enumerate(order):
-        extra = steps_extra(TRAIN_K)
+        extra = steps_extra(k_steps)
         torch.cuda.synchronize()
         with ops.plain_versions() if plain else contextlib.nullcontext():
             t0 = time.perf_counter()
             window_losses = multi(data, window(), betas, **extra)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / TRAIN_K
+            ms = (time.perf_counter() - t0) * 1e3 / k_steps
         expect(bool(torch.isfinite(window_losses).all()),
                f"{name} train: loss not finite {window_losses}")
         losses.append(window_losses.mean().item())
         if i >= 2:
             times[plain].append(ms)
-    print(f"[{name}] bf16 B=100 K={TRAIN_K}: mean loss per window {losses} "
-          f"(K, P | K, P, P, K, K, P, P, K)")
-    print(f"[{name}] bf16 B=100 step: {times[False]} ms (plain versions "
+    print(f"[{name}] bf16 B={batch} K={k_steps}: mean loss per window "
+          f"{losses} (K, P | K, P, P, K, K, P, P, K)")
+    print(f"[{name}] bf16 B={batch} step: {times[False]} ms (plain versions "
           f"{times[True]} ms), host clock per window / K; "
           f"{pairs_won(times[False], times[True])} | {card}")
     profile_breakdown(
-        f"{name} train bf16 B=100 step (window of {PROFILE_K})",
+        f"{name} train bf16 B={batch} step (window of {PROFILE_K})",
         lambda: multi(data, window(PROFILE_K), betas[:PROFILE_K],
                       **steps_extra(PROFILE_K)), card,
         reps=1, wall_reps=1, per=PROFILE_K)
@@ -1581,28 +1650,297 @@ def phase_celeba19(dev, card, root, data_dir):
                                   eps=eps), card, reps=2, wall_reps=3)
 
 
+# --------------------------------------------------------------------------
+# phase 6f: the vision family
+# --------------------------------------------------------------------------
+
+V_BATCH = 50            # experiments/vision/train.py: batch 50
+V_LOG = 20              # steps a window: 2 train lines an epoch of 40
+V_K = 10                # steps a timed window
+V_TEST = 500            # the synthetic set's test rows: the loglike's N
+# Canny on the card against the CPU (TF32 off): a pixel whose CPU
+# magnitude (or NMS interpolant, or gradient octant) lies within this
+# fraction of its image's largest magnitude from the comparison that
+# decides it may flip, with what hysteresis carries from it along its
+# weak edge (tests/test_torch_port_vision.py holds the port to JAX so)
+CANNY_TIE_RTOL = 1e-5
+
+
+def check_vision_outputs(out, n, what):
+    """Sampler outputs of vision: n images of each modality in [0, 1]."""
+    for m in V_MODALITIES:
+        expect(tuple(out[m].shape) == (n, 64, 64, V_CHANNELS[m]),
+               f"{what} {m} {tuple(out[m].shape)}")
+        expect(bool(torch.isfinite(out[m]).all()) and out[m].min() >= 0
+               and out[m].max() <= 1, f"{what} {m} outside [0, 1]")
+
+
+def phase_vision(dev, card, root, data_dir):
+    """Phase 6f: vision end to end on the card, on the synthetic CelebA
+    set of phase 6b's data directory (2000 train, 500 val, 500 test
+    rows). derive_modalities on the card, timed, with its hysteresis
+    iterations; the train CLI at its defaults (bf16, L=250, batch 50,
+    T=7 terms that each reconstruct all six modalities) for CLI_EPOCHS
+    epochs on the encoders' fused route (--conv-moments), --resume for one
+    more on the default route, then one more streamed from the host
+    (--no-device-data); a reconstruction grid each epoch; the sample CLI
+    conditioned on a test image read as each of the six modalities; the
+    loglike CLI (joint, K=100, the 500 test rows);
+    Sampler.from_checkpoint at every endpoint; the bf16 train step in
+    turns against the plain versions with its profile line; one IWAE
+    batch's profile line. Returns the train rows' six modalities."""
+    tmp = os.path.join(root, "vision")
+    out_dir = os.path.join(tmp, "models")
+    rgb = load_celeba(data_dir, "train").arrays["image"]
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mods = derive_modalities(rgb, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    print(f"[vision] derive_modalities of {len(rgb)} rows on the card: "
+          f"{time.perf_counter() - t0} s wall (host copies and the host's "
+          f"landmark masks included), hysteresis iterations "
+          f"{stats['hysteresis_iters']} | {card}")
+    argv = ["--annealing-epochs", "1", "--log-interval", str(V_LOG),
+            "--out-dir", out_dir, "--data-dir", data_dir]
+    t0 = time.perf_counter()
+    tests, throughput, train_s = run_train_cli(
+        v_train.main, argv, ["--conv-moments"], out_dir, "vision")
+    rec = TimedLines(sys.stdout)
+    with contextlib.redirect_stdout(rec):
+        v_train.main(argv + ["--epochs", str(CLI_EPOCHS + 2),
+                             "--no-device-data", "--resume",
+                             os.path.join(out_dir, CKPT)])
+    lines = [line for _, line in rec.lines]
+    # the streamed epoch's training: its pipeline line to its epoch line
+    host_s = (next(t for t, line in rec.lines if line.startswith("====> E"))
+              - next(t for t, line in rec.lines
+                     if line.startswith("input pipeline")))
+    expect(any(line.startswith("input pipeline: host streaming "
+                               "(--no-device-data") for line in lines),
+           "vision: no host-streaming line")
+    expect(any(line.endswith(f"at epoch {CLI_EPOCHS + 1}")
+               for line in lines), "vision host: no resume line")
+    expect(sum(line.startswith(f"Train Epoch: {CLI_EPOCHS + 2} [")
+               for line in lines) == 2, "vision host: not 2 train lines")
+    host = [float(line.split()[-1]) for line in lines
+            if line.startswith("====> Test Loss")]
+    expect(len(host) == 1 and np.isfinite(host[0]),
+           f"vision host: test losses {host}")
+    for e in range(1, CLI_EPOCHS + 3):
+        with open(os.path.join(out_dir, "reconstructions",
+                               f"epoch_{e}.png"), "rb") as f:
+            expect(f.read(8) == b"\x89PNG\r\n\x1a\n",
+                   f"vision: reconstructions/epoch_{e}.png")
+    print(f"[vision] VisionMVAE(250) bf16 B=50 T=7, 40 steps an epoch: "
+          f"{throughput} ; epoch training wall s {train_s}; test losses "
+          f"{tests}, then {host} after an epoch streamed from the host "
+          f"in {host_s} s; the CLI runs {time.perf_counter() - t0} s "
+          f"| {card}")
+
+    best = os.path.join(out_dir, BEST)
+    test = load_celeb_vision(data_dir, "test", device=dev).arrays
+    cond = os.path.join(tmp, "condition.png")
+    write_png(cond, test["image"][0])
+    t0 = time.perf_counter()
+    for ctype in V_MODALITIES:
+        d = os.path.join(tmp, f"samples_{ctype}")
+        out, _ = run_main(v_sample.main, [
+            best, "--out-dir", d, "--data-dir", data_dir, "--n-samples",
+            "8", "--condition-file", cond, "--condition-type", ctype])
+        check_vision_outputs(out, 8, f"vision sample | {ctype}")
+        for m in V_MODALITIES:
+            expect(os.path.isfile(os.path.join(d, "samples",
+                                               f"sample_{m}.png")),
+                   f"vision sample | {ctype}: no sample_{m}.png")
+    print(f"[vision] sample CLI conditioned on each of the six modalities, "
+          f"8 samples: {time.perf_counter() - t0} s | {card}")
+    run_loglike_cli(v_loglike.main, best, data_dir, "joint", V_TEST,
+                    "vision", card)
+
+    sampler = Sampler.from_checkpoint(best)
+    expect(type(sampler.model) is VisionMVAE, "vision: served "
+           f"{type(sampler.model).__name__}")
+    rows = {m: torch.from_numpy(test[m][:8]).to(dev) for m in V_MODALITIES}
+    check_vision_outputs(sampler.sample(n=8, seed=0), 8, "vision prior")
+    for m in V_MODALITIES:
+        check_vision_outputs(sampler.sample(n=8, condition={m: rows[m][:1]}),
+                             8, f"vision sample|{m}")
+        mu, lv = sampler.embed({m: rows[m]})
+        expect(mu.shape == lv.shape == (8, 250) and bool(
+            torch.isfinite(mu).all()), f"vision embed {m}")
+        check_vision_outputs(sampler.reconstruct({m: rows[m]}), 8,
+                             f"vision reconstruct {m}")
+    mu, _ = sampler.embed(rows)
+    expect(mu.shape == (8, 250), "vision embed of all six")
+    print(f"[vision] {BEST} served every endpoint (sample, sample|each "
+          f"modality, embed and reconstruct of each, embed of all six)")
+
+    model = VisionMVAE(250, torch.bfloat16, device=dev,
+                       generator=torch.Generator().manual_seed(60))
+    multi = make_multi_train_step(
+        model, v_train.TERM_MASKS, v_train.TERM_LAMBDAS, lr=LR, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(61),
+        recon_masks=v_train.RECON_MASKS)
+    timed_turns(dev, card, "vision T=7", multi,
+                to_device_data(ArrayDataset(mods), dev), lambda k: {},
+                batch=V_BATCH, k_steps=V_K)
+    del multi, model
+    model = VisionMVAE(250, device=dev,
+                       generator=torch.Generator().manual_seed(50))
+    batch = {m: torch.from_numpy(test[m][:BATCH]).to(dev)
+             for m in V_MODALITIES}
+    eps = torch.randn((IWAE_K, BATCH, 250), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(51))
+    profile_breakdown(
+        f"vision IWAE f32 K={IWAE_K} B={BATCH} joint (two decode chunks)",
+        lambda: iwae_log_marginal(model, batch, [1.0] * 6,
+                                  list(V_MODALITIES), IWAE_K, eps=eps),
+        card, reps=2, wall_reps=3)
+    return mods
+
+
+def canny_ties(mag, gy, gx, lo, hi):
+    """Pixels where one of the Canny's decisions on (mag, gy, gx) is within
+    CANNY_TIE_RTOL of its image's largest magnitude: a threshold, an NMS
+    comparison (any octant case's interpolant), the octant itself."""
+    r = CANNY_TIE_RTOL * mag.max(axis=(1, 2), keepdims=True)
+    ai, aj = np.abs(gy), np.abs(gx)
+    near = ((np.abs(mag - hi) <= r) | (np.abs(mag - lo) <= r)
+            | (np.abs(ai - aj) <= r) | (ai <= r) | (aj <= r))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w1 = np.where(ai > 0, aj / np.where(ai > 0, ai, 1), 0)
+        w2 = np.where(aj > 0, ai / np.where(aj > 0, aj, 1), 0)
+
+    def sh(dy, dx):
+        return np.roll(mag, (-dy, -dx), axis=(1, 2))
+
+    for w, pairs in ((w1, ((sh(-1, 0), sh(-1, 1)), (sh(1, 0), sh(1, -1)),
+                           (sh(1, 0), sh(1, 1)), (sh(-1, 0), sh(-1, -1)))),
+                     (w2, ((sh(0, 1), sh(-1, 1)), (sh(0, -1), sh(1, -1)),
+                           (sh(0, 1), sh(1, 1)), (sh(0, -1), sh(-1, -1))))):
+        for c1, c2 in pairs:
+            near |= np.abs(c2 * w + c1 * (1 - w) - mag) <= r
+    return near
+
+
+def canny_checks(dev, rgb):
+    """Canny (absolute thresholds, fixpoint hysteresis) on the card against
+    the CPU on the same rows: magnitudes within 1e-6 of each image's
+    largest, and edges equal but in the 8-connected weak components of a
+    tie pixel (canny_ties)."""
+    import scipy.ndimage
+    x = torch.from_numpy(rgb)
+    parts = [image_ops.canny_gradients(x.to(d)) for d in ("cpu", dev)]
+    mag, gy, gx = (a.numpy() for a in parts[0])
+    g_mag = parts[1][0].cpu().numpy()
+    scale = mag.max(axis=(1, 2), keepdims=True)
+    gap = float((np.abs(g_mag - mag) / scale).max())
+    expect(gap <= 1e-6, f"canny magnitude card vs CPU: {gap}")
+    want = image_ops.canny_edges(x, threshold_mode="absolute").numpy()
+    got, n = image_ops.canny_edges(x.to(dev), threshold_mode="absolute",
+                                   return_iters=True)
+    got, want = got.cpu().numpy()[..., 0], want[..., 0]
+    keep = image_ops._interp_nms(*parts[0]).numpy()
+    ties = canny_ties(mag, gy, gx, 0.1, 0.2)
+    weak = keep & (mag >= 0.1)
+    diff = got != want
+    ok = ties.copy()
+    for i in np.flatnonzero(diff.any(axis=(1, 2))):
+        lab, _ = scipy.ndimage.label(weak[i] | (got[i] > 0),
+                                     structure=np.ones((3, 3)))
+        near = np.unique(lab[ties[i]])
+        ok[i] |= np.isin(lab, near[near > 0])
+    print(f"[check] canny card vs CPU, {len(rgb)} images: magnitude gap "
+          f"{gap} of the largest (limit 1e-6), {int(diff.sum())} of "
+          f"{diff.size} edge pixels differ, {int((diff & ~ok).sum())} of "
+          f"them outside a tie's component; {n} hysteresis iterations")
+    expect(not (diff & ~ok).any(), "canny card vs CPU: edges differ")
+
+
+def phase_vision_checks(dev, mods):
+    """Phase 7 for vision: one train step at T=7 with every modality
+    reconstructed, kernel path against plain versions (loss above its
+    floor at STEP_RTOL, every parameter gradient at GRAD_RTOL) on the
+    fused route in bf16 and f32; the f32 card against the CPU (TF32 off)
+    on 16 rows with the same noise; Canny on the card against the CPU."""
+    tm, tl, rm = (v_train.TERM_MASKS, v_train.TERM_LAMBDAS,
+                  v_train.RECON_MASKS)
+    rows = {k: v[:V_BATCH] for k, v in mods.items()}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        model = VisionMVAE(250, None if dtype == torch.float32 else dtype,
+                           conv_moments=True, device=dev,
+                           generator=torch.Generator().manual_seed(47))
+        twin = copy.deepcopy(model)
+        batch = decode_batch({k: torch.from_numpy(v).to(dev)
+                              for k, v in rows.items()},
+                             resolve_decode_dtype(model))
+        noise = draw_noise(model, 7, V_BATCH, torch.Generator(
+            device=dev).manual_seed(48))
+        k_terms, k_grads = family_step(model, batch, tm, tl, noise,
+                                       recon_masks=rm)
+        with ops.plain_versions():
+            p_terms, p_grads = family_step(twin, batch, tm, tl, noise,
+                                           recon_masks=rm)
+        held(f"vision {dt} B={V_BATCH} T=7 train step loss above floor, "
+             f"kernels vs plain", k_terms, p_terms, STEP_RTOL[dtype], 0.0)
+        grads_held(f"vision {dt} B={V_BATCH} T=7 train step, kernels vs "
+                   f"plain",
+                   k_grads, p_grads, GRAD_RTOL[dtype], GRAD_NOISE_ATOL[dtype],
+                   bn_fed_biases(model))
+        del model, twin, k_grads, p_grads
+    gpu = VisionMVAE(250, device=dev,
+                     generator=torch.Generator().manual_seed(49))
+    cpu = VisionMVAE(250, device="cpu",
+                     generator=torch.Generator().manual_seed(49))
+    small = {k: torch.from_numpy(v[:16]) for k, v in rows.items()}
+    noise = draw_noise(cpu, 7, len(small["image"]),
+                       torch.Generator().manual_seed(6))
+    c_terms, c_grads = family_step(cpu, decode_batch(small), tm, tl, noise,
+                                   recon_masks=rm)
+    g_terms, g_grads = family_step(
+        gpu, decode_batch({k: v.to(dev) for k, v in small.items()}), tm, tl,
+        tuple(n.to(dev) for n in noise), recon_masks=rm)
+    held("vision float32 B=16 T=7 train step loss above floor, card vs CPU",
+         g_terms, c_terms, 1e-4, 0.0)
+    grads_held("vision float32 B=16 T=7 train step, card vs CPU", g_grads,
+               c_grads, GRAD_RTOL[torch.float32],
+               GRAD_NOISE_ATOL[torch.float32], bn_fed_biases(cpu))
+    canny_checks(dev, mods["image"][:200])
+
+
 def family_floor(model):
     """Each expert's loss of all-zero logits, which random weights mostly
     pay: BCE(0, t) = ln 2 a pixel or attribute, CE(0) = ln 12 a text
     position."""
-    per = {"image": np.log(2.0) * int(np.prod(
-        model.input_spec()["image"][0])), "text": 4 * np.log(12.0)}
+    spec = model.input_spec()
+    per = {"image": np.log(2.0) * int(np.prod(spec["image"][0])),
+           "text": 4 * np.log(12.0)}
+    per.update({m: np.log(2.0) * int(np.prod(shape))
+                for m, (shape, _) in spec.items() if len(shape) == 3})
     return torch.tensor([per.get(m, np.log(2.0)) for m in model.modalities],
                         dtype=torch.float64)
 
 
-def family_step(model, batch, masks, lambdas, noise, **kw):
+def family_step(model, batch, masks, lambdas, noise, recon_masks=None,
+                **kw):
     """One train-mode ELBO and its backward, no update: (per_term less its
-    floor, parameter gradients)."""
+    floor, parameter gradients). recon_masks: vision's, which the floor
+    weighs as the ELBO does."""
     model.train()
     model.zero_grad(set_to_none=True)
     dev = model.device
     m = torch.as_tensor(masks, device=dev)
     lam = torch.as_tensor(lambdas, device=dev)
+    if recon_masks is not None:
+        kw["recon_masks"] = torch.as_tensor(recon_masks, device=dev)
     total, aux = multi_term_elbo(model, batch, m, lam, 1.0, train=True,
                                  noise=noise, **kw)
     total.backward()
-    floor = (m.double().cpu() * lam.double().cpu()) @ family_floor(model)
+    scored = m if recon_masks is None else kw["recon_masks"]
+    floor = (scored.double().cpu() * lam.double().cpu()) @ family_floor(
+        model)
     return aux["per_term"].detach().double().cpu() - floor, {
         k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
@@ -1950,7 +2288,7 @@ def lap(what):
 
 def run(dev, card, peaks, root):
     """Phases 2-7 with their files under root; returns the kernel rows of
-    phase 2 and the launches of phases 3-5, 6b and 6c."""
+    phase 2 and the launches of phases 3-5 and 6b-6f."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
@@ -1980,7 +2318,8 @@ def run(dev, card, peaks, root):
             "train": tuple(KERNELS), "cli": tuple(KERNELS),
             "families": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd"),
             "multimnist": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
-            + BN_KERNELS, "celeba19": tuple(KERNELS)}
+            + BN_KERNELS, "celeba19": tuple(KERNELS),
+            "vision": tuple(KERNELS)}
     launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
@@ -1991,6 +2330,8 @@ def run(dev, card, peaks, root):
                                                 out["cli"])),
             ("multimnist", lambda: phase_multimnist(dev, card, root)),
             ("celeba19", lambda: phase_celeba19(
+                dev, card, root, out["families"]["celeba"])),
+            ("vision", lambda: phase_vision(
                 dev, card, root, out["families"]["celeba"]))):
         ops.reset_launch_counts()
         out[phase] = fn()
@@ -2007,6 +2348,8 @@ def run(dev, card, peaks, root):
     phase_iwae_checks(dev, out["families"])
     phase_family_checks(dev, {"multimnist": out["multimnist"],
                               "celeba": out["families"]["celeba"]})
+    lap("checks before vision's")
+    phase_vision_checks(dev, out["vision"])
     lap("checks, the whole run")
     return rows, launches
 

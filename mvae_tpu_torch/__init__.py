@@ -5,15 +5,18 @@ of it, keeps its module layout and names, and holds each of its Pallas
 kernels as a CUDA kernel written by hand (`ops/`, `csrc/`). Entry points
 run on the CUDA card unless the caller passes `device="cpu"` (`device.py`).
 
-Ported so far: the CelebA, MNIST, FashionMNIST, MultiMNIST and CelebA-19
-families (`models/`; the GRU of MultiMNIST's text in `nn/rnn.py`,
-CelebA-19's sampled subset terms in `core/subsets.py`),
+Ported: all six families, CelebA, MNIST, FashionMNIST, MultiMNIST,
+CelebA-19 and vision (`models/`; the GRU of MultiMNIST's text in
+`nn/rnn.py`, CelebA-19's sampled subset terms in `core/subsets.py`,
+vision's image transforms in `image/`),
 the multi-term ELBO in eval and train mode (`train.loop.make_eval_step`;
 `make_train_step` and `make_multi_train_step` with Adam and the BN
 running-statistics commit), the IWAE log-likelihood (`core.loglike`), the
 serving endpoints (`serve.Sampler`), the weight carry-across
 (`utils.weights`), and each family's train, sample and loglike CLIs
-(`python -m mvae_tpu_torch.experiments.<family>.<cli>`).
+(`python -m mvae_tpu_torch.experiments.<family>.<cli>`), whose training
+keeps the dataset on the card or streams it from the host
+(`--no-device-data`).
 """
 
 __version__ = "0.1.0"

@@ -93,13 +93,21 @@ def fast_decode_terms(model, recon_support, device):
 
 
 def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
-                    train: bool = False, noise=None, decode_terms=None):
+                    train: bool = False, noise=None, decode_terms=None,
+                    recon_masks=None):
     """Sum over T subset-ELBO terms.
 
     inputs:       name -> (B, ...) tensors, every modality present.
     term_masks:   (T, M) 0/1: which experts join each term's posterior,
-                  and which reconstruction losses count in it.
+                  and (without recon_masks) which reconstruction losses
+                  count in it.
     term_lambdas: (T, M) per-term, per-modality loss weights.
+    recon_masks:  (T, M) 0/1 or None: which reconstruction losses count
+                  in each term, apart from the posterior's experts
+                  (vision's unimodal terms reconstruct all six
+                  modalities; engine.py:267-268). The EMA commit keeps
+                  term_masks: an encoder commits once for each term whose
+                  posterior holds its modality.
     train:        the model must be in the same mode. Train mode needs
                   noise = (eps (T, B, D) standard normal, keep_mask: the
                   encoder dropout's, model.keep_mask_shape(B) bool, or
@@ -132,7 +140,8 @@ def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
         kw["keep_mask"] = noise[2]
     recons, dec_moments = model.decode(z.reshape(t * b, d), groups=t, **kw)
     recon_stack = model.recon_losses(recons, inputs).reshape(t, b, -1)
-    w = (term_masks * term_lambdas)[:, None, :]                # (T, 1, M)
+    rmask = term_masks if recon_masks is None else recon_masks
+    w = (rmask * term_lambdas)[:, None, :]                     # (T, 1, M)
     recon = torch.sum(recon_stack * w, dim=-1)                 # (T, B)
     kld = kl_divergence(pd_mu, pd_logvar)                      # (T, B)
     per_term = torch.mean(recon + beta * kld, dim=1)           # (T,)

@@ -2,11 +2,11 @@
 numpy only).
 
 Data lives in host numpy arrays, a dict name -> array. The training
-driver keeps both sets on the card and draws its batches there
-(train/driver.py); `batches`, the host-side iterator, feeds the
+driver keeps both sets on the card and draws its batches there while they
+fit its budget; otherwise, and with --no-device-data, `batches`, the
+host-side iterator, feeds its steps (train/driver.py), as it feeds the
 log-likelihood CLI (train/loglike_cli.py). The JAX package's native C++
-row gather is not ported (numpy's fancy indexing gathers), nor is its
-host-streaming training path (--no-device-data).
+row gather is not ported (numpy's fancy indexing gathers).
 """
 
 import numpy as np

@@ -8,8 +8,8 @@ The file is `torch.save` of
      "best_loss", "n_latents", "optimizer": the optimizer's state_dict,
      "epoch", "generator": the noise generator's state, "model": the
      family ("mnist", "fashionmnist", "celeba", "multimnist",
-     "celeba19"), "test_loss", and for celeba19 "mask_rng": the state of
-     the numpy Generator of its sampled terms}
+     "celeba19", "vision"), "test_loss", and for celeba19 "mask_rng":
+     the state of the numpy Generator of its sampled terms}
 
 written atomically to `checkpoint.pth.tar` and copied to
 `model_best.pth.tar` when the test loss improves. It holds everything a

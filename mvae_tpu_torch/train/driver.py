@@ -1,47 +1,73 @@
 """Epoch driver (counterpart of mvae_tpu/train/driver.py:38-408, its
-single-device path with the dataset resident on the device).
+single-device paths).
 
 Given a model on the device, the train and test sets, the argparse
 namespace of utils/cli.py and the ELBO terms, it runs: the KL-annealed
-training epochs in windows of K = --log-interval steps
-(`make_multi_train_step`, one loss readback a window), the reference's log
-lines, a per-epoch eval of the whole test set, the dual-file `.pth.tar`
-checkpoint (train/checkpoint.py) and --resume.
+training epochs, the reference's log lines, a per-epoch eval of the whole
+test set, an optional post-epoch hook (vision's reconstruction grids), the
+dual-file `.pth.tar` checkpoint (train/checkpoint.py) and --resume.
 
-The numbers that decide a run are the JAX package's: the per-epoch
-permutation of the training rows comes from
-np.random.default_rng(SeedSequence([seed, epoch, 0])) (:249-259), the
-ragged tail of an epoch is dropped, and each step's KL weight is
-annealing_factor_from_step of its global step in f64, rounded to f32
-(:260-268). The reparametrization noise and the dropout masks come from a
-torch.Generator on the device, seeded from --seed (a stream apart from the
-initial weights'), whose state the checkpoint keeps, so a resumed run
+Two input pipelines, chosen as the JAX package chooses (:152-186): the
+dataset resident on the device while its reckoned bytes (float images as
+uint8) stay under DEVICE_DATA_BUDGET, in windows of K = --log-interval
+steps (`make_multi_train_step`, one loss readback a window); otherwise,
+or with --no-device-data, host streaming (:294-326): each step's rows,
+as host floats, are copied to the device, one loss readback a log line.
+
+The numbers that decide a run are the JAX package's. Resident: the
+per-epoch permutation of the training rows comes from
+np.random.default_rng(SeedSequence([seed, epoch, 0])) (:249-259), and
+each step's KL weight is annealing_factor_from_step of its global step in
+f64, rounded to f32 (:260-268). Host streaming: data/pipeline.py:batches'
+order (SeedSequence([seed, epoch]), a shuffle) and the step-wise
+annealing_factor. Both drop an epoch's ragged tail. The resident path
+stores float images as round(v * 255) uint8 and so trains on quantised
+values; host streaming trains on the floats, as in the JAX package
+(:165-166). The reparametrization noise and the dropout masks come from a
+torch.Generator on the device, seeded from --seed (a stream apart from
+the initial weights'), whose state the checkpoint keeps, so a resumed run
 continues bit for bit where the first stopped. A family with sampled ELBO
 terms (celeba19, `make_masks`) draws each step's (T, M) masks and lambdas
-on the host from np.random.default_rng(seed + 1), k draws a window, as
-the JAX package does (:221, 269-272); the checkpoint keeps that
-Generator's state too, so a resume continues its sequence (the JAX
-package restarts it).
+on the host from np.random.default_rng(seed + 1), as the JAX package does
+(:221, 269-272); the checkpoint keeps that Generator's state too, so a
+resume continues its sequence (the JAX package restarts it).
 
-Not ported yet: the mesh, multi-process feeding, tensor parallelism and
-host streaming (--no-device-data); utils/cli.py refuses their flags.
+Not ported yet: the mesh, multi-process feeding and tensor parallelism;
+utils/cli.py refuses their flags.
 
 `load_model_checkpoint` rebuilds a model from a `.pth.tar`: the entry of
 the sample and loglike CLIs.
 """
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from mvae_tpu_torch.core.anneal import annealing_factor_from_step
-from mvae_tpu_torch.data.pipeline import num_batches
+from mvae_tpu_torch.core.anneal import (
+    annealing_factor, annealing_factor_from_step)
+from mvae_tpu_torch.data.pipeline import batches, num_batches
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.train import loop as L
 from mvae_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from mvae_tpu_torch.utils.profiling import maybe_trace
 from mvae_tpu_torch.utils.weights import load_reference_checkpoint
+
+# The resident path's limit on the train and test sets' reckoned bytes
+# (JAX's `< 6 * 2**30`, :183-186), set there for a 16 GB TPU chip. What
+# the H100's 80 GB should hold is a question for measurement (ROADMAP).
+DEVICE_DATA_BUDGET = 6 * 2 ** 30
+
+
+def _is_image(v):
+    return v.dtype == np.float32 and v.ndim >= 3
+
+
+def reckoned_bytes(ds):
+    """The bytes the dataset takes resident: float images as uint8."""
+    return sum(v.nbytes // (4 if _is_image(v) else 1)
+               for v in ds.arrays.values())
 
 
 def to_device_data(ds, device):
@@ -50,10 +76,16 @@ def to_device_data(ds, device):
     they are."""
     out = {}
     for k, v in ds.arrays.items():
-        if v.dtype == np.float32 and v.ndim >= 3:
+        if _is_image(v):
             v = np.round(v * 255.0).astype(np.uint8)
         out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return out
+
+
+def to_device_batch(batch, device):
+    """A host batch (name -> numpy rows) copied to the device as it is."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 def epoch_windows(seed: int, epoch: int, n: int, batch_size: int, k: int):
@@ -88,55 +120,80 @@ def noise_generator(seed: int, device):
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def _mean(losses, rows):
+    """The rows-weighted mean of a list of 0-d loss tensors, one
+    readback."""
+    meter = L.AverageMeter()
+    for v, n in zip(torch.stack(losses).tolist() if losses else [], rows):
+        meter.update(v, n)
+    return meter.avg
+
+
 def evaluate(eval_step, data, n: int, batch_size: int) -> float:
     """The mean test loss over all n rows of the device-resident `data`:
     the full batches with one loss buffer to read back (as the JAX
     package's make_multi_eval_step, loop.py:215-236), the ragged tail as
     one more batch, each weighted by its rows (:343-373). eval_step:
     make_eval_step(..., device_data=True)."""
-    meter = L.AverageMeter()
     dev = next(iter(data.values())).device
-    steps = n // batch_size
-    if steps:
-        idxs = torch.arange(steps * batch_size, device=dev).view(
-            steps, batch_size)
-        losses = torch.stack([eval_step((data, idx))[0] for idx in idxs])
-        for v in losses.tolist():
-            meter.update(v, batch_size)
-    if n % batch_size:
-        tail = torch.arange(steps * batch_size, n, device=dev)
-        loss, _ = eval_step((data, tail))
-        meter.update(loss.item(), n - steps * batch_size)
-    return meter.avg
+    idx = torch.arange(n, device=dev)
+    parts = [idx[lo:lo + batch_size] for lo in range(0, n, batch_size)]
+    return _mean([eval_step((data, p))[0] for p in parts],
+                 [len(p) for p in parts])
+
+
+def evaluate_host(eval_step, ds, batch_size: int, device) -> float:
+    """The same over a host dataset, each batch copied to the device
+    (:374-392); eval_step: make_eval_step(..., device_data=False)."""
+    losses, rows = [], []
+    for b in batches(ds, batch_size, shuffle=False):
+        losses.append(eval_step(to_device_batch(b, device))[0])
+        rows.append(len(next(iter(b.values()))))
+    return _mean(losses, rows)
+
+
+def _step_terms(make_masks, mask_rng, k, device):
+    """k steps' sampled (masks, lambdas), stacked on the device."""
+    ms, ls = zip(*[make_masks(mask_rng) for _ in range(k)])
+    return {key: torch.from_numpy(np.stack(v)).float().to(device)
+            for key, v in (("masks", ms), ("lambdas", ls))}
 
 
 def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
                  *, out_dir, meta, eval_term_lambdas=None, device=None,
                  make_masks=None, eval_term_masks=None, recon_support=None,
-                 fast_skip_decode=False):
+                 fast_skip_decode=False, recon_masks=None,
+                 eval_recon_masks=None, post_epoch=None):
     """Train `model` (already on `device`: None is the CUDA card, raises
     without one) for epochs start .. args.epochs; meta: {"model": the
     family, "n_latents"}, written into every checkpoint.
     eval_term_masks, eval_term_lambdas: the per-epoch eval's terms and
     weights, where they differ from training's (the MNIST families
     evaluate with 1s, as the reference's test() calls its ELBO without
-    weights; celeba19 evaluates the joint term alone; driver.py:38-40,
-    190-191). make_masks: fn(np Generator) -> one step's (masks, lambdas)
-    for a family with sampled terms (celeba19), whose steps then take
-    those in place of term_masks and term_lambdas. recon_support,
-    fast_skip_decode: make_train_step's (--fast-term-decode). Returns the
-    model."""
+    weights; celeba19 and vision evaluate the joint term alone;
+    driver.py:38-40, 190-191). recon_masks, eval_recon_masks: (T, M)
+    reconstruction masks apart from the posterior's (vision's unimodal
+    terms reconstruct all six modalities), or None. make_masks: fn(np
+    Generator) -> one step's (masks, lambdas) for a family with sampled
+    terms (celeba19), whose steps then take those in place of term_masks
+    and term_lambdas. recon_support, fast_skip_decode: make_train_step's
+    (--fast-term-decode). post_epoch: fn(epoch, model), run after each
+    epoch's eval (the model in eval mode). Returns the model."""
     device = resolve_device(device)
     seed = args.seed
     generator = noise_generator(seed, device)
     mask_rng = np.random.default_rng(seed + 1)
     dynamic = make_masks is not None
-    multi_step = L.make_multi_train_step(
+    reckoned = reckoned_bytes(train_ds) + reckoned_bytes(test_ds)
+    streaming = getattr(args, "no_device_data", False)
+    device_data = not streaming and reckoned < DEVICE_DATA_BUDGET
+    make_step = L.make_multi_train_step if device_data else L.make_train_step
+    step = make_step(
         model, None if dynamic else term_masks,
         None if dynamic else term_lambdas, lr=args.lr, generator=generator,
         device=device, recon_support=recon_support,
-        fast_skip_decode=fast_skip_decode)
-    optimizer = multi_step.optimizer
+        fast_skip_decode=fast_skip_decode, recon_masks=recon_masks)
+    optimizer = step.optimizer
     start_epoch, best_loss = 1, float("inf")
     if args.resume:
         ckpt = load_checkpoint(args.resume, device=device)
@@ -158,18 +215,24 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
     eval_step = L.make_eval_step(
         model, term_masks if eval_term_masks is None else eval_term_masks,
         term_lambdas if eval_term_lambdas is None else eval_term_lambdas,
-        device=device, device_data=True)
-    train_dev = to_device_data(train_ds, device)
-    test_dev = to_device_data(test_ds, device)
+        device=device, device_data=device_data,
+        recon_masks=eval_recon_masks)
     B, K = args.batch_size, max(1, args.log_interval)
     n_batches = num_batches(len(train_ds), B, True)
-    mib = sum(v.numel() * v.element_size() for v in train_dev.values())
-    print(f"input pipeline: device-resident ({mib / 2 ** 20:.0f} MiB on "
-          f"{device}), {K} steps/dispatch")
+    if device_data:
+        train_dev = to_device_data(train_ds, device)
+        test_dev = to_device_data(test_ds, device)
+        mib = sum(v.numel() * v.element_size() for v in train_dev.values())
+        print(f"input pipeline: device-resident ({mib / 2 ** 20:.0f} MiB on "
+              f"{device}), {K} steps/dispatch")
+    else:
+        why = ("--no-device-data" if streaming else
+               f"over the {DEVICE_DATA_BUDGET / 2 ** 30:.0f} GiB budget")
+        print(f"input pipeline: host streaming ({why}; "
+              f"{reckoned / 2 ** 20:.0f} MiB reckoned), one batch copied to "
+              f"{device} a step, {K} steps a log line")
 
-    for epoch in range(start_epoch, args.epochs + 1):
-        meter = L.AverageMeter()
-        epoch_t0 = time.perf_counter()
+    def epoch_device(epoch, meter):
         n_steps = 0
         for lo, idxs in epoch_windows(seed, epoch, len(train_ds), B, K):
             k = len(idxs)
@@ -179,28 +242,67 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
             # first pays the kernel build and cuDNN's algorithm search)
             trace_now = bool(args.profile_dir and epoch == start_epoch
                              and (lo == K or (n_batches <= K and lo == 0)))
-            terms = {}
-            if dynamic:
-                ms, ls = zip(*[make_masks(mask_rng) for _ in range(k)])
-                terms = {key: torch.from_numpy(np.stack(v)).float().to(device)
-                         for key, v in (("masks", ms), ("lambdas", ls))}
+            terms = (_step_terms(make_masks, mask_rng, k, device) if dynamic
+                     else {})
             with maybe_trace(args.profile_dir, trace_now, device):
-                losses = multi_step(train_dev,
-                                    torch.from_numpy(idxs).to(device),
-                                    betas.to(device), **terms).tolist()
+                losses = step(train_dev, torch.from_numpy(idxs).to(device),
+                              betas.to(device), **terms).tolist()
             for v in losses:                  # one readback a window
                 meter.update(v, B)
             n_steps += k
             L.log_train(epoch, lo, B, len(train_ds), n_batches, meter.avg,
                         betas[0].item())
+        return n_steps
+
+    def epoch_host(epoch, meter):
+        pending, rows, step_i = [], [], 0
+        with contextlib.ExitStack() as trace:
+            for b in batches(train_ds, B, shuffle=True, seed=seed,
+                             epoch=epoch):
+                beta = annealing_factor(epoch, step_i, n_batches,
+                                        args.annealing_epochs)
+                # --profile-dir: steps 2-4 of the first epoch (:306-308)
+                if args.profile_dir and epoch == start_epoch and step_i == 2:
+                    trace.enter_context(maybe_trace(args.profile_dir, True,
+                                                    device))
+                terms = {}
+                if dynamic:
+                    terms = {k: v[0] for k, v in _step_terms(
+                        make_masks, mask_rng, 1, device).items()}
+                loss, _ = step(to_device_batch(b, device), beta, **terms)
+                pending.append(loss)
+                rows.append(len(next(iter(b.values()))))
+                if step_i == 4:
+                    trace.close()
+                if step_i % K == 0:       # one readback a log line
+                    for v, n in zip(torch.stack(pending).tolist(), rows):
+                        meter.update(v, n)
+                    pending, rows = [], []
+                    L.log_train(epoch, step_i, B, len(train_ds), n_batches,
+                                meter.avg, beta)
+                step_i += 1
+        for v, n in zip(torch.stack(pending).tolist() if pending else [],
+                        rows):
+            meter.update(v, n)
+        return step_i
+
+    for epoch in range(start_epoch, args.epochs + 1):
+        meter = L.AverageMeter()
+        epoch_t0 = time.perf_counter()
+        n_steps = (epoch_device if device_data else epoch_host)(epoch, meter)
         epoch_dt = time.perf_counter() - epoch_t0
         L.log_epoch(epoch, meter.avg)
         if n_steps > 1 and epoch > start_epoch:   # not the warm-up epoch
             print('====> Throughput: {:.2f} steps/sec'.format(
                 n_steps / epoch_dt))
 
-        test_loss = evaluate(eval_step, test_dev, len(test_ds), B)
+        if device_data:
+            test_loss = evaluate(eval_step, test_dev, len(test_ds), B)
+        else:
+            test_loss = evaluate_host(eval_step, test_ds, B, device)
         L.log_test(test_loss)
+        if post_epoch is not None:
+            post_epoch(epoch, model)
         is_best = test_loss < best_loss
         best_loss = min(test_loss, best_loss)
         extra = {"mask_rng": mask_rng.bit_generator.state} if dynamic else {}

@@ -40,8 +40,14 @@ def _gather(batch, device_data):
     return batch
 
 
+def _masks(term_masks, device):
+    return (None if term_masks is None else
+            torch.as_tensor(term_masks, dtype=torch.float32, device=device))
+
+
 def make_eval_step(model, term_masks, term_lambdas, *, device=None,
-                   device_data: bool = False, decode_dtype=None):
+                   device_data: bool = False, decode_dtype=None,
+                   recon_masks=None):
     """Eval: beta = 1, z = mu, running BN statistics, no dropout (reference
     test(): mnist/train.py:229-253). Each call puts the model in eval mode.
 
@@ -49,14 +55,15 @@ def make_eval_step(model, term_masks, term_lambdas, *, device=None,
     CPU; the model must already live there.
     device_data=True: the step takes (data, idx) with `data` the whole
     dataset on the device and idx the (B,) batch rows; the gather runs on
-    the device.
+    the device. recon_masks: (T, M) reconstruction masks apart from the
+    posterior's (core/engine.py:multi_term_elbo), or None.
 
     Step signature: eval_step(batch) -> (total, per_term (T,)).
     """
     device = _check_device(model, device, "eval step")
-    masks = torch.as_tensor(term_masks, dtype=torch.float32, device=device)
-    lambdas = torch.as_tensor(term_lambdas, dtype=torch.float32,
-                              device=device)
+    masks = _masks(term_masks, device)
+    lambdas = _masks(term_lambdas, device)
+    rmasks = _masks(recon_masks, device)
     decode_dt = resolve_decode_dtype(model, decode_dtype)
 
     @torch.inference_mode()
@@ -64,7 +71,7 @@ def make_eval_step(model, term_masks, term_lambdas, *, device=None,
         model.eval()
         batch = decode_batch(_gather(batch, device_data), decode_dt)
         total, aux = multi_term_elbo(model, batch, masks, lambdas, 1.0,
-                                     train=False)
+                                     train=False, recon_masks=rmasks)
         return total, aux["per_term"]
 
     return eval_step
@@ -97,7 +104,8 @@ def draw_noise(model, n_terms: int, batch: int, generator):
 
 def make_train_step(model, term_masks, term_lambdas, *, lr: float,
                     generator, device=None, device_data: bool = False,
-                    recon_support=None, fast_skip_decode: bool = False):
+                    recon_support=None, fast_skip_decode: bool = False,
+                    recon_masks=None):
     """One training step: the train-mode multi-term ELBO, its backward, an
     Adam update and the BN running-statistics commit.
 
@@ -105,7 +113,8 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     step's own (celeba19's sampled terms). fast_skip_decode: decode the
     model's skip_decode_groups only for the terms whose recon_support
     (numpy (T, M) 0/1) holds them (--fast-term-decode,
-    core/engine.py:fast_decode_terms).
+    core/engine.py:fast_decode_terms). recon_masks: (T, M) reconstruction
+    masks apart from the posterior's (vision), or None.
 
     Adam is torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8), the same
     update as optax.adam (m_hat / (sqrt(v_hat) + eps)), its state in f32;
@@ -121,12 +130,9 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     this step's (T, M) tensors on the device, in place of the step's own.
     """
     device = _check_device(model, device, "train step")
-    masks = lambdas = None
-    if term_masks is not None:
-        masks = torch.as_tensor(term_masks, dtype=torch.float32,
-                                device=device)
-        lambdas = torch.as_tensor(term_lambdas, dtype=torch.float32,
-                                  device=device)
+    masks = _masks(term_masks, device)
+    lambdas = _masks(term_lambdas, device)
+    rmasks = _masks(recon_masks, device)
     decode_terms = (fast_decode_terms(model, recon_support, device)
                     if fast_skip_decode else None)
     decode_dt = resolve_decode_dtype(model)
@@ -142,7 +148,8 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
         optimizer.zero_grad(set_to_none=True)
         total, aux = multi_term_elbo(model, batch, masks, lambdas, beta,
                                      train=True, noise=noise,
-                                     decode_terms=decode_terms)
+                                     decode_terms=decode_terms,
+                                     recon_masks=rmasks)
         total.backward()
         optimizer.step()
         return total.detach(), aux["per_term"].detach()
@@ -153,7 +160,7 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
 
 def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
                           generator, device=None, recon_support=None,
-                          fast_skip_decode: bool = False):
+                          fast_skip_decode: bool = False, recon_masks=None):
     """K training steps per call over the device-resident dataset, with one
     loss buffer to read back (train/loop.py:146-212).
 
@@ -173,7 +180,8 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
     step = make_train_step(model, term_masks, term_lambdas, lr=lr,
                            generator=generator, device=device,
                            device_data=True, recon_support=recon_support,
-                           fast_skip_decode=fast_skip_decode)
+                           fast_skip_decode=fast_skip_decode,
+                           recon_masks=recon_masks)
 
     def multi_step(data, idxs, betas, noise=None, masks=None, lambdas=None):
         losses = []

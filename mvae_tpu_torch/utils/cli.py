@@ -4,16 +4,15 @@ the reference's flag surface with the JAX package's defaults, without
 --exact-decode (it decodes real images with PIL, the exact path, always),
 plus --device.
 
-Flags of the JAX package's distributed and host-streaming paths stay on
-the parser so that a command line written for it is understood, and
-`parse_train_args` refuses them: multi-process runs, the mesh and
---no-device-data are not ported yet.
+--no-device-data streams the batches from the host (train/driver.py).
+The flags of the JAX package's distributed paths stay on the parser so
+that a command line written for it is understood, and `parse_train_args`
+refuses them: multi-process runs and the mesh are not ported yet.
 """
 
 import argparse
 
-NOT_PORTED = ("no_device_data", "distributed", "coordinator", "process_id",
-              "n_processes")
+NOT_PORTED = ("distributed", "coordinator", "process_id", "n_processes")
 
 
 def device_flag(p):
@@ -60,7 +59,9 @@ def train_parser(*, n_latents, epochs, annealing_epochs, lr, batch_size=100,
                    help='print where the dataset files go; nothing is '
                         'fetched')
     p.add_argument('--no-device-data', action='store_true', default=False,
-                   help='not ported yet (host streaming): refused')
+                   help='stream the batches from the host instead of '
+                        'keeping the dataset on the device (the default '
+                        'while it fits the driver\'s budget)')
     p.add_argument('--distributed', action='store_true', default=False,
                    help='not ported yet (multi-process): refused')
     p.add_argument('--coordinator', type=str, default=None,
@@ -79,8 +80,7 @@ def parse_train_args(parser, argv=None):
     for name in NOT_PORTED:
         if getattr(args, name) not in (None, False):
             parser.error(f"--{name.replace('_', '-')} is not ported yet: "
-                         "the port trains on one device, with the dataset "
-                         "resident on it")
+                         "the port trains on one device")
     return args
 
 

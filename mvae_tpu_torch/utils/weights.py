@@ -2,15 +2,16 @@
 into the port's reference-layout `state_dict`.
 
 `state_dict_from_jax(family, ...)` is the port's own copy of the
-exporters of the ported families in mvae_tpu/utils/torch_export.py
-(:31-234): Linear weights transpose to (out, in), HWIO conv
-kernels become OIHW (the transposed conv's stored (k, k, c_out, c_in)
-becomes torch's (c_in, c_out, k, k)), the fc layers that feed or follow a
-`view(-1, C, H, W)` permute between the JAX package's (h, w, c) order and
-torch's (c, h, w) order, MNIST's single 2L heads split into the
-reference's fc31 / fc32, embedding tables keep their layout, GRU cells
-become nn.GRU's `_l{layer}[_reverse]` tensors, and celeba19's stacked
-experts unstack along their expert axis.
+exporters in mvae_tpu/utils/torch_export.py (:31-249): Linear weights
+transpose to (out, in), HWIO conv kernels become OIHW (the transposed
+conv's stored (k, k, c_out, c_in) becomes torch's (c_in, c_out, k, k)),
+the fc layers that feed or follow a `view(-1, C, H, W)` permute between
+the JAX package's (h, w, c) order and torch's (c, h, w) order, MNIST's
+single 2L heads split into the reference's fc31 / fc32, embedding tables
+keep their layout, GRU cells become nn.GRU's `_l{layer}[_reverse]`
+tensors, celeba19's stacked experts unstack along their expert axis, and
+vision's six image encoder and decoder pairs take CelebA's image-side
+rules under `{m}_encoder` and `{m}_decoder`.
 """
 
 import numpy as np
@@ -209,9 +210,26 @@ def _export_celeba19(params, state, n_attrs=18):
     return sd
 
 
+def _export_vision(params, state):
+    from mvae_tpu_torch.models.vision import MODALITIES
+    sd = {}
+    for m in MODALITIES:
+        enc = params[f"{m}_enc"]
+        _x_dcgan_enc(sd, f"{m}_encoder", (0, 2, 5, 8), (3, 6, 9),
+                     enc["conv"], state["enc"][m])
+        _x_lin_flat(sd, f"{m}_encoder.classifier.0", 256, 5, 5,
+                    enc["head"]["fc"])
+        _x_lin(sd, f"{m}_encoder.classifier.3", enc["head"]["out"])
+        dec = params[f"{m}_dec"]
+        _x_lin_up(sd, f"{m}_decoder.upsample.0", 256, 5, 5, dec["up"])
+        _x_dcgan_dec(sd, f"{m}_decoder", (0, 3, 6, 9), (1, 4, 7),
+                     dec["deconv"], state["dec"][m])
+    return sd
+
+
 EXPORTERS = {"mnist": _export_mnist, "fashionmnist": _export_fashionmnist,
              "celeba": _export_celeba, "multimnist": _export_multimnist,
-             "celeba19": _export_celeba19}
+             "celeba19": _export_celeba19, "vision": _export_vision}
 
 
 def state_dict_from_jax(family, params, state):
@@ -231,7 +249,8 @@ def checkpoint_family(state_dict, meta) -> str:
     whose keys the state_dict holds (the reference's files carry no name)."""
     if "model" in meta:
         return meta["model"]
-    for family, key in (("celeba", "attrs_encoder.net.0.weight"),
+    for family, key in (("vision", "gray_encoder.features.0.weight"),
+                        ("celeba", "attrs_encoder.net.0.weight"),
                         ("celeba19", "attr_encoders.0.net.0.weight"),
                         ("multimnist", "text_encoder.gru.weight_ih_l0"),
                         ("fashionmnist", "text_encoder.net.0.weight"),

@@ -20,6 +20,7 @@ from mvae_tpu_torch.core.subsets import (
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.models.celeba19 import Celeba19MVAE
 from mvae_tpu_torch.models.multimnist import MultiMnistMVAE
+from mvae_tpu_torch.models.vision import CHANNELS, MODALITIES, VisionMVAE
 from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops import convbn
@@ -67,6 +68,10 @@ CONV_SHAPES = [(100, 32, 32, 64, 2, 1), (100, 64, 16, 128, 2, 1),
                (5, 3, 4, 96, 1, 0), (7, 16, 7, 40, 1, 0),
                (1, 5, 12, 8, 1, 0), (9, 6, 24, 33, 2, 1),
                (4, 5, 64, 70, 2, 1), (33, 24, 9, 20, 1, 0)]
+# vision's three BN'd encoder convs at its batch of 50
+CONV_VISION = [(50, 32, 32, 64, 2, 1), (50, 64, 16, 128, 2, 1),
+               (50, 128, 8, 256, 1, 0)]
+CONV_SHAPES += CONV_VISION
 # the first four are held to the plain sums at CONV_SUM_TOL as they stand
 CONV_SHAPES_STRICT = CONV_SHAPES[:4]
 # the BN layers of the CelebA train step at B=100: (G, N, C, S), then
@@ -82,7 +87,10 @@ BN_SHAPES = [(1, 100, 64, 256), (1, 100, 128, 64), (1, 100, 256, 25),
              # then celeba19's decoder at G = 21 terms
              (1, 100, 64, 144), (1, 100, 128, 36), (1, 100, 256, 4),
              (3, 100, 128, 36), (3, 100, 64, 144), (3, 100, 32, 625),
-             (21, 100, 128, 64), (21, 100, 64, 256), (21, 100, 32, 1024)]
+             (21, 100, 128, 64), (21, 100, 64, 256), (21, 100, 32, 1024),
+             # vision's encoders (B = 50) and decoders (G = 7 terms)
+             (1, 50, 64, 256), (1, 50, 128, 64), (1, 50, 256, 25),
+             (7, 50, 128, 64), (7, 50, 64, 256), (7, 50, 32, 1024)]
 
 
 @pytest.fixture
@@ -98,11 +106,14 @@ def cuda():
 # expert count over more terms than poe_bwd has in flight, and celeba19's
 # step (T = 21) and infer / IWAE proposal (T = 1) at the expert cap 32
 POE_CASES = [(1, 2, 1), (1, 2, 64), (3, 2, 100), (5, 19, 7), (21, 19, 100),
-             (1, 19, 100)]
+             (1, 19, 100), (7, 6, 50), (1, 6, 50)]
 # (T, M, B, D) with B*D off the 128 columns of a block (1, 7, 10003) or not
 # (6400), at each expert cap
 POE_RAGGED = [(3, 2, 1, 1), (3, 2, 1, 7), (3, 2, 64, 100), (3, 2, 7, 1429),
-              (2, 8, 3, 7), (2, 8, 64, 100), (9, 32, 5, 3), (1, 1, 7, 1)]
+              (2, 8, 3, 7), (2, 8, 64, 100), (9, 32, 5, 3), (1, 1, 7, 1),
+              # vision's step (T = 7) and infer / IWAE proposal (T = 1):
+              # M = 6 at the expert cap 8, D = 250
+              (7, 6, 50, 250), (1, 6, 50, 250)]
 
 
 def _poe_inputs(cuda, t, m, b, d=100):
@@ -198,6 +209,15 @@ BCE_CASES = [
     (300, 100, 2500, torch.float32, torch.bfloat16),    # steps (element
     (10000, 100, 2500, torch.float32, torch.float32),   # loads) and IWAE
     (2100, 100, 12288, torch.bfloat16, torch.bfloat16),  # celeba19's step
+    # vision: the bf16 step's 350 rows against 50 targets, 12288 and 4096
+    # wide (and 4096 under --f32), the joint eval, the IWAE's chunk
+    (350, 50, 12288, torch.bfloat16, torch.bfloat16),
+    (350, 50, 4096, torch.bfloat16, torch.bfloat16),
+    (350, 50, 4096, torch.float32, torch.float32),
+    (50, 50, 4096, torch.float32, torch.bfloat16),
+    (50, 50, 12288, torch.float32, torch.bfloat16),
+    (5000, 50, 4096, torch.float32, torch.float32),
+    (5000, 50, 12288, torch.float32, torch.float32),
 ]
 # the bf16-math mode (bf16 logits): celeba19's train step (2100 image rows
 # against 100 targets; the 18-wide attribute rows), MultiMNIST's 2500
@@ -349,7 +369,7 @@ def test_conv_moments_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [CONV_SHAPES[0], CONV_SHAPES[2],
-                                   CONV_SHAPES[9]])
+                                   CONV_SHAPES[9]] + CONV_VISION)
 def test_conv_moments_is_the_same_from_run_to_run(cuda, shape, dtype):
     """Two launches on the same inputs give bit-identical y and sums: the
     partial sums are added in tile order, whichever block finishes last."""
@@ -542,7 +562,8 @@ def test_bn_bwd_partials_is_the_same_from_run_to_run(cuda, shape, dtype, op):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [BN_SHAPES[6], BN_SHAPES[7],
-                                   BN_SHAPES[2], BN_SHAPES[9]])
+                                   BN_SHAPES[2], BN_SHAPES[9],
+                                   (1, 50, 256, 25), (7, 50, 32, 1024)])
 def test_bn_stream_kernels_are_the_same_from_run_to_run(cuda, shape, dtype):
     """bn_normalize and bn_dx launched twice give bit-identical outputs,
     the (G, C) vectors too: one block writes them, in a fixed order."""
@@ -827,4 +848,70 @@ def test_celeba19_iwae_goes_through_the_kernels(cuda):
     assert counts["poe_fwd"] == 1 and counts["bce_rowsum_fwd"] == 2
     with ops.plain_versions():
         want = iwae_log_marginal(*args, eps=eps)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _vision_batch(cuda, b=4):
+    rng = np.random.default_rng(0)
+    return {m: torch.from_numpy(rng.integers(
+        0, 256, (b, 64, 64, CHANNELS[m]), dtype=np.uint8)).to(cuda)
+        for m in MODALITIES}
+
+
+VISION_TERMS = [[1.0] * 6] + [[float(i == j) for j in range(6)]
+                              for i in range(6)]
+VISION_LAMBDAS = [[1.0 / 6] * 6] * 7
+
+
+@pytest.mark.parametrize("conv_moments", [False, True])
+def test_vision_step_goes_through_the_kernels(cuda, conv_moments):
+    """One vision train-mode ELBO at T = 7 with every modality
+    reconstructed in every term, and its backward, on the card: 1 PoE
+    forward and backward (M = 6, the expert cap 8), 6 BCE launches (rows
+    of 12288 and of 4096), each BN pass once for each of the six
+    decoders' 3 BN layers (G = 7) and, on the default route, the six
+    encoders' 3, which the fused route gives to conv2d_moments (18
+    launches); loss and gradients against the plain versions."""
+    model = VisionMVAE(8, conv_moments=conv_moments, device=cuda)
+    twin = copy.deepcopy(model)
+    batch = decode_batch(_vision_batch(cuda))
+    noise = draw_noise(model, 7, 4,
+                       torch.Generator(device=cuda).manual_seed(1))
+    rmasks = torch.ones((7, 6), device=cuda)
+    ops.reset_launch_counts()
+    total, grads = _family_step(model, batch, VISION_TERMS, VISION_LAMBDAS,
+                                noise, recon_masks=rmasks)
+    torch.cuda.synchronize()
+    bn = 18 if conv_moments else 36
+    assert ops.launch_counts() == {
+        "poe_fwd": 1, "poe_bwd": 1, "bce_rowsum_fwd": 6, "bn_moments": bn,
+        "bn_normalize": bn, "bn_bwd_partials": bn, "bn_dx": bn,
+        "conv2d_moments": 36 - bn}
+    with ops.plain_versions():
+        p_total, p_grads = _family_step(twin, batch, VISION_TERMS,
+                                        VISION_LAMBDAS, noise,
+                                        recon_masks=rmasks)
+    torch.testing.assert_close(total, p_total, rtol=1e-5, atol=0)
+    _grads_close(grads, p_grads)
+
+
+def test_vision_iwae_goes_through_the_kernels(cuda, monkeypatch):
+    """The vision IWAE (joint: six row-summed BCEs) on the card, its
+    samples decoded in two chunks: one PoE launch at M = 6, one BCE
+    launch for each modality and chunk, and the estimate within rtol 1e-5
+    of the plain versions'."""
+    from mvae_tpu_torch.core import loglike
+    model = VisionMVAE(8, device=cuda)
+    batch = decode_batch(_vision_batch(cuda))
+    eps = torch.randn((4, 4, 8), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(2))
+    monkeypatch.setattr(loglike, "DECODE_ELEMENTS", 2 * 4 * 49152)
+    args = (model, batch, [1.0] * 6, list(MODALITIES), 4)
+    ops.reset_launch_counts()
+    got = loglike.iwae_log_marginal(*args, eps=eps)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["poe_fwd"] == 1 and counts["bce_rowsum_fwd"] == 12
+    with ops.plain_versions():
+        want = loglike.iwae_log_marginal(*args, eps=eps)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

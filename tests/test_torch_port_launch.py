@@ -31,6 +31,9 @@ CELEBA = [(100, 32, 32, 64, 2, 1), (100, 64, 16, 128, 2, 1),
 RAGGED = [(1, 32, 32, 64, 2, 1), (3, 3, 6, 8, 2, 1), (2, 16, 10, 40, 2, 1),
           (5, 3, 4, 96, 1, 0), (7, 16, 7, 40, 1, 0), (1, 5, 12, 8, 1, 0),
           (9, 6, 24, 33, 2, 1)]
+# vision's three BN'd encoder convs at its batch of 50 (six encoders)
+VISION = [(50, 32, 32, 64, 2, 1), (50, 64, 16, 128, 2, 1),
+          (50, 128, 8, 256, 1, 0)]
 DTYPES = [torch.bfloat16, torch.float32]
 
 
@@ -68,7 +71,7 @@ def _stage(geo, x, tile, c0, stride, pad):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", CELEBA + RAGGED)
+@pytest.mark.parametrize("shape", CELEBA + RAGGED + VISION)
 def test_conv_stage_holds_every_window(shape, dtype):
     """Every element (pixel, ci, kh, kw) of the implicit im2col matrix is
     read from the staged tile at the offset the kernel computes
@@ -107,7 +110,7 @@ def test_conv_stage_holds_every_window(shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", CELEBA + RAGGED)
+@pytest.mark.parametrize("shape", CELEBA + RAGGED + VISION)
 def test_conv_grid_covers_the_output_once(shape, dtype):
     """tiles x n_tiles blocks of tile_m pixels x bn channels cover M x C_out
     exactly once; the shared memory fits a block; the scratch is what
@@ -170,6 +173,9 @@ BN_RAGGED = [(1, 1, 7, 1), (2, 5, 40, 3), (1, 33, 50, 1), (2, 3, 4, 25),
 BN_MULTIMNIST = [(1, 100, 64, 144), (1, 100, 128, 36), (1, 100, 256, 4),
                  (3, 100, 128, 36), (3, 100, 64, 144), (3, 100, 32, 625)]
 BN_CELEBA19 = [(21, 100, 128, 64), (21, 100, 64, 256), (21, 100, 32, 1024)]
+# vision's six encoders (B = 50) and six decoders (G = 7 terms)
+BN_VISION = [(1, 50, 64, 256), (1, 50, 128, 64), (1, 50, 256, 25),
+             (7, 50, 128, 64), (7, 50, 64, 256), (7, 50, 32, 1024)]
 
 
 # the two reductions of csrc/bn_swish.cu by the tensors an element reads:
@@ -188,7 +194,7 @@ def _reduce(shape, itemsize, op, aligned=(True, True)):
 @pytest.mark.parametrize("op", sorted(REDUCTIONS))
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", BN_CELEBA + BN_MULTIMNIST + BN_CELEBA19
-                         + BN_RAGGED)
+                         + BN_RAGGED + BN_VISION)
 def test_bn_bwd_partials_rows_in_exactly_one_block(shape, dtype, op):
     """Both reductions (bn_moments, bn_bwd_partials): every row of every
     plane lies in exactly one block, no block is empty, splits <= N and
@@ -296,6 +302,15 @@ BCE_FAMILIES = [(300, 2500, "bf16", "bf16"), (300, 2500, "f32", "bf16"),
                 (10000, 2500, "f32", "f32"), (2100, 12288, "bf16", "bf16"),
                 (100, 12288, "f32", "bf16")]
 BCE_SHAPES += BCE_FAMILIES
+# vision: the bf16 train step's T * B = 350 rows against 50 targets, the
+# three-channel modalities' 12288 and the one-channel ones' 4096 (and
+# 4096 under --f32), the joint eval's 50 rows (f32 logits, bf16 targets),
+# the IWAE's 50 * 100 sample rows of one chunk (f32)
+BCE_VISION = [(350, 12288, "bf16", "bf16"), (350, 4096, "bf16", "bf16"),
+              (350, 4096, "f32", "f32"), (50, 4096, "f32", "bf16"),
+              (50, 12288, "f32", "bf16"), (5000, 4096, "f32", "f32"),
+              (5000, 12288, "f32", "f32")]
+BCE_SHAPES += BCE_VISION
 _SIZE = {"f32": 4, "bf16": 2}
 
 
@@ -388,7 +403,8 @@ def test_bce_784_rows_take_one_plain_block_a_row(shape):
     assert 784 // vec <= lay["threads"] * elbo.BCE_UNROLL < 2 * 784 // vec
 
 
-@pytest.mark.parametrize("n,nt", [(10000, 100), (300, 100), (12, 4)])
+@pytest.mark.parametrize("n,nt", [(10000, 100), (300, 100), (12, 4),
+                                  (350, 50), (5000, 50)])
 def test_bce_shared_target_rows_are_read_by_each_group(n, nt):
     """Logit row r reads target row r mod Nt (csrc/bce_rowsum.cu:83): over
     the geometry's loads, every chunk of every target row is read once by
@@ -401,6 +417,18 @@ def test_bce_shared_target_rows_are_read_by_each_group(n, nt):
     cover = np.bincount(target * chunks + found, minlength=nt * chunks)
     assert (cover == n // nt).all()
     assert (np.bincount(rows, minlength=n) == chunks).all()
+
+
+@pytest.mark.parametrize("shape", BCE_VISION)
+def test_bce_vision_rows_take_one_plain_block_a_row(shape):
+    """Vision's rows, 12288 and 4096 wide: 16-byte chunks of the narrower
+    type, one plain block of BCE_THREADS a row (no cluster), at most
+    BCE_CHUNKS chunks a thread."""
+    lay = _bce(shape)
+    assert lay["vec"] == 16 // min(_SIZE[shape[2]], _SIZE[shape[3]])
+    assert lay["splits"] == 1 and lay["grid"] == (shape[0], 1)
+    assert lay["lanes"] == lay["threads"] == elbo.BCE_THREADS
+    assert -(-lay["span"] // lay["threads"]) <= elbo.BCE_CHUNKS
 
 
 @pytest.mark.parametrize("shape,aligned", [
@@ -420,7 +448,7 @@ def test_bce_unaligned_or_ragged_rows_load_by_element(shape, aligned):
 # S = 3 and 5 with odd numels, (G, C) = (2, 4000)
 STREAM_SHAPES = BN_CELEBA + [(1, 5, 7, 1), (2, 3, 4, 25), (1, 3, 5, 3),
                              (3, 7, 9, 5), (1, 33, 50, 1),
-                             (2, 20, 4000, 1)] + BN_MULTIMNIST
+                             (2, 20, 4000, 1)] + BN_MULTIMNIST + BN_VISION
 # each tensor's address modulo 16: aligned; x and the output both 2 or 4
 # bytes past a boundary (a head); x off by one element against the rest
 # (no 16-byte chunk lines up in all, one element a chunk)
@@ -618,8 +646,9 @@ def test_bn_stream_at_21_term_groups(shape, dtype):
 # kernels' constant kThreads, as many blocks as cover the columns; B*D
 # columns of one row and of a few, MultiMNIST's 6400 (B = 100, D = 64),
 # the CelebA and celeba19 steps' 10^4 (celeba19 at T = 21 and T = 1 with
-# M = 19, the expert cap 32) and one past it
-POE_COLS = [1, 7, 6400, 10000, 10003]
+# M = 19, the expert cap 32), one past it, and vision's 12500 (B = 50,
+# D = 250; M = 6, the expert cap 8)
+POE_COLS = [1, 7, 6400, 10000, 10003, 12500]
 POE_SOURCE = Path(poe.__file__).parents[1] / "csrc" / "poe.cu"
 
 
@@ -648,11 +677,11 @@ def test_poe_reads_and_writes_every_column_once(n_cols):
     assert 32 <= threads <= 1024 and threads % 32 == 0
 
 
-@pytest.mark.parametrize("m,cap", [(1, 2), (2, 2), (3, 8), (8, 8), (9, 32),
-                                   (19, 32), (32, 32)])
+@pytest.mark.parametrize("m,cap", [(1, 2), (2, 2), (3, 8), (6, 8), (8, 8),
+                                   (9, 32), (19, 32), (32, 32)])
 def test_poe_expert_cap_is_the_least_that_holds_the_experts(m, cap):
     """The kernels hold cap experts a column in registers: 2 at the main
-    path's M = 2, 32 at celeba19's 19."""
+    path's M = 2, 8 at vision's 6, 32 at celeba19's 19."""
     assert poe.expert_cap(m) == cap
     assert cap in poe.EXPERT_CAPS and poe.MAX_EXPERTS == max(poe.EXPERT_CAPS)
 
@@ -661,5 +690,14 @@ def test_poe_main_case_is_one_wave():
     """The steps' 10^4 columns: every thread of the grid resident on the
     card at once (2048 a SM), and more blocks than half the SMs."""
     blocks, threads, _ = _poe_grid(10000)
+    assert blocks > SM_COUNT // 2
+    assert blocks * threads <= SM_COUNT * 2048
+
+
+def test_poe_vision_case_is_one_wave():
+    """Vision's step, B * D = 50 * 250 columns at the expert cap 8: every
+    thread of the grid resident on the card at once (2048 a SM), and
+    more blocks than half the SMs."""
+    blocks, threads, _ = _poe_grid(50 * 250)
     assert blocks > SM_COUNT // 2
     assert blocks * threads <= SM_COUNT * 2048

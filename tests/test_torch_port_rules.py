@@ -16,12 +16,13 @@ import mvae_tpu_torch
 import mvae_tpu_torch.experiments.celeba.train as celeba_cli
 from mvae_tpu_torch.core.engine import multi_term_elbo
 from mvae_tpu_torch.models import (
-    Celeba19MVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE)
+    Celeba19MVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE, VisionMVAE)
 from mvae_tpu_torch.models.celeba import CelebaMVAE
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.train.driver import load_model_checkpoint
 from mvae_tpu_torch.train.loop import (
     make_eval_step, make_multi_train_step, make_train_step)
+from mvae_tpu_torch.utils.cli import parse_train_args
 from mvae_tpu_torch.utils.weights import load_reference_checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,13 +56,15 @@ def test_import_pulls_in_no_jax_and_no_mvae_tpu():
 CLIS = ["experiments.celeba.train", "experiments.celeba.sample",
         "experiments.celeba.loglike"] + [
     f"experiments.{family}.{cli}" for family in ("mnist", "fashionmnist",
-                                                 "multimnist", "celeba19")
+                                                 "multimnist", "celeba19",
+                                                 "vision")
     for cli in ("train", "sample", "loglike")]
 
 
 def test_import_rule_covers_the_trainer():
-    """The walk above reaches the data loaders, the models, the driver, the
-    checkpoint code, the IWAE, the PNG writer and every CLI."""
+    """The walk above reaches the data loaders, the image transforms, the
+    models, the driver, the checkpoint code, the IWAE, the PNG writer and
+    every CLI."""
     mods = set(_all_modules())
     for name in ["data.pipeline", "data.celeba", "data.mnist",
                  "data.multimnist", "data.text", "models.mnist",
@@ -70,7 +73,9 @@ def test_import_rule_covers_the_trainer():
                  "core.loglike", "train.driver", "train.checkpoint",
                  "train.loglike_cli", "utils.cli", "utils.png",
                  "utils.profiling", "ops.convbn",
-                 "experiments.multimnist.datasets"] + CLIS:
+                 "experiments.multimnist.datasets", "image",
+                 "image.transforms", "data.vision", "models.vision",
+                 "experiments.vision.setup"] + CLIS:
         assert f"mvae_tpu_torch.{name}" in mods, name
 
 
@@ -87,7 +92,7 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
         monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cls in (CelebaMVAE, MnistMVAE, FashionMnistMVAE, MultiMnistMVAE,
-                Celeba19MVAE):
+                Celeba19MVAE, VisionMVAE):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(8)
     model = CelebaMVAE(8, device="cpu")
@@ -149,9 +154,10 @@ def test_cpu_resolution_sets_up_the_vector_math_on_one_thread(monkeypatch):
 def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
                                                            capsys, tmp_path):
     """The CLI resolves its device before it loads data: on a host without
-    a card it raises unless --device cpu, and it refuses the flags of the
-    paths that are not ported and the JAX CLI's --cuda and --exact-decode,
-    which would do nothing here."""
+    a card it raises unless --device cpu; it takes --no-device-data (host
+    streaming) and refuses the flags of the multi-process paths, which are
+    not ported, and the JAX CLI's --cuda and --exact-decode, which would
+    do nothing here."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     loads = []
     monkeypatch.setattr(celeba_cli, "load_celeba",
@@ -162,8 +168,14 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
     with pytest.raises(ZeroDivisionError):
         celeba_cli.main(["--device", "cpu", "--out-dir", str(tmp_path)])
     assert len(loads) == 1
-    for flag in (["--no-device-data"], ["--distributed"],
-                 ["--coordinator", "localhost:1"], ["--n-processes", "2"]):
+    with pytest.raises(ZeroDivisionError):
+        celeba_cli.main(["--device", "cpu", "--no-device-data",
+                         "--out-dir", str(tmp_path)])
+    assert len(loads) == 2 and capsys.readouterr().err == ""
+    assert parse_train_args(celeba_cli.parser(),
+                            ["--no-device-data"]).no_device_data
+    for flag in (["--distributed"], ["--coordinator", "localhost:1"],
+                 ["--n-processes", "2"]):
         with pytest.raises(SystemExit):
             celeba_cli.main(["--device", "cpu"] + flag)
         assert "not ported yet" in capsys.readouterr().err
@@ -174,11 +186,12 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
 
 
 @pytest.mark.parametrize("family,loader", [("multimnist", "load_multimnist"),
-                                           ("celeba19", "load_celeba")])
+                                           ("celeba19", "load_celeba"),
+                                           ("vision", "load_celeb_vision")])
 def test_family_train_clis_raise_without_cuda_unless_asked_for_cpu(
         monkeypatch, tmp_path, family, loader):
-    """The MultiMNIST and celeba19 train CLIs resolve their device before
-    they load data, as the CelebA one does."""
+    """The MultiMNIST, celeba19 and vision train CLIs resolve their device
+    before they load data, as the CelebA one does."""
     import importlib
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
