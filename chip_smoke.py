@@ -5,8 +5,10 @@ against its plain PyTorch version on the card, drives the serving
 endpoints, the eval-mode ELBO, the training step and the training CLI of
 the shipped CelebA model at full width, then the MNIST, FashionMNIST,
 MultiMNIST, CelebA-19 and vision families end to end (train, sample and
-loglike CLIs, serving) and the CelebA sample and loglike CLIs, and shows
-that those paths went through the kernels.
+loglike CLIs, serving) and the CelebA sample and loglike CLIs, then
+trains the CelebA protocol of the convergence gate and holds its scores
+against the JAX package's rows, and shows that those paths went through
+the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -82,6 +84,14 @@ Phases (any failure exits non-zero; nothing is caught):
      Sampler.from_checkpoint at every endpoint; the bf16 train step in
      turns against the plain versions; profile lines of the step and of
      an IWAE batch (two decode chunks)
+  6g. the convergence gate's main path: the runner of
+     mvae_tpu_torch/tools/parity_convergence.py on the CelebA protocol in
+     bf16 at seed 0 (CelebaMVAE(100), the synthetic set of 2000 / 500
+     rows, 12 epochs of 20 steps, the test ELBO on 500 rows, IWAE-100
+     and IWAE-500 on 200), the row held against the JAX f32 three-seed
+     mean of PARITY_convergence.json: a gap over twice the JAX spread s
+     in any metric fails the run (the strict gate, one s, is the row
+     file's)
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -95,7 +105,7 @@ Phases (any failure exits non-zero; nothing is caught):
      math and its f32 math), and f32 card vs CPU; the same for vision's
      T=7 step, and Canny on the card against the CPU (edges equal but at
      ties)
-  8. the kernels line: launches on phases 3-5 and 6b-6f, error, times,
+  8. the kernels line: launches on phases 3-5 and 6b-6g, error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
 Phases 3-5 and 6c-6f end with a torch.profiler breakdown of device time
@@ -114,6 +124,7 @@ import copy
 import ctypes
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -164,6 +175,7 @@ from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
 from mvae_tpu_torch.serve import Sampler
+from mvae_tpu_torch.tools import parity_convergence as parity
 from mvae_tpu_torch.train.checkpoint import BEST, CKPT
 from mvae_tpu_torch.train.driver import to_device_data
 from mvae_tpu_torch.train.loop import (
@@ -1800,6 +1812,43 @@ def phase_vision(dev, card, root, data_dir):
     return mods
 
 
+# phase 6g: the runner's row, held within SMOKE_SPREADS times the JAX
+# three-seed spread s of the JAX f32 mean (a smoke bound: the row file's
+# gate takes one s)
+CONVERGENCE = dict(family="celeba", bf16=True, seed=0)
+SMOKE_SPREADS = 2.0
+
+
+def phase_convergence(dev, card, root):
+    """Phase 6g: one row of the convergence runner through its entry
+    point, run_row, on the card; prints the row, the JAX mean, s and the
+    gap of each metric; fails on a non-finite score or a gap over
+    SMOKE_SPREADS * s. Returns the row."""
+    with open(parity.JAX_ROWS) as f:
+        jax_rows = json.load(f)
+    port = parity.run_row(device=dev, work_dir=os.path.join(
+        root, "convergence"), **CONVERGENCE)
+    family = CONVERGENCE["family"]
+    row = parity.make_row(family, parity.PROTOCOLS[family],
+                          CONVERGENCE["seed"], CONVERGENCE["bf16"], port,
+                          jax_rows)
+    key = parity.row_key(**CONVERGENCE)
+    print(f"[convergence] {key}: {json.dumps(row)}")
+    print(f"[convergence] {key}: {port['steps']} steps in "
+          f"{port['train_seconds']} s ({port['steps_per_second']} steps/s, "
+          f"the per-epoch eval and checkpoints included) | {card}")
+    for m in parity.METRICS:
+        gap, s = row["gap_to_mean"][m], row["jax_spread"][m]
+        print(f"[convergence] {key} {m}: port {port[m]}, jax_mean "
+              f"{row['jax_mean'][m]}, s {s}, gap {gap} (within s: "
+              f"{row['within'][m]}; smoke bound {SMOKE_SPREADS} s)")
+        expect(math.isfinite(port[m]), f"{key} {m} is finite")
+        expect(gap <= SMOKE_SPREADS * s,
+               f"{key} {m}: gap {gap} within {SMOKE_SPREADS} s = "
+               f"{SMOKE_SPREADS * s}")
+    return row
+
+
 def canny_ties(mag, gy, gx, lo, hi):
     """Pixels where one of the Canny's decisions on (mag, gy, gx) is within
     CANNY_TIE_RTOL of its image's largest magnitude: a threshold, an NMS
@@ -2288,7 +2337,7 @@ def lap(what):
 
 def run(dev, card, peaks, root):
     """Phases 2-7 with their files under root; returns the kernel rows of
-    phase 2 and the launches of phases 3-5 and 6b-6f."""
+    phase 2 and the launches of phases 3-5 and 6b-6g."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
@@ -2319,7 +2368,9 @@ def run(dev, card, peaks, root):
             "families": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd"),
             "multimnist": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
             + BN_KERNELS, "celeba19": tuple(KERNELS),
-            "vision": tuple(KERNELS)}
+            "vision": tuple(KERNELS),
+            "convergence": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
+            + BN_KERNELS}
     launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
@@ -2332,7 +2383,8 @@ def run(dev, card, peaks, root):
             ("celeba19", lambda: phase_celeba19(
                 dev, card, root, out["families"]["celeba"])),
             ("vision", lambda: phase_vision(
-                dev, card, root, out["families"]["celeba"]))):
+                dev, card, root, out["families"]["celeba"])),
+            ("convergence", lambda: phase_convergence(dev, card, root))):
         ops.reset_launch_counts()
         out[phase] = fn()
         torch.cuda.synchronize()

@@ -22,13 +22,34 @@ def linear(x, weight, bias=None):
     return y if bias is None else y + bias.to(x.dtype)
 
 
+class _Swish(torch.autograd.Function):
+    """x * s with s = sigmoid(x); its backward is JAX's, g * s + (x * g) *
+    (s * (1 - s)), each step in x's dtype: jax.nn.sigmoid differentiates
+    as s * (1 - s) of its own output. Autograd through 1 / (1 + exp(-x))
+    would multiply the reciprocal's zero gradient by exp(-x) = inf wherever
+    x < -88.7 and give NaN, which then spreads through every earlier
+    layer."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
+
+
 def swish(x):
     """x * sigmoid(x), in x's dtype (mnist/model.py:166-169). The sigmoid is
     1 / (1 + exp(-x)) with each step rounded to x's dtype: the form JAX
     lowers `jax.nn.sigmoid` to (lax.logistic has no HLO primitive), so a
     bf16 swish rounds where the JAX package's does. torch.reciprocal is
-    one kernel where `1 / t` is two (a reciprocal, then a multiply by 1)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    one kernel where `1 / t` is two (a reciprocal, then a multiply by 1).
+    The gradient is JAX's (_Swish), finite at any x."""
+    return _Swish.apply(x)
 
 
 class Linear(nn.Module):

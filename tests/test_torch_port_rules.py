@@ -75,7 +75,8 @@ def test_import_rule_covers_the_trainer():
                  "utils.profiling", "ops.convbn",
                  "experiments.multimnist.datasets", "image",
                  "image.transforms", "data.vision", "models.vision",
-                 "experiments.vision.setup"] + CLIS:
+                 "experiments.vision.setup",
+                 "tools.parity_convergence"] + CLIS:
         assert f"mvae_tpu_torch.{name}" in mods, name
 
 
@@ -205,6 +206,28 @@ def test_family_train_clis_raise_without_cuda_unless_asked_for_cpu(
     with pytest.raises(ZeroDivisionError):
         cli.main(["--device", "cpu", "--out-dir", str(tmp_path)])
     assert len(loads) == 1
+
+
+def test_convergence_runner_raises_without_cuda_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """The convergence runner (tools/parity_convergence.py) runs on the
+    card unless --device cpu: without one it raises before it builds the
+    data or trains; run_row does the same for device=None."""
+    import mvae_tpu_torch.tools.parity_convergence as pc
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loads = []
+    monkeypatch.setattr(pc, "family_data",
+                        lambda *a, **k: loads.append(a) or 1 / 0)
+    out = str(tmp_path / "rows.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pc.main(["--family", "celeba", "--out", out])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pc.run_row("celeba")
+    assert loads == []
+    with pytest.raises(ZeroDivisionError):
+        pc.main(["--family", "celeba", "--device", "cpu", "--bf16",
+                 "--out", out])
+    assert len(loads) == 1 and not (tmp_path / "rows.json").exists()
 
 
 def test_train_mode_is_refused_until_ported():
