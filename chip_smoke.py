@@ -2,8 +2,9 @@
 """Quickest proof that the PyTorch port (mvae_tpu_torch) runs on one
 NVIDIA GPU: builds the CUDA kernels from `mvae_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the serving
-endpoints, the eval-mode ELBO, the training step and the training CLI of
-the shipped CelebA model at full width, then the MNIST, FashionMNIST,
+endpoints and the HTTP front, the eval-mode ELBO, the training step and
+the training CLI of the shipped CelebA model at full width, then the
+MNIST, FashionMNIST,
 MultiMNIST, CelebA-19 and vision families end to end (train, sample and
 loglike CLIs, serving) and the CelebA sample and loglike CLIs, then
 trains the CelebA protocol of the convergence gate and holds its scores
@@ -12,7 +13,8 @@ the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught but an HTTP
+error status, which phase 3b reads as the status it checks):
   1. card, versions, kernel build time
   2. kernels vs their plain versions at the paths' shapes, with times:
      the PoE's forward and backward, the BCE; the four BN passes at each
@@ -29,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught):
      over M=6 (the expert cap 8), B=50, D=250, the BCE's (350, 12288)
      and (350, 4096) bf16 train rows against 50 targets, its eval and
      IWAE rows, the four BN passes at its six encoders' B=50 planes and
-     six decoders' G=7 planes, conv2d_moments at its B=50 convs (bf16);
+     six decoders' G=7 planes and at the stacked groups' planes of
+     --stack-modalities (three modalities' channels side by side: C =
+     192, 384, 768 in the encoders, 384, 192, 96 at G=7 in the decoders),
+     conv2d_moments at its B=50 convs (bf16);
      every kernel launched
      twice gives bit-identical results. Each kernel is timed two ways:
      device_ms (one launch between events, the L2 flushed before it:
@@ -37,6 +42,15 @@ Phases (any failure exits non-zero; nothing is caught):
      back_to_back_ms (R launches between one pair of events, each on its
      own copy of the inputs: the floor out)
   3. serving: Sampler on CelebaMVAE(100) in bf16 (every endpoint)
+  3b. the HTTP front (mvae_tpu_torch/serve_http.py) on 127.0.0.1 around
+     that Sampler, warmed up at buckets 1-64 for the conditions image,
+     attrs and both: every endpoint in JSON and in the binary form
+     against the direct Sampler call, bit for bit; a 400 and a 404; 16
+     concurrent one-row /embed requests against their rows served alone;
+     then the burst of tools/serve_http_bench.py, 16 clients x 8 one-row
+     /embed requests, at the 2 ms window and at 0 ms in turns (requests/s,
+     p50/p95 ms, device calls, rows a call), which fails unless the 2 ms
+     window coalesces
   4. eval step: B=100, T=3, CLI weights, uint8 device-resident data, bf16
      and f32, kernel path and plain versions timed in turns
   5. train step: the same setting, Adam(1e-4), windows of K=20 steps of
@@ -83,7 +97,10 @@ Phases (any failure exits non-zero; nothing is caught):
      each of the six modalities; the joint loglike CLI at K=100;
      Sampler.from_checkpoint at every endpoint; the bf16 train step in
      turns against the plain versions; profile lines of the step and of
-     an IWAE batch (two decode chunks)
+     an IWAE batch (two decode chunks); the step of --stack-modalities
+     (each group of three modalities one grouped stack) in turns against
+     the loop, with a profile line of each, and one epoch of the train
+     CLI with --stack-modalities
   6g. the convergence gate's main path: the runner of
      mvae_tpu_torch/tools/parity_convergence.py on the CelebA protocol in
      bf16 at seed 0 (CelebaMVAE(100), the synthetic set of 2000 / 500
@@ -103,8 +120,14 @@ Phases (any failure exits non-zero; nothing is caught):
      train step, kernel path vs plain versions (loss above its floor,
      every gradient) in bf16 and f32 (celeba19 in bf16 with the BCE's bf16
      math and its f32 math), and f32 card vs CPU; the same for vision's
-     T=7 step, and Canny on the card against the CPU (edges equal but at
-     ties)
+     T=7 step, with --stack-modalities against the loop (loss, gradients,
+     running statistics) in bf16 and f32, and Canny on the card against
+     the CPU (edges equal but at ties)
+  The fashionmnist and multimnist bf16 steps are also timed with cuDNN's
+  defaults against cudnn.deterministic (the convergence runner's flags)
+  in turns, and one window of each runs under
+  torch.use_deterministic_algorithms(warn_only=True), whose warnings name
+  the ops with no deterministic form.
   8. the kernels line: launches on phases 3-5 and 6b-6g, error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
@@ -131,7 +154,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -175,7 +202,10 @@ from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
 from mvae_tpu_torch.serve import Sampler
+from mvae_tpu_torch.serve_http import (
+    ServeApp, decode_array, encode_array, make_server, warmup_buckets)
 from mvae_tpu_torch.tools import parity_convergence as parity
+from mvae_tpu_torch.tools import serve_http_bench
 from mvae_tpu_torch.train.checkpoint import BEST, CKPT
 from mvae_tpu_torch.train.driver import to_device_data
 from mvae_tpu_torch.train.loop import (
@@ -309,6 +339,14 @@ VISION_BN_LAYERS = (
     ("vision dec convT1", 6, 7, 50, 128, 64, torch.bfloat16),
     ("vision dec convT2", 6, 7, 50, 64, 256, torch.bfloat16),
     ("vision dec convT3", 6, 7, 50, 32, 1024, torch.bfloat16),
+    # --stack-modalities: each group of three modalities as one stack,
+    # their channels side by side (two groups a step)
+    ("vision stacked enc conv2", 2, 1, 50, 192, 256, torch.bfloat16),
+    ("vision stacked enc conv3", 2, 1, 50, 384, 64, torch.bfloat16),
+    ("vision stacked enc conv4", 2, 1, 50, 768, 25, torch.bfloat16),
+    ("vision stacked dec convT1", 2, 7, 50, 384, 64, torch.bfloat16),
+    ("vision stacked dec convT2", 2, 7, 50, 192, 256, torch.bfloat16),
+    ("vision stacked dec convT3", 2, 7, 50, 96, 1024, torch.bfloat16),
 )
 BN_MAIN_LAYER = "image dec convT3"      # the largest launch
 ENC_CONV_BN = ("image enc conv2", "image enc conv3", "image enc conv4")
@@ -918,6 +956,161 @@ def phase_serving(dev, card):
                       lambda: endpoints["reconstruct|image"](64), card)
 
 
+# phase 3b: the burst, HTTP_CLIENTS clients x HTTP_REQUESTS one-row /embed
+# requests each, at each window (ms) in turns A, B, B, A
+HTTP_CLIENTS, HTTP_REQUESTS = 16, 8
+HTTP_WINDOWS = (2.0, 0.0)
+HTTP_CONDITIONS = (("image",), ("attrs",), ("image", "attrs"))
+# a coalesced request may land in another batch bucket than it would alone,
+# where cuDNN and cuBLAS may choose other algorithms: its posterior (f32,
+# from the bf16 model) is held to the row served alone within this
+# relative norm, and bit for bit where the bucket is the same
+COALESCED_RTOL = 1e-2
+
+
+def http(port, method, path, body=None):
+    """(status, payload) of one request to the server on 127.0.0.1:port;
+    an error status comes back as a status, not an exception."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def served_as_direct(what, out, want):
+    """A response's arrays equal the direct Sampler call's bit for bit."""
+    got = {k: decode_array(v, np.float32) for k, v in out.items()}
+    expect(sorted(got) == sorted(want), f"{what}: keys {sorted(got)}")
+    for k, v in want.items():
+        w = v.float().cpu().numpy()
+        expect(got[k].dtype == np.float32 and got[k].shape == w.shape
+               and np.array_equal(got[k], w),
+               f"{what} {k}: not the direct call's")
+
+
+def phase_serving_http(dev, card):
+    """Phase 3b: the HTTP front (serve_http.py) around a Sampler of
+    CelebaMVAE(100) in bf16 on 127.0.0.1, warmed up at the buckets 1 to
+    64 with HTTP_CONDITIONS. Every endpoint in JSON and in the binary
+    form against the direct Sampler call (bit for bit: one request alone
+    lands in the direct call's bucket), a 400 and a 404, 16 concurrent
+    one-row requests each against its row served alone (COALESCED_RTOL);
+    then the burst of tools/serve_http_bench.py at the windows of
+    HTTP_WINDOWS in turns, which fails unless the 2 ms window coalesces
+    (device calls < requests); the servers shut down after each part."""
+    sampler = Sampler(celeba(torch.bfloat16, dev), device=dev)
+    t0 = time.perf_counter()
+    sampler.warmup(buckets=warmup_buckets(64), conditions=HTTP_CONDITIONS)
+    torch.cuda.synchronize()
+    print(f"[serve_http] warmup, buckets 1-64, conditions {HTTP_CONDITIONS}:"
+          f" {time.perf_counter() - t0} s | {card}")
+    rng = np.random.default_rng(5)
+    rows = {"image": rng.random((HTTP_CLIENTS, 64, 64, 3), np.float32),
+            "attrs": (rng.random((HTTP_CLIENTS, 18)) < 0.3).astype(
+                np.float32)}
+    app = ServeApp(sampler, window_ms=2.0)
+    srv = make_server(app, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    try:
+        status, h = http(port, "GET", "/healthz")
+        expect(status == 200 and h["model"] == "CelebaMVAE"
+               and h["n_latents"] == 100, f"/healthz {status} {h}")
+        for binary in (False, True):
+            form = "binary" if binary else "JSON"
+            for names in HTTP_CONDITIONS:
+                inputs = {k: rows[k][:5] for k in names}
+                body = {"inputs": {k: encode_array(v, binary)
+                                   for k, v in inputs.items()},
+                        "binary": binary}
+                for path, direct in (
+                        ("/embed", dict(zip(("mu", "logvar"),
+                                            sampler.embed(inputs)))),
+                        ("/reconstruct", sampler.reconstruct(inputs))):
+                    status, out = http(port, "POST", path, body)
+                    expect(status == 200, f"{path} {names}: {status} {out}")
+                    served_as_direct(f"{path} {names} {form}", out, direct)
+            one = {k: v[:1] for k, v in rows.items()}
+            for cond, direct in ((None, None),
+                                 ({"attrs": one["attrs"]}, None),
+                                 ({"attrs": rows["attrs"][0]},
+                                  {"attrs": one["attrs"]}),
+                                 ({"image": one["image"]}, None)):
+                body = {"n": 4, "seed": 3, "binary": binary}
+                if cond:
+                    body["condition"] = {k: encode_array(v, binary)
+                                         for k, v in cond.items()}
+                status, out = http(port, "POST", "/sample", body)
+                expect(status == 200, f"/sample {cond}: {status} {out}")
+                served_as_direct(f"/sample {form}", out, sampler.sample(
+                    n=4, seed=3, condition=direct or cond))
+        status, out = http(port, "POST", "/embed",
+                           {"inputs": {"nope": [[0.0]]}})
+        expect(status == 400 and "unknown modality" in out["error"],
+               f"a bad modality: {status} {out}")
+        expect(http(port, "GET", "/nope")[0] == 404, "GET /nope")
+        calls0 = app._batcher.device_calls
+        got = [None] * HTTP_CLIENTS
+
+        def hit(i):
+            got[i] = http(port, "POST", "/embed", {"inputs": {
+                "image": encode_array(rows["image"][i:i + 1], True)},
+                "binary": True})
+
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        calls = app._batcher.device_calls - calls0
+        gaps = []
+        for i, (status, out) in enumerate(got):
+            expect(status == 200, f"concurrent /embed {i}: {status}")
+            alone = sampler.embed({"image": rows["image"][i:i + 1]})[0]
+            mu = torch.from_numpy(decode_array(out["mu"]))
+            gaps.append(float((mu - alone.cpu()).norm() / alone.norm()))
+        print(f"[serve_http] {HTTP_CLIENTS} concurrent one-row /embed in "
+              f"{calls} device calls (rows a call "
+              f"{app._batcher.batch_sizes[-calls:]}): largest relative gap "
+              f"to the row served alone {max(gaps)}, {gaps.count(0.0)} bit "
+              f"for bit (rtol {COALESCED_RTOL}) | {card}")
+        expect(max(gaps) <= COALESCED_RTOL, "coalesced rows apart")
+        expect(calls < HTTP_CLIENTS or not any(gaps),
+               "rows served alone differ from the direct call")
+        status, stats = http(port, "GET", "/stats")
+        print(f"[serve_http] every endpoint in JSON and binary equal to "
+              f"the direct Sampler call bit for bit; /stats {stats}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        app.close()
+        server.join(timeout=30)
+    expect(not server.is_alive(), "the server thread did not stop")
+    runs = serve_http_bench.bench(sampler, HTTP_WINDOWS, HTTP_CLIENTS,
+                                  HTTP_REQUESTS, 1)
+    for r in runs:
+        print(f"[serve_http] burst {json.dumps(r)} | {card}")
+        if r["window_ms"] > 0:
+            expect(r["device_calls"] < r["requests"],
+                   f"the {r['window_ms']} ms window did not coalesce")
+    for w in HTTP_WINDOWS:
+        mine = [r for r in runs if r["window_ms"] == w]
+        print(f"[serve_http] window {w} ms, {HTTP_CLIENTS} clients x "
+              f"{HTTP_REQUESTS} one-row /embed: requests/s "
+              f"{[r['req_per_s'] for r in mine]}, p50 ms "
+              f"{[r['p50_ms'] for r in mine]}, p95 ms "
+              f"{[r['p95_ms'] for r in mine]}, device calls "
+              f"{[r['device_calls'] for r in mine]}, rows a call "
+              f"{[r['mean_rows_per_call'] for r in mine]} | {card}")
+
+
 def eval_data(dev, n_data=None, batch=None):
     """A uint8 CelebA-shaped dataset resident on the card, and one batch of
     row indices into it."""
@@ -1240,7 +1433,9 @@ def family_device_data(family, data_dir, dev):
 
 def family_train_timing(dev, card, family, data):
     """The family's bf16 train step at B=100 in turns against the plain
-    versions, with its profile line (timed_turns)."""
+    versions, with its profile line (timed_turns); for fashionmnist also
+    what the convergence runner's cuDNN flags cost it
+    (determinism_readings)."""
     model = FAMILY_CLIS[family][3](
         64, torch.bfloat16, device=dev,
         generator=torch.Generator().manual_seed(40))
@@ -1248,6 +1443,8 @@ def family_train_timing(dev, card, family, data):
         model, MASKS, FAM_LAMBDAS, lr=FAM_LR, device=dev,
         generator=torch.Generator(device=dev).manual_seed(41))
     timed_turns(dev, card, f"{family} T=3", multi, data, lambda k: {})
+    if family == "fashionmnist":
+        determinism_readings(dev, card, family, multi, data)
 
 
 def iwae_inputs(family, dev, data_dir):
@@ -1439,6 +1636,40 @@ def check_mm_outputs(out, n):
         (n, 4), device=out["text"].device), rtol=1e-5, atol=1e-5)
 
 
+def ab_turns(dev, name, a, b, data, steps_extra, batch=BATCH,
+             k_steps=TRAIN_K):
+    """Windows of k_steps train steps at B=batch of two variants in turns
+    after a warm-up pair (A, B | A, B, B, A, A, B, B, A); a and b are
+    (label, multi, context factory): make_multi_train_step's window run
+    inside the context. steps_extra(k): the window's extra arguments
+    (celeba19's masks). Returns ({label: host ms per step of each timed
+    window}, the mean loss of every window)."""
+    rng = np.random.default_rng(42)
+    n = next(iter(data.values())).shape[0]
+
+    def window(k):
+        return torch.from_numpy(np.stack([rng.permutation(n)[:batch]
+                                          for _ in range(k)])).to(dev)
+
+    betas = torch.ones(k_steps, device=dev)
+    order = (a, b) + (a, b, b, a) * 2
+    losses, times = [], {a[0]: [], b[0]: []}
+    for i, (label, multi, context) in enumerate(order):
+        extra = steps_extra(k_steps)
+        torch.cuda.synchronize()
+        with context():
+            t0 = time.perf_counter()
+            window_losses = multi(data, window(k_steps), betas, **extra)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / k_steps
+        expect(bool(torch.isfinite(window_losses).all()),
+               f"{name} {label}: loss not finite {window_losses}")
+        losses.append(window_losses.mean().item())
+        if i >= 2:
+            times[label].append(ms)
+    return times, losses
+
+
 def timed_turns(dev, card, name, multi, data, steps_extra, batch=BATCH,
                 k_steps=TRAIN_K):
     """A family's bf16 train step at B=batch in windows of k_steps steps
@@ -1446,39 +1677,70 @@ def timed_turns(dev, card, name, multi, data, steps_extra, batch=BATCH,
     after a warm-up pair (as phase 5), then a device-time breakdown per
     step. steps_extra(k): the window's extra arguments (celeba19's
     masks)."""
-    rng = np.random.default_rng(42)
-    n = next(iter(data.values())).shape[0]
-
-    def window(k=k_steps):
-        return torch.from_numpy(np.stack([rng.permutation(n)[:batch]
-                                          for _ in range(k)])).to(dev)
-
-    betas = torch.ones(k_steps, device=dev)
-    order = (False, True) + (False, True, True, False) * 2
-    losses, times = [], {False: [], True: []}
-    for i, plain in enumerate(order):
-        extra = steps_extra(k_steps)
-        torch.cuda.synchronize()
-        with ops.plain_versions() if plain else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            window_losses = multi(data, window(), betas, **extra)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / k_steps
-        expect(bool(torch.isfinite(window_losses).all()),
-               f"{name} train: loss not finite {window_losses}")
-        losses.append(window_losses.mean().item())
-        if i >= 2:
-            times[plain].append(ms)
+    times, losses = ab_turns(
+        dev, name, ("kernels", multi, contextlib.nullcontext),
+        ("plain", multi, ops.plain_versions), data, steps_extra, batch,
+        k_steps)
     print(f"[{name}] bf16 B={batch} K={k_steps}: mean loss per window "
           f"{losses} (K, P | K, P, P, K, K, P, P, K)")
-    print(f"[{name}] bf16 B={batch} step: {times[False]} ms (plain versions "
-          f"{times[True]} ms), host clock per window / K; "
-          f"{pairs_won(times[False], times[True])} | {card}")
+    print(f"[{name}] bf16 B={batch} step: {times['kernels']} ms (plain "
+          f"versions {times['plain']} ms), host clock per window / K; "
+          f"{pairs_won(times['kernels'], times['plain'])} | {card}")
+    rng = np.random.default_rng(43)
+    n = next(iter(data.values())).shape[0]
+    idxs = torch.from_numpy(np.stack([rng.permutation(n)[:batch]
+                                      for _ in range(PROFILE_K)])).to(dev)
     profile_breakdown(
         f"{name} train bf16 B={batch} step (window of {PROFILE_K})",
-        lambda: multi(data, window(PROFILE_K), betas[:PROFILE_K],
+        lambda: multi(data, idxs, torch.ones(PROFILE_K, device=dev),
                       **steps_extra(PROFILE_K)), card,
         reps=1, wall_reps=1, per=PROFILE_K)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN as the convergence runner sets it (tools/parity_convergence.py:
+    run_row): deterministic algorithms, no benchmark; restored after."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old
+
+
+def determinism_readings(dev, card, name, multi, data, batch=BATCH):
+    """What the convergence runner's cuDNN flags cost a bf16 train step:
+    windows with cuDNN's defaults and with cudnn_deterministic in turns
+    (ab_turns); then one window under
+    torch.use_deterministic_algorithms(True, warn_only=True), whose
+    warnings name every op of the step that has no deterministic form."""
+    times, _ = ab_turns(
+        dev, name, ("cuDNN defaults", multi, contextlib.nullcontext),
+        ("cudnn.deterministic", multi, cudnn_deterministic), data,
+        lambda k: {}, batch)
+    a, b = times["cuDNN defaults"], times["cudnn.deterministic"]
+    print(f"[determinism] {name} bf16 B={batch} step: cuDNN defaults {a} "
+          f"ms, cudnn.deterministic {b} ms (median "
+          f"{statistics.median(b) / statistics.median(a)} times), host "
+          f"clock per window / K; {pairs_won(a, b)} | {card}")
+    rng = np.random.default_rng(44)
+    n = next(iter(data.values())).shape[0]
+    idxs = torch.from_numpy(np.stack([rng.permutation(n)[:batch]
+                                      for _ in range(2)])).to(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            multi(data, idxs, torch.ones(2, device=dev))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    found = sorted({str(w.message).splitlines()[0][:200] for w in caught})
+    print(f"[determinism] {name}: a window under "
+          f"use_deterministic_algorithms(warn_only=True) warned of "
+          f"{len(found)} ops: {found}")
 
 
 def run_loglike_cli(main, best, data_dir, target, n_test, what, card):
@@ -1566,8 +1828,9 @@ def phase_multimnist(dev, card, root):
     multi = make_multi_train_step(
         model, MASKS, MM_LAMBDAS, lr=FAM_LR, device=dev,
         generator=torch.Generator(device=dev).manual_seed(41))
-    timed_turns(dev, card, "multimnist", multi, to_device_data(
-        load_multimnist(data_dir, train=True), dev), lambda k: {})
+    data = to_device_data(load_multimnist(data_dir, train=True), dev)
+    timed_turns(dev, card, "multimnist", multi, data, lambda k: {})
+    determinism_readings(dev, card, "multimnist", multi, data)
     model, batch, eps = iwae_inputs("multimnist", dev, data_dir)
     profile_breakdown(
         f"multimnist IWAE f32 K={IWAE_K} B={BATCH} joint",
@@ -1750,6 +2013,21 @@ def phase_vision(dev, card, root, data_dir):
           f"in {host_s} s; the CLI runs {time.perf_counter() - t0} s "
           f"| {card}")
 
+    st_dir = os.path.join(tmp, "stacked")
+    t0 = time.perf_counter()
+    _, lines = run_main(v_train.main, [
+        "--annealing-epochs", "1", "--log-interval", str(V_LOG),
+        "--out-dir", st_dir, "--data-dir", data_dir, "--epochs", "1",
+        "--stack-modalities"])
+    st_tests = [float(line.split()[-1]) for line in lines
+                if line.startswith("====> Test Loss")]
+    expect(len(st_tests) == 1 and np.isfinite(st_tests[0])
+           and os.path.isfile(os.path.join(st_dir, BEST)),
+           f"vision --stack-modalities: test losses {st_tests}")
+    print(f"[vision] --stack-modalities, one epoch from the start: test "
+          f"loss {st_tests[0]} (the loop's first epoch {tests[0]}); the "
+          f"CLI runs {time.perf_counter() - t0} s | {card}")
+
     best = os.path.join(out_dir, BEST)
     test = load_celeb_vision(data_dir, "test", device=dev).arrays
     cond = os.path.join(tmp, "condition.png")
@@ -1794,10 +2072,11 @@ def phase_vision(dev, card, root, data_dir):
         model, v_train.TERM_MASKS, v_train.TERM_LAMBDAS, lr=LR, device=dev,
         generator=torch.Generator(device=dev).manual_seed(61),
         recon_masks=v_train.RECON_MASKS)
-    timed_turns(dev, card, "vision T=7", multi,
-                to_device_data(ArrayDataset(mods), dev), lambda k: {},
+    data = to_device_data(ArrayDataset(mods), dev)
+    timed_turns(dev, card, "vision T=7", multi, data, lambda k: {},
                 batch=V_BATCH, k_steps=V_K)
     del multi, model
+    stacked_turns(dev, card, data)
     model = VisionMVAE(250, device=dev,
                        generator=torch.Generator().manual_seed(50))
     batch = {m: torch.from_numpy(test[m][:BATCH]).to(dev)
@@ -1810,6 +2089,40 @@ def phase_vision(dev, card, root, data_dir):
                                   list(V_MODALITIES), IWAE_K, eps=eps),
         card, reps=2, wall_reps=3)
     return mods
+
+
+def stacked_turns(dev, card, data):
+    """vision's bf16 train step, the loop against --stack-modalities
+    (VisionMVAE(stack_modalities=True)), both from one seed, in windows of
+    V_K steps in turns (ab_turns), then a profile line of each: wall and
+    device ms, launches a step, the device's idle share."""
+    multis = {}
+    for flag in (False, True):
+        model = VisionMVAE(250, torch.bfloat16, stack_modalities=flag,
+                           device=dev,
+                           generator=torch.Generator().manual_seed(62))
+        multis[flag] = make_multi_train_step(
+            model, v_train.TERM_MASKS, v_train.TERM_LAMBDAS, lr=LR,
+            device=dev, generator=torch.Generator(device=dev).manual_seed(63),
+            recon_masks=v_train.RECON_MASKS)
+    times, _ = ab_turns(
+        dev, "vision T=7", ("loop", multis[False], contextlib.nullcontext),
+        ("stacked", multis[True], contextlib.nullcontext), data,
+        lambda k: {}, V_BATCH, V_K)
+    print(f"[vision] bf16 B={V_BATCH} T=7 step: loop {times['loop']} ms, "
+          f"--stack-modalities {times['stacked']} ms, host clock per "
+          f"window / K; {pairs_won(times['loop'], times['stacked'])} | "
+          f"{card}")
+    rng = np.random.default_rng(64)
+    n = next(iter(data.values())).shape[0]
+    idxs = torch.from_numpy(np.stack([rng.permutation(n)[:V_BATCH]
+                                      for _ in range(PROFILE_K)])).to(dev)
+    betas = torch.ones(PROFILE_K, device=dev)
+    for flag, label in ((False, "loop"), (True, "--stack-modalities")):
+        profile_breakdown(
+            f"vision train bf16 B={V_BATCH} T=7 step, {label} (window of "
+            f"{PROFILE_K})", lambda: multis[flag](data, idxs, betas), card,
+            reps=1, wall_reps=1, per=PROFILE_K)
 
 
 # phase 6g: the runner's row, held within SMOKE_SPREADS times the JAX
@@ -1911,8 +2224,11 @@ def phase_vision_checks(dev, mods):
     """Phase 7 for vision: one train step at T=7 with every modality
     reconstructed, kernel path against plain versions (loss above its
     floor at STEP_RTOL, every parameter gradient at GRAD_RTOL) on the
-    fused route in bf16 and f32; the f32 card against the CPU (TF32 off)
-    on 16 rows with the same noise; Canny on the card against the CPU."""
+    fused route in bf16 and f32; --stack-modalities against the loop on
+    one model's weights and noise (the same, and the running statistics
+    after the EMA commit at EMA_TOL) in bf16 and f32; the f32 card against
+    the CPU (TF32 off) on 16 rows with the same noise; Canny on the card
+    against the CPU."""
     tm, tl, rm = (v_train.TERM_MASKS, v_train.TERM_LAMBDAS,
                   v_train.RECON_MASKS)
     rows = {k: v[:V_BATCH] for k, v in mods.items()}
@@ -1939,6 +2255,34 @@ def phase_vision_checks(dev, mods):
                    k_grads, p_grads, GRAD_RTOL[dtype], GRAD_NOISE_ATOL[dtype],
                    bn_fed_biases(model))
         del model, twin, k_grads, p_grads
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        loop = VisionMVAE(250, None if dtype == torch.float32 else dtype,
+                          device=dev,
+                          generator=torch.Generator().manual_seed(52))
+        stacked = VisionMVAE(250, loop.compute_dtype, stack_modalities=True,
+                             device=dev)
+        stacked.load_state_dict(loop.state_dict())
+        batch = decode_batch({k: torch.from_numpy(v).to(dev)
+                              for k, v in rows.items()},
+                             resolve_decode_dtype(loop))
+        noise = draw_noise(loop, 7, V_BATCH, torch.Generator(
+            device=dev).manual_seed(53))
+        l_terms, l_grads = family_step(loop, batch, tm, tl, noise,
+                                       recon_masks=rm)
+        s_terms, s_grads = family_step(stacked, batch, tm, tl, noise,
+                                       recon_masks=rm)
+        what = f"vision {dt} B={V_BATCH} T=7 train step, stacked vs loop"
+        held(f"{what}: loss above floor", s_terms, l_terms,
+             STEP_RTOL[dtype], 0.0)
+        grads_held(what, s_grads, l_grads, GRAD_RTOL[dtype],
+                   GRAD_NOISE_ATOL[dtype], bn_fed_biases(loop))
+        l_stats, s_stats = running_stats(loop), running_stats(stacked)
+        held(f"{what}: running statistics after the commit",
+             torch.cat([s_stats[k].flatten() for k in l_stats]),
+             torch.cat([v.flatten() for v in l_stats.values()]),
+             **EMA_TOL[dtype])
+        del loop, stacked, l_grads, s_grads
     gpu = VisionMVAE(250, device=dev,
                      generator=torch.Generator().manual_seed(49))
     cpu = VisionMVAE(250, device="cpu",
@@ -2362,7 +2706,7 @@ def run(dev, card, peaks, root):
     trained = {}
     # each path with the counts set to 0 just before it, read just after;
     # the kernels each path must have launched
-    must = {"serve": ("poe_fwd",),
+    must = {"serve": ("poe_fwd",), "serve_http": ("poe_fwd",),
             "eval": ("poe_fwd", "bce_rowsum_fwd"),
             "train": tuple(KERNELS), "cli": tuple(KERNELS),
             "families": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd"),
@@ -2374,6 +2718,7 @@ def run(dev, card, peaks, root):
     launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
+            ("serve_http", lambda: phase_serving_http(dev, card)),
             ("eval", lambda: phase_eval(dev, card, models, data, idx)),
             ("train", lambda: phase_train(dev, card, data, trained)),
             ("cli", lambda: phase_cli(dev, card, root)),

@@ -12,8 +12,10 @@ vision's image transforms in `image/`),
 the multi-term ELBO in eval and train mode (`train.loop.make_eval_step`;
 `make_train_step` and `make_multi_train_step` with Adam and the BN
 running-statistics commit), the IWAE log-likelihood (`core.loglike`), the
-serving endpoints (`serve.Sampler`), the weight carry-across
-(`utils.weights`), and each family's train, sample and loglike CLIs
+serving endpoints (`serve.Sampler`) and their HTTP front with
+micro-batching (`serve_http`), the weight carry-across
+(`utils.weights`), the MNIST / FashionMNIST downloader (`data.download`),
+and each family's train, sample and loglike CLIs
 (`python -m mvae_tpu_torch.experiments.<family>.<cli>`), whose training
 keeps the dataset on the card or streams it from the host
 (`--no-device-data`).

@@ -3,8 +3,9 @@
 The standard IDX files (plain or .gz) are read from `<root>/MNIST/raw` (or
 `<root>/FashionMNIST/raw`); without them a deterministic synthetic set of
 the same shapes and dtypes stands in, bit-identical to the JAX package's.
-The JAX package's downloader (mvae_tpu/data/download.py) is not ported:
-`download=True` prints where the files go and fetches nothing.
+`download=True` first fetches the four archives (data/download.py; it
+needs network access); where that fails it prints why and goes on with
+the files it finds or the synthetic set.
 
 Images are float32 in [0, 1], (N, 784) flattened or (N, 28, 28, 1);
 labels int32 (N,).
@@ -16,6 +17,7 @@ import struct
 
 import numpy as np
 
+from mvae_tpu_torch.data.download import DownloadError, download_idx
 from mvae_tpu_torch.data.pipeline import ArrayDataset, warn_synthetic
 
 _FILES = {
@@ -54,13 +56,15 @@ def _find(raw_dir, stem):
 
 def load_mnist(root="./data", train=True, *, variant="MNIST",
                flatten=True, synthetic_ok=True, download=False):
+    if download:
+        try:
+            download_idx(root, variant)
+        except (DownloadError, OSError) as e:
+            print(f"[mvae_tpu_torch] --download failed ({e}); falling back "
+                  "to local files / synthetic data")
     raw = os.path.join(root, variant, "raw")
     img_stem, lab_stem = _FILES[train]
     ip, lp = _find(raw, img_stem), _find(raw, lab_stem)
-    if download and not (ip and lp):
-        print(f"[mvae_tpu_torch] --download: the port fetches nothing. Place "
-              f"the {variant} IDX files ({img_stem}, {lab_stem}, plain or "
-              f".gz) under {raw} — proceeding without.")
     if ip and lp:
         images = _read_idx(ip).astype(np.float32) / 255.0
         labels = _read_idx(lp).astype(np.int32)

@@ -23,6 +23,7 @@ import os
 
 import numpy as np
 
+from mvae_tpu_torch.data.download import DownloadError, download_idx
 from mvae_tpu_torch.data.mnist import load_mnist
 from mvae_tpu_torch.data.pipeline import ArrayDataset
 from mvae_tpu_torch.data.text import MAX_LENGTH, encode_digit_list
@@ -173,14 +174,18 @@ def load_multimnist(root="./data", train=True, *, generate_n=None,
                     download=False):
     """Load a split's shard; without one, generate a small set first
     (generate_n training rows, default 2000, and a fifth as many test
-    rows, at least 200). download=True prints where the MNIST files go
-    and fetches nothing (the port has no downloader)."""
+    rows, at least 200). download=True fetches the source MNIST archives
+    first where the shard is missing (data/download.py), so that the
+    generator composites real digits; where that fails it prints why and
+    generates from the local or synthetic MNIST."""
     split = "training" if train else "test"
     path = os.path.join(root, "multimnist", f"{split}.npz")
     if download and not os.path.exists(path):
-        print(f"[mvae_tpu_torch] --download: the port fetches nothing. Place "
-              f"the MNIST IDX files under {os.path.join(root, 'MNIST', 'raw')}"
-              f" to composite real digits — proceeding without.")
+        try:
+            download_idx(root, "MNIST")
+        except (DownloadError, OSError) as e:
+            print(f"[mvae_tpu_torch] --download failed ({e}); generating "
+                  "from local/synthetic MNIST instead")
     if not os.path.exists(path):
         n_train = generate_n or 2000
         print(f"[mvae_tpu_torch.data] MultiMNIST: no shards at {path!r} — "

@@ -14,8 +14,10 @@ modalities derived on the same device (data/vision.py); writes
 checkpoint.pth.tar, model_best.pth.tar and a reconstruction grid a
 epoch, reconstructions/epoch_{n}.png (6 rows, one a modality, of 8 test
 images; vision/train.py:335-368), into --out-dir. --conv-moments takes
-the encoders' fused conv + BN route; --no-device-data streams the batches
-from the host.
+the encoders' fused conv + BN route; --stack-modalities runs each channel
+group of three modalities as one stack (models/vision.py; the JAX
+package's MVAE_STACK_MODALITIES=1), on the unfused route, so not with
+--conv-moments; --no-device-data streams the batches from the host.
 """
 
 import os
@@ -74,6 +76,10 @@ def parser():
                    help='run the encoders\' BN\'d convs fused, through the '
                         'conv2d_moments kernel, instead of a conv and then '
                         'the BN kernels')
+    p.add_argument('--stack-modalities', action='store_true',
+                   help='run each group of three modalities of one channel '
+                        'count as one conv stack (grouped convolutions; '
+                        'the unfused route: not with --conv-moments)')
     return p
 
 
@@ -83,13 +89,14 @@ def main(argv=None):
     if not args.bf16:
         # --f32 promises the reference numerics: no TF32 in cuDNN's convs
         torch.backends.cudnn.allow_tf32 = False
+    model = VisionMVAE(args.n_latents,
+                       torch.bfloat16 if args.bf16 else None,
+                       conv_moments=args.conv_moments,
+                       stack_modalities=args.stack_modalities, device=device,
+                       generator=torch.Generator().manual_seed(args.seed))
     train_ds = load_celeb_vision(args.data_dir, 'train',
                                  download=args.download, device=device)
     test_ds = load_celeb_vision(args.data_dir, 'val', device=device)
-    model = VisionMVAE(args.n_latents,
-                       torch.bfloat16 if args.bf16 else None,
-                       conv_moments=args.conv_moments, device=device,
-                       generator=torch.Generator().manual_seed(args.seed))
     return run_training(
         model, train_ds, test_ds, args, TERM_MASKS, TERM_LAMBDAS,
         out_dir=args.out_dir, device=device,

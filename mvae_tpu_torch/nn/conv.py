@@ -16,13 +16,15 @@ from torch.nn import functional as F
 from mvae_tpu_torch.nn.initializers import kaiming_uniform_bound, uniform_
 
 
-def conv2d(x, weight, *, stride: int, padding: int):
-    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding)
+def conv2d(x, weight, *, stride: int, padding: int, groups: int = 1):
+    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding,
+                    groups=groups)
 
 
-def conv_transpose2d(x, weight, *, stride: int, padding: int):
+def conv_transpose2d(x, weight, *, stride: int, padding: int,
+                     groups: int = 1):
     return F.conv_transpose2d(x, weight.to(x.dtype), stride=stride,
-                              padding=padding)
+                              padding=padding, groups=groups)
 
 
 class Conv2d(nn.Module):

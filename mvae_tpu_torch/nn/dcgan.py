@@ -25,16 +25,27 @@ its batch-moment sums, and nn/norm.py:bn_swish_from_moments, so no pass of
 the BN reads the conv's output again for its statistics. The port's convs
 have no bias, as the op requires.
 
+Stacked stacks (vision's modality groups, models/vision.py): `stacked`
+runs k ConvStacks or k DeconvStacks of one spec list as one stack over
+their inputs side by side on the channel axis: each conv a grouped
+convolution (groups = k) over the k weights concatenated, each BN over
+the k blocks of channels (nn/norm.py:stacked_bn); `stacked_head` runs k
+posterior heads as batched matmuls. The parameters stay the modules' own,
+so the state_dict does not change and gradients reach each module. The
+values are those of the k stacks, to the order of the convolutions' sums.
+
 spec row: (c_out, kernel, stride, pad, use_bn)
 """
 
 import torch
 from torch import nn
 
-from mvae_tpu_torch.nn.conv import Conv2d, ConvTranspose2d
-from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish
+from mvae_tpu_torch.nn.conv import (
+    Conv2d, ConvTranspose2d, conv2d, conv_transpose2d)
+from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish, swish
 from mvae_tpu_torch.nn.norm import (
-    BatchNorm, BNSwishSequential, bn_swish_from_moments)
+    BatchNorm, BNSwishSequential, bn_swish_from_moments, bn_swish_walk,
+    stacked_bn)
 from mvae_tpu_torch.ops.convbn import conv2d_moments, supported
 
 
@@ -55,9 +66,14 @@ class ConvStack(BNSwishSequential):
         self.compute_dtype = compute_dtype
         self.conv_moments = conv_moments
 
+    def cast_in(self, x):
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
+    def cast_out(self, x):
+        return x
+
     def forward(self, x):
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
+        x = self.cast_in(x)
         if not (self.training and self.conv_moments):
             return super().forward(x)
         layers = iter(self)                 # [conv, (BN), Swish] blocks
@@ -93,11 +109,13 @@ class DeconvStack(BNSwishSequential):
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        logits = super().forward(x)
+    cast_in = ConvStack.cast_in
+
+    def cast_out(self, logits):
         return logits if self.training else logits.float()
+
+    def forward(self, x):
+        return self.cast_out(super().forward(self.cast_in(x)))
 
 
 class PosteriorHead(nn.Sequential):
@@ -117,3 +135,41 @@ class PosteriorHead(nn.Sequential):
             x = x.to(self.compute_dtype)
         fc, act, drop, out = self
         return out(drop(act(fc(x)), keep_mask)).to(torch.float32)
+
+
+def stacked(seqs, x):
+    """k ConvStacks (or k DeconvStacks) of one spec list as one stack: x
+    (N, k * C, H, W) holds the k inputs side by side on the channel axis;
+    returns the k outputs so. It runs the unfused encoder route whatever
+    the stacks' conv_moments (conv2d_moments takes no groups): the caller
+    refuses that pairing (models/vision.py)."""
+    first, k = seqs[0], len(seqs)
+
+    def apply(i, layer, x):
+        group = [seq[i] for seq in seqs]
+        if isinstance(layer, (Conv2d, ConvTranspose2d)):
+            conv = conv2d if isinstance(layer, Conv2d) else conv_transpose2d
+            return conv(x, torch.cat([m.weight for m in group]),
+                        stride=layer.stride, padding=layer.padding, groups=k)
+        if isinstance(layer, BatchNorm):
+            return stacked_bn(group, x)
+        return layer(x)                     # a Swish
+
+    return first.cast_out(bn_swish_walk(first, first.cast_in(x), apply))
+
+
+def stacked_head(heads, h, keep_mask=None):
+    """k PosteriorHeads as one: h (k, N, d_in), keep_mask (k, N, hidden)
+    in train mode -> (k, N, 2L) f32. Each matmul is a torch.bmm over the
+    k weights, the bias added after it in h's dtype, as linear does."""
+    if heads[0].compute_dtype is not None:
+        h = h.to(heads[0].compute_dtype)
+    fcs, outs = zip(*((hd[0], hd[3]) for hd in heads))
+    drop = heads[0][2]
+
+    def fc(layers, x):
+        w = torch.stack([m.weight for m in layers]).to(x.dtype)
+        b = torch.stack([m.bias for m in layers]).to(x.dtype)
+        return torch.bmm(x, w.transpose(1, 2)) + b[:, None]
+
+    return fc(outs, drop(swish(fc(fcs, h)), keep_mask)).to(torch.float32)

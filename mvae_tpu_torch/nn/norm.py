@@ -15,6 +15,10 @@ encode/decode collect them (`pop_moments`) and the engine commits the EMA
 (core/engine.py:commit_ema_states), momentum 0.1, with the unbiased
 variance, n = the rows and positions of one group.
 
+`stacked_bn` runs k BatchNorms of one width as one call over their
+channels side by side (vision's stacked modality groups, nn/dcgan.py:
+stacked).
+
 `bn_swish_from_moments` is the train-mode BN + swish of a conv whose batch
 moments came with its output (ops/convbn.py:conv2d_moments, the encoder's
 fused route; nn/norm.py:105-126 in the JAX package): plain PyTorch, since
@@ -92,6 +96,29 @@ class BatchNorm(nn.Module):
         return y
 
 
+def stacked_bn(bns, x):
+    """k BatchNorms of C channels each as one call over x's k * C channels
+    (bns[j] on channels [j * C, (j + 1) * C)): eval mode normalizes with
+    their running statistics; train mode runs the fused BN + swish with
+    each channel's own batch statistics in the BNs' `groups`, and leaves
+    each BN its block of the moments, as a call of each BN on its block of
+    channels would. Every channel's statistics and affine parameters are
+    its own, so the values are those of the k calls."""
+    first = bns[0]
+
+    def cat(name):
+        return torch.cat([getattr(bn, name) for bn in bns])
+
+    if not first.training:
+        return batchnorm_eval(x, cat("running_mean"), cat("running_var"),
+                              cat("weight"), cat("bias"))
+    y, mean, var = bn_swish_train(x, cat("weight"), cat("bias"), first.groups)
+    n = x.numel() // (first.groups * x.shape[1])
+    for bn, m, v in zip(bns, mean.chunk(len(bns), 1), var.chunk(len(bns), 1)):
+        bn.moments = Moments(bn, m, v, n, bn.terms)
+    return y
+
+
 def bn_swish_from_moments(bn: "BatchNorm", y, s, q, dtype):
     """swish(BN(y)) with the batch statistics of y from its sums.
 
@@ -131,12 +158,18 @@ class BNSwishSequential(nn.Sequential):
                                  "that follows it; this one has none")
 
     def forward(self, x):
-        fused = False
-        for layer in self:
-            if not (fused and isinstance(layer, Swish)):
-                x = layer(x)
-            fused = self.training and isinstance(layer, BatchNorm)
-        return x
+        return bn_swish_walk(self, x, lambda i, layer, x: layer(x))
+
+
+def bn_swish_walk(seq: BNSwishSequential, x, apply):
+    """x through apply(i, layer, x) for the layers of `seq` in order, but
+    for the Swish after a train-mode BatchNorm, which that BN applied."""
+    fused = False
+    for i, layer in enumerate(seq):
+        if not (fused and isinstance(layer, Swish)):
+            x = apply(i, layer, x)
+        fused = seq.training and isinstance(layer, BatchNorm)
+    return x
 
 
 def set_bn_groups(module: nn.Module, groups: int, terms=None):

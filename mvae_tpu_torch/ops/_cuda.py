@@ -13,6 +13,11 @@ plain PyTorch version, a CUDA tensor to the kernel, which either launches
 or raises. There is no fallback. `plain_versions()` is the one explicit
 exception: inside it, CUDA tensors go to the plain versions too, so that a
 caller can hold a whole path against its plain form on the card.
+
+Each wrapper counts its launches on its own attribute (`launched`, under
+a lock: the HTTP front calls the ops from several threads at once), and
+the first `library()` call of the process builds and loads the library
+under a lock too.
 """
 
 import contextlib
@@ -23,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -38,6 +44,8 @@ SM_COUNT = 132      # SMs of an H100 SXM, which the launch geometries fill
 MAX_CLUSTER = 8     # blocks of one thread block cluster (csrc/reduce.cuh)
 
 _force_plain = False
+_LAUNCH_LOCK = threading.Lock()
+_LIBRARY_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -112,10 +120,15 @@ def build() -> Path:
     return so
 
 
-@functools.cache
 def library():
     """The loaded kernel library, built on first use. `build_seconds` is
-    the wall time of this first call, the build included."""
+    the wall time of the first call, the build included."""
+    with _LIBRARY_LOCK:
+        return _library()
+
+
+@functools.cache
+def _library():
     t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build()))
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -140,6 +153,12 @@ def library():
     lib.mvae_error_string.restype = ctypes.c_char_p
     lib.build_seconds = time.perf_counter() - t0
     return lib
+
+
+def launched(wrapper):
+    """Count one launch of a kernel on its wrapper's `launches`."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check(name: str, code: int):

@@ -221,7 +221,7 @@ def bn_moments(x4):
             q.data_ptr(), *_dims(x4), _reduce_geometry(x4),
             _cuda.stream(x4.device))
     _cuda.check(name, rc)
-    bn_moments.launches += 1
+    _cuda.launched(bn_moments)
     return s, q
 
 
@@ -239,7 +239,7 @@ def bn_bwd_partials(x4, g4, a, b):
             a.data_ptr(), b.data_ptr(), sdz.data_ptr(), sdzx.data_ptr(),
             *_dims(x4), _reduce_geometry(x4, g4), _cuda.stream(x4.device))
     _cuda.check(name, rc)
-    bn_bwd_partials.launches += 1
+    _cuda.launched(bn_bwd_partials)
     return sdz, sdzx
 
 
@@ -344,7 +344,7 @@ def bn_normalize(x4, s, q, n, scale, bias):
             y.data_ptr(), vecs.data_ptr(), *_dims(x4), geo, div,
             _cuda.stream(x4.device))
     _cuda.check(name, rc)
-    bn_normalize.launches += 1
+    _cuda.launched(bn_normalize)
     return (y, *vecs.unbind(0))
 
 
@@ -368,7 +368,7 @@ def bn_dx(x4, g4, sdz, sdzx, n, a, b, mean, invstd):
             dscale.data_ptr(), dbias.data_ptr(), *_dims(x4), geo, div,
             _cuda.stream(x4.device))
     _cuda.check(name, rc)
-    bn_dx.launches += 1
+    _cuda.launched(bn_dx)
     return dx, dscale, dbias
 
 

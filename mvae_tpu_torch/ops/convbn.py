@@ -178,7 +178,7 @@ def conv2d_moments_fwd(x, w, stride: int, padding: int):
             padding, oh, ow, *(geo[k] for k in _GEOMETRY_ARGS),
             _cuda.stream(x.device))
     _cuda.check(name, rc)
-    conv2d_moments_fwd.launches += 1
+    _cuda.launched(conv2d_moments_fwd)
     s, q = part.sum(dim=1)      # the per-tile partials, in a fixed order
     return y, s, q
 

@@ -141,7 +141,7 @@ def bce_rowsum_fwd(logits, targets, bf16_math=False):
             int(bf16_steps(logits, bf16_math)), out.data_ptr(), n, k, nt,
             geo, _cuda.stream(logits.device))
     _cuda.check(name, rc)
-    bce_rowsum_fwd.launches += 1
+    _cuda.launched(bce_rowsum_fwd)
     return out
 
 

@@ -85,7 +85,7 @@ def poe_fwd(mu, logvar, masks):
                               expert_cap(m),
                               _cuda.stream(mu.device))
     _cuda.check("poe_fwd", rc)
-    poe_fwd.launches += 1
+    _cuda.launched(poe_fwd)
     return pd_mu, pd_lv
 
 
@@ -132,7 +132,7 @@ def poe_bwd(mu, logvar, masks, g_mu, g_lv):
                               expert_cap(m),
                               _cuda.stream(mu.device))
     _cuda.check("poe_bwd", rc)
-    poe_bwd.launches += 1
+    _cuda.launched(poe_bwd)
     return d_mu, d_lv
 
 

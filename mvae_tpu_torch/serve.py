@@ -12,7 +12,11 @@ in the JAX package, so a traffic mix sees a few fixed batch shapes.
 Outputs are activated as in the JAX package (serve.py:113-118): a softmax
 over the last axis (the classes) of a "text" modality of rank 2 or more
 (MNIST's (N, 10), MultiMNIST's (N, 4, 12)), a sigmoid of the logits
-otherwise; images NHWC.
+otherwise; images NHWC. `warmup` runs every endpoint at the batch buckets
+a server will see, conditioned on the modality sets of `conditions=`.
+
+The HTTP front (serve_http.py) serves these endpoints over the network,
+coalescing concurrent /embed and /reconstruct requests into one call.
 """
 
 import torch
@@ -55,15 +59,20 @@ class Sampler:
         self.device = device
 
     @classmethod
-    def from_checkpoint(cls, path, *, device=None, compute_dtype=None):
+    def from_checkpoint(cls, path, *, device=None, compute_dtype=None,
+                        family=None):
         """Serve a reference-layout `.pth.tar` of a ported family: the
         port's own checkpoints, which name it, and those of the JAX
         package's utils/torch_export.py:export_checkpoint or the
         reference, whose keys tell it (utils/weights.py:
-        checkpoint_family)."""
+        checkpoint_family). family: the family the caller expects; a
+        checkpoint of another raises ValueError."""
         device = resolve_device(device)
         sd, meta = load_reference_checkpoint(path, device=device)
-        model = model_ctor(checkpoint_family(sd, meta))(
+        found = checkpoint_family(sd, meta)
+        if family is not None and family != found:
+            raise ValueError(f"{path} holds a {found} model, not {family}")
+        model = model_ctor(found)(
             meta["n_latents"], compute_dtype, device=device)
         model.load_state_dict(sd, strict=True)
         return cls(model, device=device)
@@ -78,11 +87,17 @@ class Sampler:
         recons, _ = self.model.decode(self._tensor(z))
         return activate(recons)
 
-    def warmup(self, buckets=(1, 64)):
-        """Run every endpoint once per batch bucket on zero inputs, each
-        conditioned on every single modality, so the kernel library is
-        built and cuDNN has chosen its algorithms before traffic arrives."""
+    def warmup(self, buckets=(1, 64), conditions=None):
+        """Run every endpoint once per batch bucket on zero inputs, so the
+        kernel library is built and cuDNN has chosen its algorithms before
+        traffic arrives: the prior sample, and for each modality set of
+        `conditions` (tuples of names; default: each single modality) the
+        conditioned sample, embed and reconstruct. The HTTP front
+        (serve_http.py:main) warms the buckets its coalesced batches
+        reach."""
         spec = self.model.input_spec()
+        if conditions is None:
+            conditions = [(k,) for k in sorted(spec)]
 
         def zeros(name, n):
             shape, dtype = spec[name]
@@ -91,10 +106,10 @@ class Sampler:
 
         for m in sorted({_bucket(n) for n in buckets}):
             self.sample(n=m)
-            for name in sorted(spec):
-                self.sample(n=m, condition={name: zeros(name, 1)})
-                self.embed({name: zeros(name, m)})
-                self.reconstruct({name: zeros(name, m)})
+            for names in conditions:
+                self.sample(n=m, condition={k: zeros(k, 1) for k in names})
+                self.embed({k: zeros(k, m) for k in names})
+                self.reconstruct({k: zeros(k, m) for k in names})
 
     @torch.inference_mode()
     def sample(self, n: int = 1, condition: dict = None, seed: int = 0,

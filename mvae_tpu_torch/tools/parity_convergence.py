@@ -25,7 +25,10 @@ from the rows of the written row's digest and stores it in the seed-0 row
 under "gate" (a row of other code is listed there as stale, never pooled).
 
 Runs on the CUDA card unless --device says otherwise (raises without
-one). f32 turns TF32 off in cuDNN and cuBLAS before the first step;
+one). Before the first step a row makes cuDNN deterministic
+(`cudnn.deterministic`, no `cudnn.benchmark`), so a rerun of a row trains
+bit for bit alike, in both precisions; f32 also turns TF32 off in cuDNN
+and cuBLAS. Neither is restored: one process trains one row.
 --bf16 is the family CLI's shipped bf16 mode: bf16 compute, the in-step
 decode in bf16, and for celeba19 the image BCE's bf16 math. Checkpoints go
 to --work-dir (a temporary directory by default). The data comes from the
@@ -420,6 +423,10 @@ def run_row(family, *, bf16=False, seed=0, device=None, work_dir=None):
     port's scores with train_seconds, steps, steps_per_second and card."""
     device = resolve_device(device)
     p = PROTOCOLS[family]
+    # cuDNN's default may pick a nondeterministic algorithm, and a row then
+    # trains differently from run to run
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     if not bf16:
         # the f32 rows are the reference numerics: no TF32 anywhere
         torch.backends.cudnn.allow_tf32 = False

@@ -56,8 +56,10 @@ def train_parser(*, n_latents, epochs, annealing_epochs, lr, batch_size=100,
     p.add_argument('--f32', dest='bf16', action='store_false',
                    help='float32 compute (the reference numerics)')
     p.add_argument('--download', action='store_true', default=False,
-                   help='print where the dataset files go; nothing is '
-                        'fetched')
+                   help='fetch the MNIST / FashionMNIST archives first '
+                        '(needs network access; on a failure, go on with '
+                        'the local files or the synthetic set); CelebA '
+                        'prints where its files go')
     p.add_argument('--no-device-data', action='store_true', default=False,
                    help='stream the batches from the host instead of '
                         'keeping the dataset on the device (the default '

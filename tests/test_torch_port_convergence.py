@@ -58,11 +58,16 @@ def q8(x):
 
 @pytest.fixture(autouse=True)
 def tf32_flags(monkeypatch):
-    """An f32 row turns TF32 off for the process: restore the flags."""
+    """A row makes cuDNN deterministic and an f32 row turns TF32 off, for
+    the process: restore the flags."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
                         torch.backends.cudnn.allow_tf32)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
                         torch.backends.cuda.matmul.allow_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic",
+                        torch.backends.cudnn.deterministic)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark",
+                        torch.backends.cudnn.benchmark)
 
 
 # --------------------------------------------------------------------------
@@ -285,6 +290,28 @@ def test_cut_protocol_writes_a_whole_row(monkeypatch, tmp_path, capsys,
     assert (tmp_path / "w" / "checkpoint.pth.tar").exists()
     assert _digest(pc.JAX_ROWS) == before
     assert f"[parity] {key}: " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_run_row_makes_cudnn_deterministic_before_the_data(monkeypatch,
+                                                           bf16):
+    """run_row sets cudnn.deterministic and clears cudnn.benchmark before
+    it builds the data, in both precisions, so that a rerun of a row on
+    the card trains bit for bit alike; f32 also turns TF32 off."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen = []
+
+    def stop(*a, **k):
+        cudnn = torch.backends.cudnn
+        seen.append((cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32))
+        raise InterruptedError
+
+    monkeypatch.setattr(pc, "family_data", stop)
+    with pytest.raises(InterruptedError):
+        pc.run_row("fashionmnist", bf16=bf16, device="cpu")
+    assert seen == [(True, False, bf16)]
 
 
 def test_runner_refuses_to_write_the_jax_rows(tmp_path):

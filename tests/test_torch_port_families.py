@@ -403,10 +403,18 @@ def test_idx_loader_matches_jax(tmp_path, variant, flatten, gz):
         np.testing.assert_array_equal(a, b)
 
 
-def test_download_fetches_nothing(tmp_path, capsys):
+def test_download_fetches_nothing(tmp_path, capsys, monkeypatch):
+    """--download on a host with no egress (every fetch raises, and no
+    URL is opened): the message, then the synthetic fallback."""
+    import mvae_tpu_torch.data.download as dl
+
+    def no_egress(url, dst, timeout=60.0):
+        raise OSError("network unreachable")
+
+    monkeypatch.setattr(dl, "_fetch", no_egress)
     ds = load_mnist(str(tmp_path), train=False, download=True)
     out = capsys.readouterr().out
-    assert "fetches nothing" in out and "synthetic fallback" in out
+    assert "--download failed" in out and "synthetic fallback" in out
     assert ds.arrays["image"].shape == (10000, 784)
 
 

@@ -176,6 +176,9 @@ BN_CELEBA19 = [(21, 100, 128, 64), (21, 100, 64, 256), (21, 100, 32, 1024)]
 # vision's six encoders (B = 50) and six decoders (G = 7 terms)
 BN_VISION = [(1, 50, 64, 256), (1, 50, 128, 64), (1, 50, 256, 25),
              (7, 50, 128, 64), (7, 50, 64, 256), (7, 50, 32, 1024)]
+# vision's stacked modality groups: three modalities' channels side by side
+BN_VISION += [(1, 50, 192, 256), (1, 50, 384, 64), (1, 50, 768, 25),
+              (7, 50, 384, 64), (7, 50, 192, 256), (7, 50, 96, 1024)]
 
 
 # the two reductions of csrc/bn_swish.cu by the tensors an element reads:

@@ -76,7 +76,8 @@ def test_import_rule_covers_the_trainer():
                  "experiments.multimnist.datasets", "image",
                  "image.transforms", "data.vision", "models.vision",
                  "experiments.vision.setup",
-                 "tools.parity_convergence"] + CLIS:
+                 "tools.parity_convergence", "serve_http", "data.download",
+                 "tools.serve_http_bench"] + CLIS:
         assert f"mvae_tpu_torch.{name}" in mods, name
 
 
@@ -228,6 +229,26 @@ def test_convergence_runner_raises_without_cuda_unless_asked_for_cpu(
         pc.main(["--family", "celeba", "--device", "cpu", "--bf16",
                  "--out", out])
     assert len(loads) == 1 and not (tmp_path / "rows.json").exists()
+
+
+def test_serving_front_raises_without_cuda_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """The HTTP front's main and its load generator run on the card unless
+    --device cpu: without one they raise before they read the checkpoint
+    or build a model."""
+    import mvae_tpu_torch.serve_http as serve_http
+    import mvae_tpu_torch.tools.serve_http_bench as bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing.pth.tar")
+    argv = ["--checkpoint", missing, "--family", "mnist"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_http.main(argv)
+    with pytest.raises(FileNotFoundError):
+        serve_http.main(argv + ["--device", "cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([missing])
+    with pytest.raises(FileNotFoundError):
+        bench.main([missing, "--device", "cpu"])
 
 
 def test_train_mode_is_refused_until_ported():
