@@ -8,8 +8,9 @@ MNIST, FashionMNIST,
 MultiMNIST, CelebA-19 and vision families end to end (train, sample and
 loglike CLIs, serving) and the CelebA sample and loglike CLIs, then
 trains the CelebA protocol of the convergence gate and holds its scores
-against the JAX package's rows, and shows that those paths went through
-the kernels.
+against the JAX package's rows, trains data-parallel (two ranks sharing
+the card, one NCCL rank, the CLI on two processes), and shows that those
+paths went through the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -109,6 +110,21 @@ error status, which phase 3b reads as the status it checks):
      mean of PARITY_convergence.json: a gap over twice the JAX spread s
      in any metric fails the run (the strict gate, one s, is the row
      file's)
+  6h. data parallelism (mvae_tpu_torch/parallel/): two ranks spawned on
+     the card over gloo (tools/dp_check.py:spawn_ranks), CelebaMVAE(100) at
+     the CLI weights, bf16 and f32, unfused and fused routes, each rank
+     stepping its 50 rows of three global batches of 100 against this
+     process on the whole batches with the same noise: step 1's loss,
+     every gradient after the all-reduce, the running statistics and the
+     parameters, then the losses of steps 2-3 and both ranks' state
+     equal, each rank's launches of the BN reductions, the PoE, the BCE
+     and conv2d_moments; then the dp step under a process group of one
+     NCCL rank against the step with no group, bf16 B=100, in turns, with
+     launches and all-reduces a step, one all-reduce's host cost and
+     profile lines; then the CelebA train CLI as two processes
+     (--coordinator, --process-id, --n-processes), two epochs and a
+     --resume for a third, rank 0 alone logging and writing,
+     Sampler.from_checkpoint on its model_best.pth.tar
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -128,7 +144,8 @@ error status, which phase 3b reads as the status it checks):
   in turns, and one window of each runs under
   torch.use_deterministic_algorithms(warn_only=True), whose warnings name
   the ops with no deterministic form.
-  8. the kernels line: launches on phases 3-5 and 6b-6g, error, times,
+  8. the kernels line: launches on phases 3-5 and 6b-6h (6h's spawned
+     ranks' own included), error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
 Phases 3-5 and 6c-6f end with a torch.profiler breakdown of device time
@@ -145,11 +162,13 @@ its f32 rate, or for the bf16 convolutions its bf16 tensor-core rate.
 import contextlib
 import copy
 import ctypes
+import datetime
 import io
 import json
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -162,6 +181,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from mvae_tpu_torch import ops
@@ -201,9 +221,12 @@ from mvae_tpu_torch.ops import bn as bn_ops
 from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
+from mvae_tpu_torch.parallel.collectives import all_reduce_sum, sum_in_place
+from mvae_tpu_torch.parallel.mesh import data_parallel
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.serve_http import (
     ServeApp, decode_array, encode_array, make_server, warmup_buckets)
+from mvae_tpu_torch.tools import dp_check
 from mvae_tpu_torch.tools import parity_convergence as parity
 from mvae_tpu_torch.tools import serve_http_bench
 from mvae_tpu_torch.train.checkpoint import BEST, CKPT
@@ -2609,8 +2632,320 @@ def phase_train_checks(dev, data, idx, trained):
               f"and moved")
 
 
+# phase 6h: data parallelism
+DP_WORLD = 2            # ranks that share the card (gloo)
+DP_WINDOWS = (1, 2)     # the two-rank replay's dispatches: one step, then 2
+DP_KERNELS = ("bn_moments", "bn_bwd_partials", "poe_fwd", "bce_rowsum_fwd",
+              "conv2d_moments")
+DP_TIMEOUT_S = 300      # a rank's run, or a CLI process
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def dp_recipes():
+    """The two-rank check's recipes (tools/dp_check.py): CelebaMVAE(100)
+    from seed 20 with random BN statistics (celeba), bf16 and f32, each on
+    the unfused and the fused encoder route; one window of three global
+    batches of B=100 uint8 rows, the noise drawn at the global shape."""
+    k = sum(DP_WINDOWS)
+    rng = np.random.default_rng(61)
+    data = {"image": torch.from_numpy(rng.integers(
+                0, 256, (k * BATCH, 64, 64, 3), dtype=np.uint8)),
+            "attrs": torch.from_numpy((rng.random((k * BATCH, 18)) < 0.3)
+                                      .astype(np.float32))}
+    recipes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model = celeba(dtype, "cpu", seed=20)
+        gen = torch.Generator().manual_seed(62)
+        noise = tuple(torch.stack(n) for n in zip(
+            *[draw_noise(model, len(MASKS), BATCH, gen) for _ in range(k)]))
+        for fused in (False, True):
+            recipes.append(dp_check.recipe(
+                CelebaMVAE, (100, model.compute_dtype),
+                {"conv_moments": fused}, model.state_dict(), data,
+                torch.tensor([0.5, 1.0, 1.0]), step_kw=dict(
+                    term_masks=MASKS, term_lambdas=LAMBDAS, lr=LR),
+                noise=noise, windows=DP_WINDOWS,
+                name=f"{str(dtype).split('.')[-1]} "
+                     f"{'fused' if fused else 'unfused'}"))
+    return recipes
+
+
+def dp_two_ranks(dev, card):
+    """Two ranks share the card over gloo, each stepping its 50 rows of
+    every batch, against this process stepping the whole batches with the
+    same noise: step 1's loss, every gradient after the all-reduce, the
+    running statistics and the parameters (Adam's first step moves an
+    element by lr whatever its gradient: at most 2 lr apart), then two
+    more steps' losses and both ranks' parameters and statistics equal.
+    Returns the ranks' kernel launches, summed."""
+    recipes = dp_recipes()
+    t0 = time.perf_counter()
+    refs = [dp_check.replay(rc, dev) for rc in recipes]
+    t1 = time.perf_counter()
+    outs = dp_check.spawn_ranks(
+        DP_WORLD, dp_check.replay_all, recipes,
+        device=None if dev.type == "cuda" else "cpu", timeout_s=DP_TIMEOUT_S)
+    print(f"[dp] one process {t1 - t0} s, {DP_WORLD} spawned ranks "
+          f"{time.perf_counter() - t1} s for {len(recipes)} recipes")
+    noisy = bn_fed_biases(CelebaMVAE(8, device="cpu"))
+    launches = {}
+    for i, (rc, ref) in enumerate(zip(recipes, refs)):
+        name = rc["name"]
+        dtype = rc["model"][1][1] or torch.float32
+        rtol = GRAD_RTOL[dtype]
+        ranks = [o[i] for o in outs]
+        first = [r["windows"][0] for r in ranks]
+        want = ref["windows"][0]
+        loss = sum(float(w["losses"][0]) for w in first) / DP_WORLD
+        held(f"dp {name} step 1 loss, mean of {DP_WORLD} ranks vs one "
+             f"process", torch.tensor([loss]), want["losses"].double(),
+             rtol, 0.0)
+        grads_held(f"dp {name} step 1, rank 0 after the all-reduce vs one "
+                   f"process", first[0]["grads"], want["grads"], rtol,
+                   GRAD_NOISE_ATOL[dtype], noisy)
+        stats = max((first[0]["running"][k].double() - v.double()).norm()
+                    .item() / v.double().norm().item()
+                    for k, v in want["running"].items())
+        gaps = [((first[0]["params"][k] - v).norm() / v.norm()).item()
+                for k, v in want["params"].items() if k not in noisy]
+        flips = max((first[0]["params"][k] - v).abs().max().item()
+                    for k, v in want["params"].items())
+        print(f"[check] dp {name} step 1: running statistics largest "
+              f"relative gap {stats}, parameters {max(gaps)} (rtol "
+              f"{rtol}), largest element gap {flips} (2 lr = {2 * LR})")
+        expect(stats < rtol and max(gaps) < rtol
+               and flips <= 2 * LR * (1 + 1e-3),
+               f"dp {name}: step 1's state differs from one process")
+        rest = [r["windows"][1] for r in ranks]
+        held(f"dp {name} steps 2-3 losses, mean of ranks vs one process",
+             sum(w["losses"].double() for w in rest) / DP_WORLD,
+             ref["windows"][1]["losses"].double(), rtol, 0.0)
+        for part in ("params", "running"):
+            for k, v in rest[0][part].items():
+                expect(torch.equal(v, rest[1][part][k]),
+                       f"dp {name}: the ranks' {k} differ")
+        for r, o in enumerate(ranks):
+            print(f"[dp] {name}: rank {r} launches "
+                  f"{ {k: o['launches'][k] for k in DP_KERNELS} }, "
+                  f"{o['all_reduces']} all-reduces in {sum(DP_WINDOWS)} "
+                  f"steps ({o['n_bn']} BN layers)")
+            for k in DP_KERNELS:
+                fused_only = k == "conv2d_moments"
+                expect((o["launches"][k] > 0) == (
+                    not fused_only or "unfused" not in name),
+                    f"dp {name}: rank {r} launched {k} "
+                    f"{o['launches'][k]} times")
+            for k, v in o["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        expect(ranks[0]["all_reduces"]
+               == (2 * ranks[0]["n_bn"] + 1) * sum(DP_WINDOWS),
+               f"dp {name}: {ranks[0]['all_reduces']} all-reduces")
+    print(f"[dp] {DP_WORLD} ranks on one card over gloo hold one process's "
+          f"step in bf16 and f32, unfused and fused | {card}")
+    return launches
+
+
+def dp_one_rank_turns(dev, card, data, root):
+    """The dp step under a process group of one NCCL rank against the step
+    with no group, bf16 B=100, in windows of K=20 (ab_turns: A, B, B, A
+    twice after a warm-up pair): ms a step, the kernel launches and the
+    all-reduces a step, and a profile line of each (all-reduce device ms
+    among the families)."""
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(root, 'dp_store')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(
+            seconds=DP_TIMEOUT_S))
+    try:
+        dp = data_parallel(BATCH)
+        steps = {}
+        for label, group in (("no group", None), (f"1 {backend} rank", dp)):
+            steps[label] = make_multi_train_step(
+                celeba(torch.bfloat16, dev, seed=30), MASKS, LAMBDAS, lr=LR,
+                device=dev, dp=group,
+                generator=torch.Generator(device=dev).manual_seed(3))
+        (a, b) = steps.items()
+        times, losses = ab_turns(dev, "dp", (*a, contextlib.nullcontext),
+                                 (*b, contextlib.nullcontext), data,
+                                 lambda k: {})
+        print(f"[dp] bf16 B=100 K={TRAIN_K}: mean loss per window {losses}"
+              f" (A, B | A, B, B, A, A, B, B, A; A {a[0]}, B {b[0]})")
+        print(f"[dp] bf16 B=100 step: {b[0]} {times[b[0]]} ms, {a[0]} "
+              f"{times[a[0]]} ms, host clock per window / K; "
+              f"{pairs_won(times[b[0]], times[a[0]])} | {card}")
+        rng = np.random.default_rng(44)
+        n = next(iter(data.values())).shape[0]
+        idxs = torch.from_numpy(np.stack([rng.permutation(n)[:BATCH]
+                                          for _ in range(TRAIN_K)])).to(dev)
+        betas = torch.ones(TRAIN_K, device=dev)
+        reduces = {}
+        for label, multi in steps.items():
+            launches0, calls0 = ops.launch_counts(), all_reduce_sum.calls
+            multi(data, idxs, betas)
+            torch.cuda.synchronize()
+            per = {k: (v - launches0[k]) / TRAIN_K
+                   for k, v in ops.launch_counts().items()}
+            reduces[label] = (all_reduce_sum.calls - calls0) / TRAIN_K
+            print(f"[dp] {label}: kernel launches a step {per}, "
+                  f"{reduces[label]} all-reduces a step")
+            profile_breakdown(
+                f"dp train bf16 B=100 step, {label} (window of {PROFILE_K})",
+                lambda: multi(data, idxs[:PROFILE_K], betas[:PROFILE_K]),
+                card, reps=1, wall_reps=1, per=PROFILE_K, host_top=12)
+        # one all-reduce's host cost against a launch's: 200 in a row
+        t = torch.zeros((2, 1, 64), device=dev)
+        for what, fn in (("an all-reduce of a BN layer's (2, 1, 64) sums",
+                          lambda: sum_in_place(dp.group, t)),
+                         ("a launch of t.add_(0)", lambda: t.add_(0))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            issued = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            print(f"[dp] {what}: {issued * 1e3 / 200} ms of host a call "
+                  f"issued, {(time.perf_counter() - t0) * 1e3 / 200} ms a "
+                  f"call to the end of 200 | {card}")
+        bn_layers = sum(layer[1] for layer in BN_LAYERS)
+        expect(reduces == {a[0]: 0, b[0]: 2 * bn_layers + 1},
+               f"dp: all-reduces a step {reduces}")
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_cli_run(argv, out_dirs, what):
+    """The CelebA train CLI as DP_WORLD processes started with
+    --coordinator, --process-id, --n-processes; returns their stdouts
+    and rank 0's lines with the host clock at which each arrived."""
+    port = free_port()
+    errs = [tempfile.TemporaryFile(mode="w+") for _ in range(DP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-m",
+         "mvae_tpu_torch.experiments.celeba.train", *argv, "--out-dir",
+         out_dirs[r], "--coordinator", f"127.0.0.1:{port}", "--process-id",
+         str(r), "--n-processes", str(DP_WORLD)], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=errs[r], text=True)
+        for r in range(DP_WORLD)]
+    timed = []
+
+    def read_rank_0():
+        for line in procs[0].stdout:
+            timed.append((time.perf_counter(), line.rstrip("\n")))
+
+    reader = threading.Thread(target=read_rank_0, daemon=True)
+    reader.start()
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            if r == 0:
+                p.wait(DP_TIMEOUT_S)
+                reader.join(DP_TIMEOUT_S)
+                expect(not reader.is_alive(), f"{what}: rank 0's output")
+                out = "\n".join(line for _, line in timed)
+            else:
+                out, _ = p.communicate(timeout=DP_TIMEOUT_S)
+            errs[r].seek(0)
+            expect(p.returncode == 0, f"{what}: rank {r} exited "
+                   f"{p.returncode}:\n{errs[r].read()[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in errs:
+            f.close()
+    return outs, timed
+
+
+def epoch_wall(timed, epoch):
+    """Seconds from rank 0's input-pipeline line to its epoch line."""
+    start = next(t for t, line in timed
+                 if line.startswith("input pipeline:"))
+    end = next(t for t, line in timed
+               if line.startswith(f"====> Epoch: {epoch}\t"))
+    return end - start
+
+
+def dp_cli(dev, card, root):
+    """The CelebA train CLI on two processes that share the card (gloo),
+    bf16 CelebaMVAE(100), B=100 (50 a rank), on the synthetic set (phase
+    6b's settings, 20 steps an epoch): two epochs (the second prints the
+    throughput), then --resume of rank 0's checkpoint by both for a
+    third; rank 0 alone logs and writes; Sampler.from_checkpoint answers
+    from its model_best.pth.tar."""
+    tmp = os.path.join(root, "dp_cli")
+    dirs = [os.path.join(tmp, f"rank{r}") for r in range(DP_WORLD)]
+    argv = ["--annealing-epochs", "1", "--log-interval", "10",
+            "--data-dir", os.path.join(root, "celeba", "data")]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    t0 = time.perf_counter()
+    first, timed1 = dp_cli_run(argv + ["--epochs", "2"], dirs, "dp cli")
+    t1 = time.perf_counter()
+    second, timed2 = dp_cli_run(argv + ["--epochs", "3", "--resume",
+                                        os.path.join(dirs[0], CKPT)], dirs,
+                                "dp cli resume")
+    t2 = time.perf_counter()
+    for out, epochs in ((first[0], (1, 2)), (second[0], (3,))):
+        lines = out.splitlines()
+        expect(any(line.startswith("data-parallel over 2 processes "
+                                   "(backend gloo)") for line in lines),
+               f"dp cli: no data-parallel line in {lines[:4]}")
+        for epoch in epochs:
+            expect(sum(line.startswith(f"Train Epoch: {epoch} [")
+                       for line in lines) == 2, f"dp cli: epoch {epoch}")
+        tests = [float(line.split()[-1]) for line in lines
+                 if line.startswith("====> Test Loss")]
+        expect(len(tests) == len(epochs) and all(np.isfinite(tests)),
+               f"dp cli: test losses {tests}")
+        print(f"[dp cli] rank 0, epochs {epochs}: "
+              f"{[x for x in lines if not x.startswith('Train')]}")
+    expect(any(line.startswith("resumed from ") and line.endswith(
+        "at epoch 2") for line in second[0].splitlines()),
+        "dp cli: no resume line")
+    expect(all(out == "" for out in first[1:] + second[1:]),
+           f"dp cli: rank 1 printed {first[1][:200]!r} {second[1][:200]!r}")
+    expect(sorted(os.listdir(dirs[0])) == sorted([BEST, CKPT])
+           and not os.path.exists(dirs[1]), "dp cli: the files")
+    sampler = Sampler.from_checkpoint(os.path.join(dirs[0], BEST),
+                                      compute_dtype=torch.bfloat16,
+                                      device=dev)
+    images = torch.rand((8, 64, 64, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+    check_images(sampler.reconstruct({"image": images}), 8)
+    throughput = [line for line in first[0].splitlines()
+                  if "Throughput" in line]
+    print(f"[dp cli] {DP_WORLD} processes, 2 epochs {t1 - t0} s, the "
+          f"resumed third {t2 - t1} s (process start, data and the "
+          f"build's load included); epoch 2 {throughput}; training wall "
+          f"from the input-pipeline line to the epoch line of epoch 1 "
+          f"(warm-up included) {epoch_wall(timed1, 1)} s and of the "
+          f"resumed epoch 3 {epoch_wall(timed2, 3)} s; {BEST} served one "
+          f"reconstruct request | {card}")
+
+
+def phase_dp(dev, card, root, data):
+    """Phase 6h: the two-rank check, the one-rank NCCL turns and the
+    two-process CLI; returns the ranks' kernel launches."""
+    launches = dp_two_ranks(dev, card)
+    lap("dp: two ranks")
+    dp_one_rank_turns(dev, card, data, root)
+    lap("dp: one NCCL rank in turns")
+    dp_cli(dev, card, root)
+    return launches
+
+
 # kernel families of the profile lines, first match wins
 FAMILIES = (
+    ("all-reduce (NCCL)", lambda k: "nccl" in k.lower()),
     ("poe_fwd", lambda k: "poe_fwd_kernel" in k),
     ("poe_bwd", lambda k: "poe_bwd_kernel" in k),
     ("bce_rowsum_fwd", lambda k: "bce_rowsum_kernel" in k),
@@ -2631,11 +2966,13 @@ FAMILIES = (
 )
 
 
-def profile_breakdown(name, fn, card, reps=5, wall_reps=20, per=1):
+def profile_breakdown(name, fn, card, reps=5, wall_reps=20, per=1,
+                      host_top=0):
     """Device time per call by kernel family (torch.profiler, CUPTI), the
     launches per call, and the device's idle share against the call's
     median wall time without the profiler; a call of `per` steps is
-    reported per step."""
+    reported per step. host_top: also the ops of most host self time
+    (under the profiler, which adds its own)."""
     from torch.profiler import ProfilerActivity, profile
     wall = host_ms(fn, reps=wall_reps) / per
     with profile(activities=[ProfilerActivity.CPU,
@@ -2669,6 +3006,13 @@ def profile_breakdown(name, fn, card, reps=5, wall_reps=20, per=1):
           f"share {1 - dev_ms / wall}), {launches / reps / per} launches "
           f"{what}; device ms by family: {parts}; largest in other: {top} "
           f"| {card}")
+    if host_top:
+        host = sorted(((e.self_cpu_time_total / 1e3 / reps / per, e.key,
+                        e.count / reps / per) for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0), reverse=True)
+        print(f"[profile] {name}: host self ms {what} (calls) of the top "
+              f"{host_top} ops: " + "; ".join(
+                  f"{k} {ms} ({n})" for ms, k, n in host[:host_top]))
 
 
 _START = time.perf_counter()
@@ -2681,7 +3025,7 @@ def lap(what):
 
 def run(dev, card, peaks, root):
     """Phases 2-7 with their files under root; returns the kernel rows of
-    phase 2 and the launches of phases 3-5 and 6b-6g."""
+    phase 2 and the launches of phases 3-5 and 6b-6h."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
@@ -2714,7 +3058,7 @@ def run(dev, card, peaks, root):
             + BN_KERNELS, "celeba19": tuple(KERNELS),
             "vision": tuple(KERNELS),
             "convergence": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
-            + BN_KERNELS}
+            + BN_KERNELS, "dp": tuple(KERNELS)}
     launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
@@ -2729,7 +3073,8 @@ def run(dev, card, peaks, root):
                 dev, card, root, out["families"]["celeba"])),
             ("vision", lambda: phase_vision(
                 dev, card, root, out["families"]["celeba"])),
-            ("convergence", lambda: phase_convergence(dev, card, root))):
+            ("convergence", lambda: phase_convergence(dev, card, root)),
+            ("dp", lambda: phase_dp(dev, card, root, data))):
         ops.reset_launch_counts()
         out[phase] = fn()
         torch.cuda.synchronize()
@@ -2740,6 +3085,8 @@ def run(dev, card, peaks, root):
             expect(counts[k] > 0, f"{phase} ran no {k}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+    for k, v in out["dp"].items():          # the spawned ranks' own
+        launches[k] += v
     phase_eval_checks(dev, models, data, idx)
     phase_train_checks(dev, data, idx, trained)
     phase_iwae_checks(dev, out["families"])

@@ -18,7 +18,11 @@ micro-batching (`serve_http`), the weight carry-across
 and each family's train, sample and loglike CLIs
 (`python -m mvae_tpu_torch.experiments.<family>.<cli>`), whose training
 keeps the dataset on the card or streams it from the host
-(`--no-device-data`).
+(`--no-device-data`), on one device or data-parallel across processes
+(`parallel/`: the train CLIs' --coordinator / --process-id /
+--n-processes or --distributed under torchrun; BN statistics shared
+across the ranks between the BN kernels' passes). Not ported yet: tensor
+and expert parallelism, and serving over a data-parallel group.
 """
 
 __version__ = "0.1.0"

@@ -22,11 +22,13 @@ the other's. Loaded images are float32 in [0, 1], (N, 50, 50, 1).
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 from mvae_tpu_torch.data.download import DownloadError, download_idx
 from mvae_tpu_torch.data.mnist import load_mnist
 from mvae_tpu_torch.data.pipeline import ArrayDataset
 from mvae_tpu_torch.data.text import MAX_LENGTH, encode_digit_list
+from mvae_tpu_torch.parallel.distributed import is_coordinator
 
 SEED = 681307
 FIXED_PADS = [(4, 4), (4, 23), (23, 4), (23, 23)]
@@ -177,7 +179,8 @@ def load_multimnist(root="./data", train=True, *, generate_n=None,
     rows, at least 200). download=True fetches the source MNIST archives
     first where the shard is missing (data/download.py), so that the
     generator composites real digits; where that fails it prints why and
-    generates from the local or synthetic MNIST."""
+    generates from the local or synthetic MNIST. In a data-parallel run
+    rank 0 alone generates, and every rank waits for it (a barrier)."""
     split = "training" if train else "test"
     path = os.path.join(root, "multimnist", f"{split}.npz")
     if download and not os.path.exists(path):
@@ -186,12 +189,14 @@ def load_multimnist(root="./data", train=True, *, generate_n=None,
         except (DownloadError, OSError) as e:
             print(f"[mvae_tpu_torch] --download failed ({e}); generating "
                   "from local/synthetic MNIST instead")
-    if not os.path.exists(path):
+    if not os.path.exists(path) and is_coordinator():
         n_train = generate_n or 2000
         print(f"[mvae_tpu_torch.data] MultiMNIST: no shards at {path!r} — "
               f"generating {n_train} train examples now (run "
               f"mvae_tpu_torch.experiments.multimnist.datasets for more)")
         make_dataset(root, n_train=n_train, n_test=max(n_train // 5, 200))
+    if dist.is_initialized():       # the other ranks read rank 0's shards
+        dist.barrier()
     with np.load(path) as z:
         images = z["images"].astype(np.float32)[..., None] / 255.0
         texts = z["texts"].astype(np.int32)

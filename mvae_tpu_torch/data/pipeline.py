@@ -11,12 +11,16 @@ row gather is not ported (numpy's fancy indexing gathers).
 
 import numpy as np
 
+from mvae_tpu_torch.parallel.distributed import is_coordinator
+
 
 def warn_synthetic(dataset: str, root: str):
     """One loud line when a loader falls back to synthetic data, so a
-    mistyped --data-dir cannot silently train on the fallback set."""
-    print(f"[mvae_tpu_torch.data] {dataset}: no real data under {root!r} — "
-          f"using the deterministic synthetic fallback")
+    mistyped --data-dir cannot silently train on the fallback set (from
+    rank 0 alone in a data-parallel run)."""
+    if is_coordinator():
+        print(f"[mvae_tpu_torch.data] {dataset}: no real data under "
+              f"{root!r} — using the deterministic synthetic fallback")
 
 
 class ArrayDataset:

@@ -17,6 +17,7 @@ import torch
 from mvae_tpu_torch.data.celeba import load_celeba
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.models.celeba import CelebaMVAE
+from mvae_tpu_torch.parallel.distributed import maybe_initialize
 from mvae_tpu_torch.train.driver import run_training
 from mvae_tpu_torch.utils.cli import parse_train_args, train_parser
 
@@ -37,6 +38,7 @@ def parser():
 
 def main(argv=None):
     args = parse_train_args(parser(), argv)
+    maybe_initialize(args)         # a rank's process group and card
     device = resolve_device(args.device)
     if not args.bf16:
         # --f32 promises the reference numerics: no TF32 in cuDNN's convs

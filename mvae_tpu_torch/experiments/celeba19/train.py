@@ -27,6 +27,7 @@ from mvae_tpu_torch.core.subsets import (
 from mvae_tpu_torch.data.celeba import load_celeba
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.models.celeba19 import N_ATTRS, Celeba19MVAE
+from mvae_tpu_torch.parallel.distributed import maybe_initialize
 from mvae_tpu_torch.train.driver import run_training
 from mvae_tpu_torch.utils.cli import parse_train_args, train_parser
 
@@ -62,6 +63,7 @@ def bf16_loss_default(bf16: bool, fast_term_decode: bool) -> bool:
 
 def main(argv=None):
     args = parse_train_args(parser(), argv)
+    maybe_initialize(args)         # a rank's process group and card
     device = resolve_device(args.device)
     if not args.bf16:
         # --f32 promises the reference numerics: no TF32 in cuDNN's convs

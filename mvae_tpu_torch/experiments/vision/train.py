@@ -28,6 +28,8 @@ import torch
 from mvae_tpu_torch.data.vision import N_MODALITIES, load_celeb_vision
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.models.vision import MODALITIES, VisionMVAE
+from mvae_tpu_torch.parallel.distributed import (
+    is_coordinator, maybe_initialize)
 from mvae_tpu_torch.train.driver import run_training
 from mvae_tpu_torch.utils.cli import parse_train_args, train_parser
 from mvae_tpu_torch.utils.png import save_image_grid
@@ -56,6 +58,8 @@ def recon_dump(test_ds, out_dir, device):
         with torch.inference_mode():
             mu, _ = model.infer(batch)
             recons, _ = model.decode(mu)
+        if not is_coordinator():        # every rank computes, rank 0 writes
+            return
         rows = []
         for m in MODALITIES:
             img = torch.sigmoid(recons[m].float()).cpu().numpy()
@@ -85,6 +89,7 @@ def parser():
 
 def main(argv=None):
     args = parse_train_args(parser(), argv)
+    maybe_initialize(args)         # a rank's process group and card
     device = resolve_device(args.device)
     if not args.bf16:
         # --f32 promises the reference numerics: no TF32 in cuDNN's convs

@@ -23,15 +23,27 @@ stacked).
 moments came with its output (ops/convbn.py:conv2d_moments, the encoder's
 fused route; nn/norm.py:105-126 in the JAX package): plain PyTorch, since
 the JAX package writes it in jnp.
+
+Data parallelism: `set_bn_sync(module, group)` gives the BNs under a
+module a process group (BatchNorm.sync) whose ranks hold the other rows of
+each batch. Their train-mode statistics are then the whole batch's, as
+one device computes them: the BN op all-reduces its sums between its
+passes (ops/bn.py), bn_swish_from_moments all-reduces the conv's s and q
+through a differentiable all-reduce (the conv op's backward fold needs
+their gradients, and each rank's loss depends on every rank's sums), and
+Moments.n counts the elements of all ranks, so that every rank commits
+the EMA one device would, with the same unbiased variance.
 """
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from mvae_tpu_torch.nn.layers import Swish, swish
 from mvae_tpu_torch.ops.bn import bn_swish_train
+from mvae_tpu_torch.parallel.collectives import all_reduce_sum_grad
 
 EPS = 1e-5
 # torch's default; commit_ema_states assumes every BN uses it
@@ -53,6 +65,7 @@ class Moments(NamedTuple):
     mean: torch.Tensor      # (G, C) f32, biased
     var: torch.Tensor       # (G, C) f32, biased
     n: int                  # elements a group and channel: rows * positions
+                            # (of every rank under a BN sync)
     terms: object = None    # (G,) long: the ELBO terms of the G groups
                             # where they are not all T (--fast-term-decode)
 
@@ -62,7 +75,9 @@ class BatchNorm(nn.Module):
     running_mean, running_var, num_batches_tracked), channel axis 1.
     `groups`: how many sets of batch statistics a train-mode call keeps,
     over consecutive blocks of rows (the decoders' ELBO terms); `terms`:
-    which ELBO terms those groups are, where not all of them."""
+    which ELBO terms those groups are, where not all of them; `sync`: the
+    process group whose ranks share the batch statistics (set_bn_sync),
+    or None."""
 
     def __init__(self, c: int, *, device=None):
         super().__init__()
@@ -74,6 +89,7 @@ class BatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long, device=device))
         self.groups = 1
         self.terms = None
+        self.sync = None
         self.moments = None
 
     @torch.no_grad()
@@ -89,11 +105,17 @@ class BatchNorm(nn.Module):
         if not self.training:
             return batchnorm_eval(x, self.running_mean, self.running_var,
                                   self.weight, self.bias)
-        y, mean, var = bn_swish_train(x, self.weight, self.bias, self.groups)
-        self.moments = Moments(self, mean, var,
-                               x.numel() // (self.groups * x.shape[1]),
-                               self.terms)
+        y, mean, var = bn_swish_train(x, self.weight, self.bias, self.groups,
+                                      self.sync)
+        self.moments = Moments(self, mean, var, _count(self, x), self.terms)
         return y
+
+
+def _count(bn, x):
+    """Moments.n of a train-mode call of `bn` on x: the elements a group
+    and channel, over the ranks of its sync."""
+    n = x.numel() // (bn.groups * x.shape[1])
+    return n if bn.sync is None else n * dist.get_world_size(bn.sync)
 
 
 def stacked_bn(bns, x):
@@ -112,8 +134,9 @@ def stacked_bn(bns, x):
     if not first.training:
         return batchnorm_eval(x, cat("running_mean"), cat("running_var"),
                               cat("weight"), cat("bias"))
-    y, mean, var = bn_swish_train(x, cat("weight"), cat("bias"), first.groups)
-    n = x.numel() // (first.groups * x.shape[1])
+    y, mean, var = bn_swish_train(x, cat("weight"), cat("bias"), first.groups,
+                                  first.sync)
+    n = _count(first, x)
     for bn, m, v in zip(bns, mean.chunk(len(bns), 1), var.chunk(len(bns), 1)):
         bn.moments = Moments(bn, m, v, n, bn.terms)
     return y
@@ -132,8 +155,13 @@ def bn_swish_from_moments(bn: "BatchNorm", y, s, q, dtype):
     BatchNorm call leaves them.
 
     The encoder passes y in f32, as conv2d_moments returns it, so that its
-    gradient reaches the fold unrounded (see ops/convbn.py)."""
+    gradient reaches the fold unrounded (see ops/convbn.py). Under
+    bn.sync, s and q are summed across its ranks first, differentiably,
+    and n counts their rows too."""
     n = y.numel() // y.shape[1]
+    if bn.sync is not None:
+        s, q = all_reduce_sum_grad(bn.sync, s, q)
+        n *= dist.get_world_size(bn.sync)
     mean = s / n
     var = torch.clamp(q / n - mean * mean, min=0.0)
     a = torch.reciprocal(torch.sqrt(var + EPS)) * bn.weight
@@ -179,6 +207,14 @@ def set_bn_groups(module: nn.Module, groups: int, terms=None):
         if isinstance(m, BatchNorm):
             m.groups = groups
             m.terms = terms
+
+
+def set_bn_sync(module: nn.Module, group):
+    """Give the BNs under `module` the process group whose ranks share
+    their train-mode batch statistics; None: this rank's rows alone."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = group
 
 
 def pop_moments(module: nn.Module) -> list:

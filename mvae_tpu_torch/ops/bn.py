@@ -26,15 +26,30 @@ plain versions alike, so a layer on the card is four launches. mean and var
 feed only the running-statistics EMA (core/engine.py:commit_ema_states),
 so they are marked non-differentiable: the backward's g_mean and g_var
 terms of bn_pallas.py:_vjp_bwd are zero and drop out of P, Q and R.
+
+Data parallelism (`group`, a torch.distributed process group whose ranks
+each hold b rows of one batch): the statistics are those of the whole
+batch, as one device computes them (SyncBatchNorm on the op's own sums).
+The (G, C) sums of bn_moments go through one all-reduce before
+bn_normalize, those of bn_bwd_partials through one before bn_dx, and n is
+the count over all ranks, b * world * S (every rank holds as many rows).
+bn_dx then gives every rank the gradient of the sum of all ranks' losses
+for dscale and dbias; each rank keeps its share, that sum over the world,
+so that the train step's gradient average (train/loop.py) gives the
+gradient of the mean loss, as for every other parameter. dx needs the
+global sums as they are. The kernels do not change: the collectives run
+between their launches.
 """
 
 import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 
 from mvae_tpu_torch.ops import _cuda
 from mvae_tpu_torch.ops._cuda import MAX_CLUSTER, SM_COUNT, pow2_at_least
+from mvae_tpu_torch.parallel.collectives import all_reduce_sum
 
 EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -401,19 +416,34 @@ def bn_dx_coeffs(sdz, sdzx, n, a, mean, invstd):
     return sdzxh, q.contiguous(), r.contiguous()
 
 
-def _fwd(passes, x4, scale, bias):
+def _global(sums, n, group):
+    """A reduction's (G, C) sums over n elements a (g, c) on this rank ->
+    those over the group's ranks, and their count."""
+    if group is None:
+        return sums, n
+    return all_reduce_sum(group, *sums), n * dist.get_world_size(group)
+
+
+def _fwd(passes, x4, scale, bias, group=None):
     """(y, mean, var, a, b, invstd)."""
     moments, normalize = passes[:2]
-    return normalize(x4, *moments(x4), x4.shape[1] * x4.shape[3], scale,
-                     bias)
+    s, q = moments(x4)
+    (s, q), n = _global((s, q), x4.shape[1] * x4.shape[3], group)
+    return normalize(x4, s, q, n, scale, bias)
 
 
-def _bwd(passes, x4, g4, a, b, mean, invstd):
+def _bwd(passes, x4, g4, a, b, mean, invstd, group=None):
     """(dx, dscale, dbias); the scale and bias are shared by the groups,
-    so their gradients sum over them."""
+    so their gradients sum over them. Under a group of world > 1 ranks,
+    dscale and dbias are this rank's share (the module docstring)."""
     partials, dx_fn = passes[2:]
-    return dx_fn(x4, g4, *partials(x4, g4, a, b), x4.shape[1] * x4.shape[3],
-                 a, b, mean, invstd)
+    sums, n = _global(partials(x4, g4, a, b), x4.shape[1] * x4.shape[3],
+                      group)
+    dx, dscale, dbias = dx_fn(x4, g4, *sums, n, a, b, mean, invstd)
+    world = 1 if group is None else dist.get_world_size(group)
+    if world > 1:
+        dscale, dbias = dscale / world, dbias / world
+    return dx, dscale, dbias
 
 
 def bn_swish_fwd_plain(x4, scale, bias):
@@ -432,15 +462,17 @@ def bn_swish_bwd_plain(x4, g4, scale, bias):
 class _BNSwishTrain(torch.autograd.Function):
     """The route (kernels or plain versions) is chosen once, in the
     forward, and the backward takes the same one. On the kernels a layer
-    is four launches: bn_moments, bn_normalize; bn_bwd_partials, bn_dx.
+    is four launches: bn_moments, bn_normalize; bn_bwd_partials, bn_dx
+    (and under a process group one all-reduce after each reduction).
     The gradients of mean and var, which are not differentiable, are not
     materialized (autograd would fill two (G, C) tensors with zeros)."""
 
     @staticmethod
-    def forward(ctx, x4, scale, bias):
+    def forward(ctx, x4, scale, bias, group):
         kernel = _cuda.use_kernel(x4, scale, bias)
-        y, mean, var, a, b, invstd = _fwd(_PASSES[kernel], x4, scale, bias)
-        ctx.kernel = kernel
+        y, mean, var, a, b, invstd = _fwd(_PASSES[kernel], x4, scale, bias,
+                                          group)
+        ctx.kernel, ctx.group = kernel, group
         ctx.save_for_backward(x4, a, b, mean, invstd)
         ctx.mark_non_differentiable(mean, var)
         ctx.set_materialize_grads(False)
@@ -450,22 +482,24 @@ class _BNSwishTrain(torch.autograd.Function):
     def backward(ctx, g, _g_mean, _g_var):
         x4, a, b, mean, invstd = ctx.saved_tensors
         dx, dscale, dbias = _bwd(_PASSES[ctx.kernel], x4, g.contiguous(), a,
-                                 b, mean, invstd)
-        return dx, dscale, dbias
+                                 b, mean, invstd, ctx.group)
+        return dx, dscale, dbias, None
 
 
-def bn_swish_train(x, scale, bias, groups: int = 1):
+def bn_swish_train(x, scale, bias, groups: int = 1, group=None):
     """Fused train-mode BatchNorm + swish with statistics per group.
 
     x: (G*N, C, *spatial) or (G*N, C), f32 or bf16, rows grouped
     term-major; scale, bias: (C,) f32. Returns (y like x, mean (G, C),
     var (G, C)): mean and var are the biased one-pass batch moments in f32
     (non-differentiable). CPU tensors take the plain versions, CUDA
-    tensors the kernels.
+    tensors the kernels. group: a torch.distributed process group whose
+    ranks hold the other rows of the batch, each as many as this one
+    (the statistics are then the whole batch's), or None.
     """
     rows, c = x.shape[0], x.shape[1]
     if rows % groups:
         raise ValueError(f"{rows} rows do not split into {groups} groups")
     x4 = x.contiguous().view(groups, rows // groups, c, -1)
-    y, mean, var = _BNSwishTrain.apply(x4, scale, bias)
+    y, mean, var = _BNSwishTrain.apply(x4, scale, bias, group)
     return y.view(x.shape), mean, var

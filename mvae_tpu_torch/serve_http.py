@@ -27,8 +27,9 @@ pool of 4 threads, so that their device calls overlap; each leaves the
 card by one host copy. /sample is served directly.
 
 Runs on the CUDA card unless --device says otherwise (raises without
-one). --dp (serving over several devices) is refused until the port's
-parallelism exists.
+one). --dp (serving over a data-parallel group of devices) is refused:
+the port trains data-parallel (mvae_tpu_torch/parallel/) but does not
+serve so yet.
 """
 
 import argparse

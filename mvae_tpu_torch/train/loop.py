@@ -1,10 +1,31 @@
 """Train and eval steps, the input decode and the driver's logging
-(counterpart of mvae_tpu/train/loop.py:16-51, 63-125, 146-300)."""
+(counterpart of mvae_tpu/train/loop.py:16-51, 63-125, 146-300).
+
+Data parallelism (`dp`, a parallel.mesh.DataParallel of N ranks): each
+rank steps on its B / N rows of a global batch of B, and the step gives
+every rank the values one device gives on the whole batch, up to the
+order of the sums. The BNs share their batch statistics across the ranks
+(nn/norm.py:set_bn_sync); the noise is drawn at the global batch's shape
+from the generator every rank seeds alike, and each rank keeps its rows
+(local_noise); after the backward the gradients are averaged across the
+ranks in one all-reduce over a flat buffer (average_gradients), so Adam
+steps every replica on the same gradient and the replicas stay equal. The
+per-term mean over a rank's rows (core/engine.py) averages to the mean
+over the global batch through that average. This is the JAX package's
+GSPMD step on a "data" mesh axis (parallel/data_parallel.py:44's pmean
+written out). It does not go through DistributedDataParallel: the step
+drives the model through core/engine.py:multi_term_elbo, not forward(),
+and a step may leave parameters without a gradient (celeba19's sampled
+terms, --fast-term-decode), which DDP handles only with
+find_unused_parameters and an extra pass over the graph.
+"""
 
 import torch
 
 from mvae_tpu_torch.core.engine import fast_decode_terms, multi_term_elbo
 from mvae_tpu_torch.device import resolve_device
+from mvae_tpu_torch.nn.norm import set_bn_sync
+from mvae_tpu_torch.parallel.collectives import sum_in_place
 
 
 def decode_batch(batch, dtype=torch.float32):
@@ -102,10 +123,56 @@ def draw_noise(model, n_terms: int, batch: int, generator):
     return eps, keep, u < 1.0 - rate
 
 
+def _batch_axis(shape_of, rows: int) -> int:
+    """The axis of shape_of(rows) that counts the rows."""
+    return next(i for i, (a, b) in enumerate(zip(shape_of(rows),
+                                                 shape_of(rows + 1)))
+                if a != b)
+
+
+def local_noise(model, noise, dp):
+    """This rank's rows of the train step's noise for the global batch:
+    eps (T, B, D) and the encoder's keep-mask at their batch axis, the
+    decoder's keep-masks for the T * B decoded rows (term-major) at the
+    rows of each term."""
+    eps, keep = noise[:2]
+    t, rows = eps.shape[:2]
+    b = rows // dp.world
+    lo = dp.rank * b
+    out = [eps[:, lo:lo + b],
+           None if keep is None else
+           keep.narrow(_batch_axis(model.keep_mask_shape, rows), lo, b)]
+    if len(noise) > 2:
+        dec = noise[2]
+        ax = _batch_axis(model.decode_keep_mask_shape, t * rows)
+        shape = dec.shape
+        dec = dec.reshape(shape[:ax] + (t, rows) + shape[ax + 1:])
+        out.append(dec.narrow(ax + 1, lo, b).reshape(
+            shape[:ax] + (t * b,) + shape[ax + 1:]))
+    return tuple(out)
+
+
+def average_gradients(params, dp):
+    """Replace every parameter's gradient by its mean across the ranks, in
+    one all-reduce over a flat buffer a dtype (the parameters are f32).
+    A gradient that is None on this rank counts as zeros, since another
+    rank may have one: every parameter leaves with a gradient, as in the
+    JAX package, whose gradients are dense."""
+    by_dtype = {}
+    for p in params:
+        by_dtype.setdefault(p.dtype, []).append(p)
+    for ps in by_dtype.values():
+        flat = torch.cat([(torch.zeros_like(p) if p.grad is None
+                           else p.grad).reshape(-1) for p in ps])
+        sum_in_place(dp.group, flat).div_(dp.world)
+        for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+            p.grad = g.view_as(p)
+
+
 def make_train_step(model, term_masks, term_lambdas, *, lr: float,
                     generator, device=None, device_data: bool = False,
                     recon_support=None, fast_skip_decode: bool = False,
-                    recon_masks=None):
+                    recon_masks=None, dp=None, sync_bn: bool = True):
     """One training step: the train-mode multi-term ELBO, its backward, an
     Adam update and the BN running-statistics commit.
 
@@ -123,11 +190,19 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     device and device_data as in make_eval_step. Each call puts the model
     in train mode.
 
+    dp: a parallel.mesh.DataParallel (the module docstring), or None for
+    one device. The step then takes this rank's B / N rows of each batch,
+    draws (or is given) the noise of the global batch of B rows and keeps
+    its own, and averages the gradients; sync_bn=False leaves each rank's
+    BNs their own rows' statistics (parallel/data_parallel.py).
+
     Step signature: train_step(batch, beta, noise=None, masks=None,
     lambdas=None) -> (loss, per_term (T,)), detached tensors on the
-    device, read by nobody. noise = (eps, keep_mask[, decode_keep_mask])
-    replaces the draw (tests feed the JAX package's); masks, lambdas:
-    this step's (T, M) tensors on the device, in place of the step's own.
+    device, read by nobody; under dp this rank's (the mean of the ranks'
+    losses is the global batch's). noise = (eps, keep_mask[,
+    decode_keep_mask]) replaces the draw (tests feed the JAX package's);
+    masks, lambdas: this step's (T, M) tensors on the device, in place of
+    the step's own.
     """
     device = _check_device(model, device, "train step")
     masks = _masks(term_masks, device)
@@ -139,18 +214,28 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     optimizer = torch.optim.Adam(model.parameters(), lr=lr,
                                  betas=(0.9, 0.999), eps=1e-8)
 
+    params = list(model.parameters())
+    bn_group = dp.group if dp is not None and sync_bn else None
+
     def train_step(batch, beta, noise=None, masks=masks, lambdas=lambdas):
         model.train()
+        set_bn_sync(model, bn_group)
         batch = decode_batch(_gather(batch, device_data), decode_dt)
         if noise is None:
             b = next(iter(batch.values())).shape[0]
-            noise = draw_noise(model, masks.shape[0], b, generator)
+            noise = draw_noise(model, masks.shape[0],
+                               b * (1 if dp is None else dp.world),
+                               generator)
+        if dp is not None:
+            noise = local_noise(model, noise, dp)
         optimizer.zero_grad(set_to_none=True)
         total, aux = multi_term_elbo(model, batch, masks, lambdas, beta,
                                      train=True, noise=noise,
                                      decode_terms=decode_terms,
                                      recon_masks=rmasks)
         total.backward()
+        if dp is not None:
+            average_gradients(params, dp)
         optimizer.step()
         return total.detach(), aux["per_term"].detach()
 
@@ -160,7 +245,8 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
 
 def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
                           generator, device=None, recon_support=None,
-                          fast_skip_decode: bool = False, recon_masks=None):
+                          fast_skip_decode: bool = False, recon_masks=None,
+                          dp=None, sync_bn: bool = True):
     """K training steps per call over the device-resident dataset, with one
     loss buffer to read back (train/loop.py:146-212).
 
@@ -172,7 +258,9 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
     B, D), keep_mask (K, B, H) or None without dropout[, the decoder's
     (K, ...) keep-masks]) in place of the generator's draws. masks,
     lambdas: (K, T, M), each step's terms, where the step has none of its
-    own (term_masks None); the other arguments as make_train_step's.
+    own (term_masks None); the other arguments as make_train_step's. Under
+    dp, data is this rank's resident rows, idxs index them (B / N a step),
+    and noise is the global batch's.
 
     The K steps run as K eager steps; capturing the window as one CUDA
     graph is a later speed item.
@@ -181,7 +269,7 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
                            generator=generator, device=device,
                            device_data=True, recon_support=recon_support,
                            fast_skip_decode=fast_skip_decode,
-                           recon_masks=recon_masks)
+                           recon_masks=recon_masks, dp=dp, sync_bn=sync_bn)
 
     def multi_step(data, idxs, betas, noise=None, masks=None, lambdas=None):
         losses = []

@@ -5,14 +5,16 @@ the reference's flag surface with the JAX package's defaults, without
 plus --device.
 
 --no-device-data streams the batches from the host (train/driver.py).
-The flags of the JAX package's distributed paths stay on the parser so
-that a command line written for it is understood, and `parse_train_args`
-refuses them: multi-process runs and the mesh are not ported yet.
+The multi-process flags start data-parallel training
+(parallel/distributed.py:maybe_initialize): --coordinator host:port
+--process-id i --n-processes N, one process a rank, or a bare
+--distributed under torchrun, which sets the ranks in the environment. A
+batch that N does not divide is refused (parallel/mesh.py): tensor and
+expert parallelism, where the JAX package sends the leftover factor, are
+not ported yet.
 """
 
 import argparse
-
-NOT_PORTED = ("distributed", "coordinator", "process_id", "n_processes")
 
 
 def device_flag(p):
@@ -64,26 +66,24 @@ def train_parser(*, n_latents, epochs, annealing_epochs, lr, batch_size=100,
                    help='stream the batches from the host instead of '
                         'keeping the dataset on the device (the default '
                         'while it fits the driver\'s budget)')
+    # multi-process data parallelism: parallel/distributed.py
     p.add_argument('--distributed', action='store_true', default=False,
-                   help='not ported yet (multi-process): refused')
+                   help='torch.distributed with the ranks and the address '
+                        'from the environment torchrun sets (RANK, '
+                        'WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK)')
     p.add_argument('--coordinator', type=str, default=None,
-                   help='not ported yet (multi-process): refused')
+                   help='rank 0\'s host:port for an explicit multi-process '
+                        'start (implies --distributed)')
     p.add_argument('--process-id', type=int, default=None,
-                   help='not ported yet (multi-process): refused')
+                   help='this process\'s rank [with --coordinator]')
     p.add_argument('--n-processes', type=int, default=None,
-                   help='not ported yet (multi-process): refused')
+                   help='total process count [with --coordinator]')
     return p
 
 
 def parse_train_args(parser, argv=None):
-    """Parse argv; exit through parser.error on a flag of a path that is
-    not ported yet."""
-    args = parser.parse_args(argv)
-    for name in NOT_PORTED:
-        if getattr(args, name) not in (None, False):
-            parser.error(f"--{name.replace('_', '-')} is not ported yet: "
-                         "the port trains on one device")
-    return args
+    """Parse argv (the train CLIs' entry)."""
+    return parser.parse_args(argv)
 
 
 def sample_parser(**extra_flags):

@@ -915,3 +915,59 @@ def test_vision_iwae_goes_through_the_kernels(cuda, monkeypatch):
     with ops.plain_versions():
         want = loglike.iwae_log_marginal(*args, eps=eps)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_passes_under_a_one_rank_nccl_group_are_the_no_group_passes(
+        cuda, dtype, tmp_path):
+    """A process group of one NCCL rank: the BN op's all-reduces of its
+    sums (forward and backward) and the fused route's differentiable one
+    leave every output of the kernels bit for bit as without a group (the
+    sum over one rank is the value; dscale and dbias, one rank's share,
+    are the whole)."""
+    import datetime
+    import torch.distributed as dist
+    from mvae_tpu_torch.nn.norm import bn_swish_from_moments
+    from mvae_tpu_torch.parallel.collectives import all_reduce_sum
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        all_reduce_sum.calls = 0
+        for g, n, c, s in [(1, 100, 64, 256), (3, 100, 128, 64),
+                           (1, 100, 512, 1), (21, 100, 32, 1024)]:
+            x = torch.randn((g * n, c, s), generator=gen, device=cuda)
+            x = (x * 1.5 + 0.5).to(dtype)
+            up = torch.randn(x.shape, generator=gen, device=cuda).to(dtype)
+            scale = torch.rand(c, generator=gen, device=cuda) + 0.5
+            bias = torch.randn(c, generator=gen, device=cuda) * 0.1
+            outs = []
+            for group in (None, dist.group.WORLD):
+                xi = x.clone().requires_grad_()
+                si, bi = (scale.clone().requires_grad_(),
+                          bias.clone().requires_grad_())
+                y, mean, var = bn_ops.bn_swish_train(xi, si, bi, g, group)
+                y.backward(up)
+                outs.append((y, mean, var, xi.grad, si.grad, bi.grad))
+            for a, b in zip(*outs):
+                assert torch.equal(a, b), (g, n, c, s)
+        assert all_reduce_sum.calls == 2 * 4
+        from mvae_tpu_torch.nn.norm import BatchNorm
+        y = torch.randn((100, 64, 16, 16), generator=gen, device=cuda)
+        outs = []
+        for group in (None, dist.group.WORLD):
+            bn = BatchNorm(64, device=cuda)
+            bn.reset_parameters()
+            bn.sync = group
+            yi = y.clone().requires_grad_()
+            s, q = yi.sum(dim=(0, 2, 3)), (yi * yi).sum(dim=(0, 2, 3))
+            out = bn_swish_from_moments(bn, yi, s, q, dtype)
+            out.float().backward(torch.ones_like(out, dtype=torch.float32))
+            outs.append((out, yi.grad, bn.weight.grad, bn.bias.grad,
+                         bn.moments.mean, bn.moments.var))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

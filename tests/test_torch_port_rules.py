@@ -157,9 +157,11 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
                                                            capsys, tmp_path):
     """The CLI resolves its device before it loads data: on a host without
     a card it raises unless --device cpu; it takes --no-device-data (host
-    streaming) and refuses the flags of the multi-process paths, which are
-    not ported, and the JAX CLI's --cuda and --exact-decode, which would
-    do nothing here."""
+    streaming) and the four multi-process flags, refuses before any
+    rendezvous a batch that the processes do not divide (the JAX package's
+    tensor-parallel case, not ported) and a start without a rank, and
+    refuses the JAX CLI's --cuda and --exact-decode, which would do
+    nothing here."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     loads = []
     monkeypatch.setattr(celeba_cli, "load_celeba",
@@ -176,11 +178,21 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
     assert len(loads) == 2 and capsys.readouterr().err == ""
     assert parse_train_args(celeba_cli.parser(),
                             ["--no-device-data"]).no_device_data
-    for flag in (["--distributed"], ["--coordinator", "localhost:1"],
-                 ["--n-processes", "2"]):
-        with pytest.raises(SystemExit):
+    args = parse_train_args(celeba_cli.parser(), [
+        "--distributed", "--coordinator", "127.0.0.1:1", "--process-id", "1",
+        "--n-processes", "3"])
+    assert (args.distributed, args.coordinator, args.process_id,
+            args.n_processes) == (True, "127.0.0.1:1", 1, 3)
+    for env in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(env, raising=False)
+    with pytest.raises(SystemExit, match="tensor parallelism, which is not "
+                       "ported yet"):
+        celeba_cli.main(["--device", "cpu", "--coordinator", "127.0.0.1:1",
+                         "--process-id", "0", "--n-processes", "3"])
+    for flag in (["--distributed"], ["--coordinator", "localhost:1"]):
+        with pytest.raises(SystemExit, match="--process-id i"):
             celeba_cli.main(["--device", "cpu"] + flag)
-        assert "not ported yet" in capsys.readouterr().err
+    assert len(loads) == 2 and not torch.distributed.is_initialized()
     for flag in ("--cuda", "--exact-decode"):
         with pytest.raises(SystemExit):
             celeba_cli.main(["--device", "cpu", flag])
