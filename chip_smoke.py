@@ -9,8 +9,9 @@ MultiMNIST, CelebA-19 and vision families end to end (train, sample and
 loglike CLIs, serving) and the CelebA sample and loglike CLIs, then
 trains the CelebA protocol of the convergence gate and holds its scores
 against the JAX package's rows, trains data-parallel (two ranks sharing
-the card, one NCCL rank, the CLI on two processes), and shows that those
-paths went through the kernels.
+the card, one NCCL rank, the CLI on two processes) and on a dp4 x tp2
+grid of eight ranks (the CLI too), serves over a group of two, and shows
+that those paths went through the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -125,6 +126,20 @@ error status, which phase 3b reads as the status it checks):
      (--coordinator, --process-id, --n-processes), two epochs and a
      --resume for a third, rank 0 alone logging and writing,
      Sampler.from_checkpoint on its model_best.pth.tar
+  6i. tensor and expert parallelism (parallel/mesh.py's grid): eight ranks
+     spawned on the card over gloo at global B=100, the JAX package's
+     dp4 x tp2, against this process on the whole batches with the same
+     noise: CelebaMVAE(100) at the CLI weights, bf16 and f32, unfused and
+     fused, and celeba19 in bf16 (9 of 18 experts a rank): step 1's loss,
+     every gradient gathered to full shape, the running statistics and
+     the parameters, then the losses of steps 2-3 and every rank's state
+     equal, each rank's launches and its collectives a step on the dp and
+     the tp group; the CelebA CLI as eight processes (JAX's mesh line),
+     an epoch and a --resume, its model_best.pth.tar loaded on one
+     device; Sampler(dp=2) on two spawned ranks against one device at
+     every endpoint, then serve_http at --dp 2 and --dp 1 side by side,
+     the same request to each and serve_http_bench's burst in turns
+     (requests/s, p50)
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -144,8 +159,8 @@ error status, which phase 3b reads as the status it checks):
   in turns, and one window of each runs under
   torch.use_deterministic_algorithms(warn_only=True), whose warnings name
   the ops with no deterministic form.
-  8. the kernels line: launches on phases 3-5 and 6b-6h (6h's spawned
-     ranks' own included), error, times,
+  8. the kernels line: launches on phases 3-5 and 6b-6i (6h's and 6i's
+     spawned ranks' own included), error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
 Phases 3-5 and 6c-6f end with a torch.profiler breakdown of device time
@@ -168,6 +183,7 @@ import json
 import math
 import os
 import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -222,7 +238,7 @@ from mvae_tpu_torch.ops import convbn
 from mvae_tpu_torch.ops.elbo import bce_rowsum_plain
 from mvae_tpu_torch.ops.poe import poe_bwd_plain, poe_plain
 from mvae_tpu_torch.parallel.collectives import all_reduce_sum, sum_in_place
-from mvae_tpu_torch.parallel.mesh import data_parallel
+from mvae_tpu_torch.parallel.mesh import data_parallel, grid
 from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.serve_http import (
     ServeApp, decode_array, encode_array, make_server, warmup_buckets)
@@ -2639,6 +2655,12 @@ DP_KERNELS = ("bn_moments", "bn_bwd_partials", "poe_fwd", "bce_rowsum_fwd",
               "conv2d_moments")
 DP_TIMEOUT_S = 300      # a rank's run, or a CLI process
 REPO = os.path.dirname(os.path.abspath(__file__))
+TP_WORLD = 8            # ranks that share the card (gloo): B=100 on 8 is
+                        # the JAX package's dp4 x tp2 (gcd(8, 100) = 4)
+TP_CALLS = {"celeba": 2, "celeba19": 5}   # tp collectives a step: the head
+                        # pair's all-reduce and its input's gradient's;
+                        # celeba19 adds the experts' two gathers and the
+                        # attribute decoder's input's all-reduce
 
 
 def dp_recipes():
@@ -2665,43 +2687,49 @@ def dp_recipes():
                 torch.tensor([0.5, 1.0, 1.0]), step_kw=dict(
                     term_masks=MASKS, term_lambdas=LAMBDAS, lr=LR),
                 noise=noise, windows=DP_WINDOWS,
-                name=f"{str(dtype).split('.')[-1]} "
+                name=f"celeba {str(dtype).split('.')[-1]} "
                      f"{'fused' if fused else 'unfused'}"))
     return recipes
 
 
-def dp_two_ranks(dev, card):
-    """Two ranks share the card over gloo, each stepping its 50 rows of
-    every batch, against this process stepping the whole batches with the
-    same noise: step 1's loss, every gradient after the all-reduce, the
-    running statistics and the parameters (Adam's first step moves an
-    element by lr whatever its gradient: at most 2 lr apart), then two
-    more steps' losses and both ranks' parameters and statistics equal.
-    Returns the ranks' kernel launches, summed."""
-    recipes = dp_recipes()
+def ranks_vs_one_process(dev, card, world, recipes, tag):
+    """`world` spawned ranks share the card over gloo, on the grid of
+    parallel/mesh.py over the recipes' global batches of B=100 (world 2:
+    dp2; world 8: dp4 x tp2), each dp index stepping its rows of every
+    batch, against this process stepping the whole batches with the same
+    noise: step 1's loss, every gradient after the all-reduce (gathered
+    to full shape), the running statistics and the parameters (Adam's
+    first step moves an element by lr whatever its gradient: at most 2 lr
+    apart), then two more steps' losses and every rank's parameters and
+    statistics equal. Prints each rank's launches and its collectives a
+    step on each group; returns the ranks' kernel launches, summed."""
+    n_dp, n_tp = grid(world, BATCH)
     t0 = time.perf_counter()
     refs = [dp_check.replay(rc, dev) for rc in recipes]
     t1 = time.perf_counter()
     outs = dp_check.spawn_ranks(
-        DP_WORLD, dp_check.replay_all, recipes,
+        world, dp_check.replay_all, recipes,
         device=None if dev.type == "cuda" else "cpu", timeout_s=DP_TIMEOUT_S)
-    print(f"[dp] one process {t1 - t0} s, {DP_WORLD} spawned ranks "
+    print(f"[{tag}] one process {t1 - t0} s, {world} spawned ranks "
+          f"({n_dp}-way data x {n_tp}-way tensor/expert) "
           f"{time.perf_counter() - t1} s for {len(recipes)} recipes")
-    noisy = bn_fed_biases(CelebaMVAE(8, device="cpu"))
     launches = {}
+    steps = sum(DP_WINDOWS)
     for i, (rc, ref) in enumerate(zip(recipes, refs)):
         name = rc["name"]
+        family = name.split()[0]
+        noisy = bn_fed_biases(rc["model"][0](8, device="cpu"))
         dtype = rc["model"][1][1] or torch.float32
         rtol = GRAD_RTOL[dtype]
         ranks = [o[i] for o in outs]
         first = [r["windows"][0] for r in ranks]
         want = ref["windows"][0]
-        loss = sum(float(w["losses"][0]) for w in first) / DP_WORLD
-        held(f"dp {name} step 1 loss, mean of {DP_WORLD} ranks vs one "
+        loss = sum(float(w["losses"][0]) for w in first[::n_tp]) / n_dp
+        held(f"{tag} {name} step 1 loss, mean of {n_dp} dp indices vs one "
              f"process", torch.tensor([loss]), want["losses"].double(),
              rtol, 0.0)
-        grads_held(f"dp {name} step 1, rank 0 after the all-reduce vs one "
-                   f"process", first[0]["grads"], want["grads"], rtol,
+        grads_held(f"{tag} {name} step 1, rank 0 after the all-reduce vs "
+                   f"one process", first[0]["grads"], want["grads"], rtol,
                    GRAD_NOISE_ATOL[dtype], noisy)
         stats = max((first[0]["running"][k].double() - v.double()).norm()
                     .item() / v.double().norm().item()
@@ -2710,39 +2738,70 @@ def dp_two_ranks(dev, card):
                 for k, v in want["params"].items() if k not in noisy]
         flips = max((first[0]["params"][k] - v).abs().max().item()
                     for k, v in want["params"].items())
-        print(f"[check] dp {name} step 1: running statistics largest "
+        print(f"[check] {tag} {name} step 1: running statistics largest "
               f"relative gap {stats}, parameters {max(gaps)} (rtol "
               f"{rtol}), largest element gap {flips} (2 lr = {2 * LR})")
         expect(stats < rtol and max(gaps) < rtol
                and flips <= 2 * LR * (1 + 1e-3),
-               f"dp {name}: step 1's state differs from one process")
+               f"{tag} {name}: step 1's state differs from one process")
         rest = [r["windows"][1] for r in ranks]
-        held(f"dp {name} steps 2-3 losses, mean of ranks vs one process",
-             sum(w["losses"].double() for w in rest) / DP_WORLD,
-             ref["windows"][1]["losses"].double(), rtol, 0.0)
+        held(f"{tag} {name} steps 2-3 losses, mean of dp indices vs one "
+             f"process", sum(w["losses"].double() for w in rest[::n_tp])
+             / n_dp, ref["windows"][1]["losses"].double(), rtol, 0.0)
         for part in ("params", "running"):
             for k, v in rest[0][part].items():
-                expect(torch.equal(v, rest[1][part][k]),
-                       f"dp {name}: the ranks' {k} differ")
+                expect(all(torch.equal(v, w[part][k]) for w in rest[1:]),
+                       f"{tag} {name}: the ranks' {k} differ")
+        per = DP_WINDOWS[1]
+        rank_ms = [r["windows"][1]["seconds"] * 1e3 / per for r in ranks]
+        cost = {g: statistics.median(r["collective_ms"][g] for r in ranks)
+                for g in ranks[0]["collective_ms"]}
+        calls = {"tp": ranks[0]["tp_collectives"] / steps,
+                 "dp": ranks[0]["all_reduces"] / steps}
+        print(f"[{tag}] {name}: steps 2-3 on the ranks "
+              f"{statistics.median(rank_ms)} ms a step (median of {world}; "
+              f"{min(rank_ms)}-{max(rank_ms)}) against "
+              f"{ref['windows'][1]['seconds'] * 1e3 / per} in one process "
+              f"on the whole batch (host clock to a synchronize); host ms "
+              f"a collective to its end {cost} (a tp all-reduce of a "
+              f"(rows, 2L) posterior, a dp all-reduce of a BN's (2, 1, 64) "
+              f"sums), so a step's collectives take about "
+              f"{ {g: calls[g] * v for g, v in cost.items()} } ms | {card}")
         for r, o in enumerate(ranks):
-            print(f"[dp] {name}: rank {r} launches "
-                  f"{ {k: o['launches'][k] for k in DP_KERNELS} }, "
-                  f"{o['all_reduces']} all-reduces in {sum(DP_WINDOWS)} "
-                  f"steps ({o['n_bn']} BN layers)")
+            print(f"[{tag}] {name}: rank {r} launches "
+                  f"{ {k: o['launches'][k] for k in DP_KERNELS} }, a step "
+                  f"{o['all_reduces'] / steps} all-reduces (the BNs' on the "
+                  f"dp group, the gradients' on it, or with a model axis "
+                  f"on it and on the world, and then the running "
+                  f"statistics' on the world) and "
+                  f"{o['tp_collectives'] / steps} "
+                  f"collectives on the tp group ({o['n_bn']} BN layers) | "
+                  f"{card}")
             for k in DP_KERNELS:
                 fused_only = k == "conv2d_moments"
                 expect((o["launches"][k] > 0) == (
                     not fused_only or "unfused" not in name),
-                    f"dp {name}: rank {r} launched {k} "
+                    f"{tag} {name}: rank {r} launched {k} "
                     f"{o['launches'][k]} times")
             for k, v in o["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-        expect(ranks[0]["all_reduces"]
-               == (2 * ranks[0]["n_bn"] + 1) * sum(DP_WINDOWS),
-               f"dp {name}: {ranks[0]['all_reduces']} all-reduces")
-    print(f"[dp] {DP_WORLD} ranks on one card over gloo hold one process's "
-          f"step in bf16 and f32, unfused and fused | {card}")
+            # the gradients': with a model axis the sharded ones' on the
+            # dp group and the others' on the world, then the running
+            # statistics' on the world
+            grads = 1 if n_tp == 1 else 3
+            expect(o["all_reduces"] == (2 * o["n_bn"] + grads) * steps,
+                   f"{tag} {name}: {o['all_reduces']} all-reduces")
+            expect(o["tp_collectives"] == (
+                TP_CALLS[family] * steps if n_tp > 1 else 0),
+                f"{tag} {name}: {o['tp_collectives']} tp collectives")
+    print(f"[{tag}] {world} ranks on one card over gloo hold one process's "
+          f"step: {[rc['name'] for rc in recipes]} | {card}")
     return launches
+
+
+def dp_two_ranks(dev, card):
+    """Phase 6h's check: two ranks, dp2, on dp_recipes."""
+    return ranks_vs_one_process(dev, card, DP_WORLD, dp_recipes(), "dp")
 
 
 def dp_one_rank_turns(dev, card, data, root):
@@ -2820,19 +2879,19 @@ def free_port():
         return s.getsockname()[1]
 
 
-def dp_cli_run(argv, out_dirs, what):
-    """The CelebA train CLI as DP_WORLD processes started with
+def dp_cli_run(argv, out_dirs, what, world=DP_WORLD):
+    """The CelebA train CLI as `world` processes started with
     --coordinator, --process-id, --n-processes; returns their stdouts
     and rank 0's lines with the host clock at which each arrived."""
     port = free_port()
-    errs = [tempfile.TemporaryFile(mode="w+") for _ in range(DP_WORLD)]
+    errs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, "-u", "-m",
          "mvae_tpu_torch.experiments.celeba.train", *argv, "--out-dir",
          out_dirs[r], "--coordinator", f"127.0.0.1:{port}", "--process-id",
-         str(r), "--n-processes", str(DP_WORLD)], cwd=REPO,
+         str(r), "--n-processes", str(world)], cwd=REPO,
         stdout=subprocess.PIPE, stderr=errs[r], text=True)
-        for r in range(DP_WORLD)]
+        for r in range(world)]
     timed = []
 
     def read_rank_0():
@@ -2943,6 +3002,217 @@ def phase_dp(dev, card, root, data):
     return launches
 
 
+def c19_recipe():
+    """celeba19's step on the grid: Celeba19MVAE(100) in bf16 with the
+    CLI's bf16 BCE math (experiments/celeba19/train.py), from seed 21,
+    one window of three global batches of B=100 uint8 rows with each
+    step's T=21 sampled terms (--approx-m 1), the noise drawn at the
+    global shape. At tp 2 a rank holds 9 of each side's 18 experts."""
+    k = sum(DP_WINDOWS)
+    rng = np.random.default_rng(63)
+    data = {"image": torch.from_numpy(rng.integers(
+                0, 256, (k * BATCH, 64, 64, 3), dtype=np.uint8)),
+            "attrs": torch.from_numpy((rng.random((k * BATCH, 18)) < 0.3)
+                                      .astype(np.float32))}
+    model = Celeba19MVAE(100, torch.bfloat16, bf16_loss=True, device="cpu",
+                         generator=torch.Generator().manual_seed(21))
+    gen = torch.Generator().manual_seed(64)
+    noise = tuple(torch.stack(n) for n in zip(
+        *[draw_noise(model, 21, BATCH, gen) for _ in range(k)]))
+    terms_rng = np.random.default_rng(65)
+    masks, lambdas = zip(*[c19_terms(terms_rng) for _ in range(k)])
+    return dp_check.recipe(
+        Celeba19MVAE, (100, torch.bfloat16), {"bf16_loss": True},
+        model.state_dict(), data, torch.tensor([0.5, 1.0, 1.0]),
+        step_kw=dict(term_masks=None, term_lambdas=None, lr=LR),
+        noise=noise, masks=torch.from_numpy(np.stack(masks)).float(),
+        lambdas=torch.from_numpy(np.stack(lambdas)).float(),
+        windows=DP_WINDOWS, name="celeba19 bf16 unfused")
+
+
+def tp_cli(dev, card, root):
+    """The CelebA train CLI on TP_WORLD processes that share the card
+    (gloo), bf16 CelebaMVAE(100), B=100: dp4 x tp2 on the synthetic set
+    (20 steps an epoch), one epoch, then --resume of rank 0's checkpoint
+    by all for a second; rank 0 alone logs (JAX's mesh line) and writes;
+    Sampler.from_checkpoint answers from its model_best.pth.tar on one
+    device. Returns that file."""
+    tmp = os.path.join(root, "tp_cli")
+    dirs = [os.path.join(tmp, f"rank{r}") for r in range(TP_WORLD)]
+    argv = ["--annealing-epochs", "1", "--log-interval", "10",
+            "--batch-size", str(BATCH),
+            "--data-dir", os.path.join(root, "celeba", "data")]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    t0 = time.perf_counter()
+    first, timed1 = dp_cli_run(argv + ["--epochs", "1"], dirs, "tp cli",
+                               TP_WORLD)
+    t1 = time.perf_counter()
+    second, timed2 = dp_cli_run(argv + ["--epochs", "2", "--resume",
+                                        os.path.join(dirs[0], CKPT)], dirs,
+                                "tp cli resume", TP_WORLD)
+    t2 = time.perf_counter()
+    n_dp, n_tp = grid(TP_WORLD, BATCH)
+    mesh = (f"mesh over all {TP_WORLD} devices: {n_dp}-way data x "
+            f"{n_tp}-way tensor/expert parallel (batch {BATCH} is not "
+            f"divisible by {TP_WORLD}; the leftover factor shards "
+            f"parameters, not nothing)")
+    for out, epoch in ((first[0], 1), (second[0], 2)):
+        lines = out.splitlines()
+        expect(mesh in lines, f"tp cli: no mesh line in {lines[:4]}")
+        expect(sum(line.startswith(f"Train Epoch: {epoch} [")
+                   for line in lines) == 2, f"tp cli: epoch {epoch}")
+        tests = [float(line.split()[-1]) for line in lines
+                 if line.startswith("====> Test Loss")]
+        expect(len(tests) == 1 and all(np.isfinite(tests)),
+               f"tp cli: test losses {tests}")
+        print(f"[tp cli] rank 0, epoch {epoch}: "
+              f"{[x for x in lines if not x.startswith('Train')]}")
+    expect(any(line.startswith("resumed from ") and line.endswith(
+        "at epoch 1") for line in second[0].splitlines()),
+        "tp cli: no resume line")
+    expect(all(out == "" for out in first[1:] + second[1:]),
+           f"tp cli: a rank but 0 printed {first[1][:200]!r}")
+    expect(sorted(os.listdir(dirs[0])) == sorted([BEST, CKPT])
+           and not any(os.path.exists(d) for d in dirs[1:]),
+           "tp cli: the files")
+    best = os.path.join(dirs[0], BEST)
+    sampler = Sampler.from_checkpoint(best, compute_dtype=torch.bfloat16,
+                                      device=dev)
+    images = torch.rand((8, 64, 64, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+    check_images(sampler.reconstruct({"image": images}), 8)
+    print(f"[tp cli] {TP_WORLD} processes, epoch 1 {t1 - t0} s, the "
+          f"resumed epoch 2 {t2 - t1} s (process start, data and the "
+          f"build's load included); training wall from the input-pipeline "
+          f"line to the epoch line {epoch_wall(timed1, 1)} s (warm-up "
+          f"included) and {epoch_wall(timed2, 2)} s; {BEST} loaded on one "
+          f"device and served one reconstruct request | {card}")
+    return best
+
+
+SERVE_DP = 2            # ranks of the serving group (gloo on one card)
+SERVE_CLIENTS, SERVE_REQUESTS = 16, 8
+
+
+def start_server(dev, best, dp):
+    """serve_http's main on a process of its own, --dp dp, f32, on a free
+    port; returns (the process, the port, its output's lines) once it
+    serves."""
+    port = free_port()
+    where = [] if dev.type == "cuda" else ["--device", str(dev)]
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "mvae_tpu_torch.serve_http",
+         "--checkpoint", best, "--family", "celeba", "--port", str(port),
+         "--dp", str(dp), "--max-batch", "16", *where], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while not any(x.startswith("serving celeba on") for x in lines):
+        expect(proc.poll() is None and time.monotonic() < deadline,
+               f"serve_http --dp {dp} did not start: {lines[-20:]}")
+        time.sleep(0.2)
+    return proc, port, lines
+
+
+def tp_serving(dev, card, best):
+    """Sampler(dp=2) on two spawned ranks against one device at every
+    endpoint (tools/dp_check.py:serve_endpoints, f32 from best); then
+    serve_http at --dp 2 and --dp 1 side by side, the same /embed
+    request to each, and serve_http_bench's burst (16 clients x 8 one-row
+    /embed requests, 2 ms window) in turns, dp1, dp2, dp2, dp1."""
+    rng = np.random.default_rng(66)
+    inputs = {"image": torch.from_numpy(rng.random((5, 64, 64, 3),
+                                                   dtype=np.float32)),
+              "attrs": torch.from_numpy((rng.random((5, 18)) < 0.3)
+                                        .astype(np.float32))}
+    t0 = time.perf_counter()
+    outs = dp_check.spawn_ranks(
+        SERVE_DP, dp_check.serve_endpoints, dict(
+            path=best, dtype=None, inputs=inputs,
+            conditions=HTTP_CONDITIONS),
+        device=None if dev.type == "cuda" else "cpu",
+        timeout_s=DP_TIMEOUT_S)
+    want = dp_check.endpoint_outputs(
+        Sampler.from_checkpoint(best, device=dev),
+        {k: v.to(dev) for k, v in inputs.items()}, HTTP_CONDITIONS)
+    for r, o in enumerate(outs):
+        expect(set(o) == set(want), f"tp serving: rank {r}'s endpoints")
+        err = max((o[k] - v).abs().max().item() for k, v in want.items())
+        print(f"[tp serve] Sampler(dp={SERVE_DP}) rank {r}: {len(want)} "
+              f"endpoint outputs, max_abs_err {err} against one device "
+              f"(CARD_TOL {CARD_TOL}) | {card}")
+        for k, v in want.items():
+            torch.testing.assert_close(o[k], v, **CARD_TOL)
+    print(f"[tp serve] the two ranks' spawn and endpoints "
+          f"{time.perf_counter() - t0} s")
+    servers = {}
+    try:
+        for dp in (1, SERVE_DP):
+            servers[dp] = start_server(dev, best, dp)
+        expect(any(x.startswith(f"serving over a {SERVE_DP}-device data-"
+                                f"parallel mesh") for x in
+                   servers[SERVE_DP][2]), "tp serve: no mesh line")
+        row = encode_array(inputs["image"][:1].numpy(), binary=True)
+        body = json.dumps({"inputs": {"image": row}, "binary": True})
+        answers = {dp: http(port, "POST", "/embed", json.loads(body))
+                   for dp, (_, port, _) in servers.items()}
+        for k in ("mu", "logvar"):
+            a, b = (decode_array(answers[dp][1][k]) for dp in
+                    (1, SERVE_DP))
+            expect(answers[1][0] == answers[SERVE_DP][0] == 200
+                   and np.allclose(a, b, rtol=1e-4, atol=1e-5),
+                   f"tp serve: --dp {SERVE_DP}'s {k} is not --dp 1's")
+        body = body.encode()
+        runs = {1: [], SERVE_DP: []}
+        for dp in (1, SERVE_DP, SERVE_DP, 1):
+            lat, wall, error = serve_http_bench.run_clients(
+                servers[dp][1], body, SERVE_CLIENTS, SERVE_REQUESTS)
+            n = SERVE_CLIENTS * SERVE_REQUESTS
+            expect(error is None and len(lat) == n,
+                   f"tp serve: --dp {dp} burst: {error}, {len(lat)}/{n}")
+            runs[dp].append((n / wall, statistics.median(lat)))
+        for dp, got in runs.items():
+            print(f"[tp serve] serve_http --dp {dp}, 2 ms window, "
+                  f"{SERVE_CLIENTS} clients x {SERVE_REQUESTS} one-row "
+                  f"/embed: requests/s {[x[0] for x in got]}, p50 ms "
+                  f"{[x[1] for x in got]} (turns dp1, dp2, dp2, dp1) "
+                  f"| {card}")
+    finally:
+        for proc, _, lines in servers.values():
+            proc.send_signal(signal.SIGINT)
+        for dp, (proc, _, lines) in servers.items():
+            try:
+                proc.wait(60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+            expect(proc.returncode == 0,
+                   f"serve_http --dp {dp} exited {proc.returncode}: "
+                   f"{lines[-20:]}")
+
+
+def phase_tp(dev, card, root):
+    """Phase 6i: the dp4 x tp2 steps of CelebA (bf16 and f32, unfused and
+    fused) and celeba19 on eight ranks against one process, the CelebA
+    CLI on eight processes and a resume, and serving over a group of two;
+    returns the ranks' kernel launches."""
+    launches = ranks_vs_one_process(dev, card, TP_WORLD,
+                                    dp_recipes() + [c19_recipe()], "tp")
+    lap("tp: eight ranks against one process")
+    best = tp_cli(dev, card, root)
+    lap("tp: the CLI on eight processes")
+    tp_serving(dev, card, best)
+    return launches
+
+
 # kernel families of the profile lines, first match wins
 FAMILIES = (
     ("all-reduce (NCCL)", lambda k: "nccl" in k.lower()),
@@ -3025,7 +3295,7 @@ def lap(what):
 
 def run(dev, card, peaks, root):
     """Phases 2-7 with their files under root; returns the kernel rows of
-    phase 2 and the launches of phases 3-5 and 6b-6h."""
+    phase 2 and the launches of phases 3-5 and 6b-6i."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
@@ -3058,7 +3328,7 @@ def run(dev, card, peaks, root):
             + BN_KERNELS, "celeba19": tuple(KERNELS),
             "vision": tuple(KERNELS),
             "convergence": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
-            + BN_KERNELS, "dp": tuple(KERNELS)}
+            + BN_KERNELS, "dp": tuple(KERNELS), "tp": tuple(KERNELS)}
     launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
@@ -3074,7 +3344,8 @@ def run(dev, card, peaks, root):
             ("vision", lambda: phase_vision(
                 dev, card, root, out["families"]["celeba"])),
             ("convergence", lambda: phase_convergence(dev, card, root)),
-            ("dp", lambda: phase_dp(dev, card, root, data))):
+            ("dp", lambda: phase_dp(dev, card, root, data)),
+            ("tp", lambda: phase_tp(dev, card, root))):
         ops.reset_launch_counts()
         out[phase] = fn()
         torch.cuda.synchronize()
@@ -3085,8 +3356,9 @@ def run(dev, card, peaks, root):
             expect(counts[k] > 0, f"{phase} ran no {k}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-    for k, v in out["dp"].items():          # the spawned ranks' own
-        launches[k] += v
+    for phase in ("dp", "tp"):              # the spawned ranks' own
+        for k, v in out[phase].items():
+            launches[k] += v
     phase_eval_checks(dev, models, data, idx)
     phase_train_checks(dev, data, idx, trained)
     phase_iwae_checks(dev, out["families"])

@@ -18,11 +18,13 @@ micro-batching (`serve_http`), the weight carry-across
 and each family's train, sample and loglike CLIs
 (`python -m mvae_tpu_torch.experiments.<family>.<cli>`), whose training
 keeps the dataset on the card or streams it from the host
-(`--no-device-data`), on one device or data-parallel across processes
-(`parallel/`: the train CLIs' --coordinator / --process-id /
---n-processes or --distributed under torchrun; BN statistics shared
-across the ranks between the BN kernels' passes). Not ported yet: tensor
-and expert parallelism, and serving over a data-parallel group.
+(`--no-device-data`), on one device or across processes on the JAX
+mesh's (data, model) grid (`parallel/`: the train CLIs' --coordinator /
+--process-id / --n-processes or --distributed under torchrun; BN
+statistics shared across the dp ranks between the BN kernels' passes,
+tensor and expert parallelism where the ranks do not divide the batch),
+and serving over a data-parallel group (`Sampler(dp=)`, `serve_http
+--dp`).
 """
 
 __version__ = "0.1.0"

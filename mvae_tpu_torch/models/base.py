@@ -24,6 +24,16 @@ Subclasses define:
     recon_loss(name, logits, target) -> (N,) per-sample loss summed over
         the event dims; target may hold fewer rows (N % Nt == 0, shared)
     input_spec() -> name -> (event_shape, dtype)
+
+and, for tensor and expert parallelism (parallel/mesh.py:tp_plan), where
+the JAX package's parameter tree has them:
+    tp_chains() -> the MLP lists that tp_spec_tree pairs column / row
+        (mvae_tpu/parallel/mesh.py:126-151): its lists of linears and the
+        DCGAN heads' {"fc", "out"} pairs, in the JAX tree's order; each a
+        list of layers, each layer the names of the Linear modules that
+        make one JAX linear (MNIST's 2L head is two, fc31 and fc32)
+    tp_experts: names of the ModuleDicts of stacked experts, whose
+        leading (expert) axis shards
 """
 
 import torch
@@ -32,10 +42,25 @@ from torch import nn
 from mvae_tpu_torch.ops.poe import masked_poe_all_terms
 
 
+def head_chain(prefix: str) -> list:
+    """A DCGAN posterior head's {"fc", "out"} pair as a tp chain."""
+    return [(f"{prefix}.classifier.0",), (f"{prefix}.classifier.3",)]
+
+
 class MultimodalVAE(nn.Module):
     modalities: tuple = ()
     n_latents: int = 0
     dropout_rate: float = 0.0
+    tp_experts: tuple = ()
+
+    def tp_chains(self) -> list:
+        return []
+
+    def dropout_tp(self):
+        """The TPRole of the layer whose output the encoder's dropout
+        masks (the image head's fc), or None."""
+        return self.image_encoder.classifier[0].tp if self.dropout_rate \
+            else None
 
     @property
     def device(self) -> torch.device:

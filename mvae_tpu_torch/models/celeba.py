@@ -34,7 +34,7 @@ from torch import nn
 
 from mvae_tpu_torch.core.losses import bce_row_sum
 from mvae_tpu_torch.device import resolve_device
-from mvae_tpu_torch.models.base import MultimodalVAE
+from mvae_tpu_torch.models.base import MultimodalVAE, head_chain
 from mvae_tpu_torch.nn.dcgan import ConvStack, DeconvStack, PosteriorHead
 from mvae_tpu_torch.nn.initializers import init_parameters_
 from mvae_tpu_torch.nn.layers import Linear, Swish
@@ -138,8 +138,11 @@ class CelebaMVAE(MultimodalVAE):
     def dropout_rate(self) -> float:
         return self.image_encoder.classifier[2].p
 
+    def tp_chains(self):
+        return [head_chain("image_encoder")]
+
     def keep_mask_shape(self, batch: int):
-        return (batch, self.image_encoder.classifier[0].weight.shape[0])
+        return (batch, self.image_encoder.classifier.hidden)
 
     def encode(self, inputs, keep_mask=None):
         L = self.n_latents

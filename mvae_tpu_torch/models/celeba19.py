@@ -14,6 +14,14 @@ package, they run stacked along a leading expert axis (the 18 modules'
 weights stacked at use), one batched matmul a layer: the encoder's
 Embedding(2, .) lookup as the lerp e0 + a (e1 - e0) of its two rows, then
 swish, fc and head; the decoder L -> 512 x 3 -> 1 over the expert axis.
+The experts sit in ModuleDicts keyed "0" .. "17", the reference's keys.
+
+Expert parallelism (parallel/mesh.py:shard_params_tp, where 18 divides
+by the tp size): a rank keeps its 18 / tp consecutive experts of each
+ModuleDict under their own keys, runs them, and all-gathers their outputs
+along the expert axis, (18, B, 2L) posteriors before the PoE kernel and
+(N, 18) logits before the BCE; the decoder takes z through copy_to_tp,
+since each rank's experts give a part of its gradient.
 
 Mixed precision as in the JAX package (models/celeba19.py:154-177): with a
 compute dtype (bfloat16) the conv stacks and image head run in it as in
@@ -41,12 +49,13 @@ from torch import nn
 from mvae_tpu_torch.core.losses import (
     bce_row_sum, binary_cross_entropy_with_logits)
 from mvae_tpu_torch.device import resolve_device
-from mvae_tpu_torch.models.base import MultimodalVAE
+from mvae_tpu_torch.models.base import MultimodalVAE, head_chain
 from mvae_tpu_torch.models.celeba import ImageDecoder, ImageEncoder
 from mvae_tpu_torch.nn.initializers import init_parameters_
 from mvae_tpu_torch.nn.layers import Embedding, Linear, Swish, swish
 from mvae_tpu_torch.nn.norm import pop_moments, set_bn_groups
 from mvae_tpu_torch.ops.poe import masked_poe_all_terms
+from mvae_tpu_torch.parallel.tensor_parallel import copy_to_tp, gather_from_tp
 
 N_ATTRS = 18
 
@@ -71,9 +80,10 @@ class AttrDecoder(nn.Module):
 
 
 def stacked(experts, index):
-    """The experts' layer `index` as (n, d_out, d_in) weights and (n, 1,
-    d_out) biases (an Embedding: (n, 2, d) rows and None)."""
-    layers = [e.net[index] for e in experts]
+    """The experts' (a ModuleDict's) layer `index` as (n, d_out, d_in)
+    weights and (n, 1, d_out) biases (an Embedding: (n, 2, d) rows and
+    None)."""
+    layers = [e.net[index] for e in experts.values()]
     w = torch.stack([m.weight for m in layers])
     if getattr(layers[0], "bias", None) is None:
         return w, None
@@ -106,10 +116,11 @@ class Celeba19MVAE(MultimodalVAE):
         self.image_encoder = ImageEncoder(L, compute_dtype, conv_moments,
                                           device)
         self.image_decoder = ImageDecoder(L, compute_dtype, device)
-        self.attr_encoders = nn.ModuleList(
-            [AttrEncoder(L, device) for _ in range(N_ATTRS)])
-        self.attr_decoders = nn.ModuleList(
-            [AttrDecoder(L, device) for _ in range(N_ATTRS)])
+        self.attr_encoders = nn.ModuleDict(
+            {str(i): AttrEncoder(L, device) for i in range(N_ATTRS)})
+        self.attr_decoders = nn.ModuleDict(
+            {str(i): AttrDecoder(L, device) for i in range(N_ATTRS)})
+        self.expert_tp = None       # the tp group where the experts shard
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_parameters_(self, generator)
@@ -123,20 +134,33 @@ class Celeba19MVAE(MultimodalVAE):
     def dropout_rate(self) -> float:
         return self.image_encoder.classifier[2].p
 
+    tp_experts = ("attr_encoders", "attr_decoders")
+
+    def tp_chains(self):
+        return [head_chain("image_encoder")]
+
+    def _gather_experts(self, x, dim):
+        """The rank's experts' outputs joined with the other ranks' along
+        the expert axis `dim`; x itself without expert parallelism."""
+        if self.expert_tp is None:
+            return x
+        return gather_from_tp(x, dim, self.expert_tp)
+
     def keep_mask_shape(self, batch: int):
-        return (batch, self.image_encoder.classifier[0].weight.shape[0])
+        return (batch, self.image_encoder.classifier.hidden)
 
     def encode_attrs(self, attrs):
         """(B, 18) 0/1 -> (18, B, 2L) f32, the experts stacked."""
         emb, _ = stacked(self.attr_encoders, 0)                # (18, 2, 512)
         e0, e1 = emb[:, :1], emb[:, 1:]
-        h = swish(e0 + attrs.float().t()[..., None] * (e1 - e0))
+        a = attrs.float()[:, [int(k) for k in self.attr_encoders]]
+        h = swish(e0 + a.t()[..., None] * (e1 - e0))
         for i in (2, 4):
             w, b = stacked(self.attr_encoders, i)
             h = torch.bmm(h, w.transpose(1, 2)) + b
             if i == 2:
                 h = swish(h)
-        return h
+        return self._gather_experts(h, 0)
 
     def encode(self, inputs, keep_mask=None):
         L = self.n_latents
@@ -150,7 +174,8 @@ class Celeba19MVAE(MultimodalVAE):
     def decode_attrs(self, z):
         """(N, L) -> (N, 18) f32 logits over the stacked experts."""
         cd = self.compute_dtype
-        x = z[None]
+        x = z[None] if self.expert_tp is None else copy_to_tp(
+            z, self.expert_tp)[None]
         for i in (0, 2, 4, 6):
             w, b = stacked(self.attr_decoders, i)
             w = w.transpose(1, 2)
@@ -163,7 +188,7 @@ class Celeba19MVAE(MultimodalVAE):
             x = y + b
             if i != 6:
                 x = swish(x)
-        return x[..., 0].t().contiguous()
+        return self._gather_experts(x[..., 0].t(), 1).contiguous()
 
     def decode(self, z, groups: int = 1, decode_terms=None):
         """decode_terms: {"image": (T',) long tensor} decodes the image of

@@ -108,6 +108,13 @@ class FashionMnistMVAE(MultimodalVAE):
         return {"image": ((28, 28, 1), torch.float32),
                 "text": ((), torch.int32)}
 
+    def tp_chains(self):
+        """JAX's image_dec["up"] pair and text_dec list; the encoders' fc
+        and head are lone linears (mvae_tpu/models/fashionmnist.py)."""
+        return [[("image_decoder.upsampler.0",),
+                 ("image_decoder.upsampler.2",)],
+                [(f"text_decoder.net.{i}",) for i in (0, 2, 4, 6)]]
+
     def encode(self, inputs, keep_mask=None):
         L = self.n_latents
         x = inputs["image"].reshape(-1, 28, 28, 1).permute(0, 3, 1, 2)

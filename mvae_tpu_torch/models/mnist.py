@@ -38,10 +38,12 @@ N_CLASSES = 10
 
 def joint_head(h, fc_mu, fc_logvar):
     """The reference's two L-wide heads as one matmul: (N, 2L) f32,
-    [mu | logvar]."""
+    [mu | logvar]. Under tensor parallelism the two hold the rank's slice
+    of the 2L features of [mu | logvar] (parallel/mesh.py: a joint
+    layer), which the column layer gathers."""
     w = torch.cat([fc_mu.weight, fc_logvar.weight])
     b = torch.cat([fc_mu.bias, fc_logvar.bias])
-    return linear(h, w, b)
+    return linear(h, w, b, fc_mu.tp)
 
 
 class ImageEncoder(nn.Module):
@@ -109,6 +111,14 @@ class MnistMVAE(MultimodalVAE):
 
     def input_spec(self):
         return {"image": ((784,), torch.float32), "text": ((), torch.int32)}
+
+    def tp_chains(self):
+        """JAX's image_enc, image_dec and text_dec lists; its text_enc is
+        lone linears (mvae_tpu/models/mnist.py)."""
+        enc = [(f"image_encoder.fc{i}",) for i in (1, 2)] + [
+            ("image_encoder.fc31", "image_encoder.fc32")]
+        return [enc] + [[(f"{d}.fc{i}",) for i in range(1, 5)]
+                        for d in ("image_decoder", "text_decoder")]
 
     def _rounded(self, x):
         """x rounded to the compute dtype, in f32 (see the docstring)."""

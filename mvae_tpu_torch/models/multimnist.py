@@ -39,7 +39,7 @@ from torch import nn
 from mvae_tpu_torch.core.losses import bce_row_sum, cross_entropy_with_logits
 from mvae_tpu_torch.data.text import MAX_LENGTH, N_CHARACTERS, SOS
 from mvae_tpu_torch.device import resolve_device
-from mvae_tpu_torch.models.base import MultimodalVAE
+from mvae_tpu_torch.models.base import MultimodalVAE, head_chain
 from mvae_tpu_torch.models.celeba import ImageDecoder, ImageEncoder
 from mvae_tpu_torch.nn.initializers import init_parameters_
 from mvae_tpu_torch.nn.layers import Embedding, Linear, dropout, swish
@@ -134,8 +134,11 @@ class MultiMnistMVAE(MultimodalVAE):
     def dropout_rate(self) -> float:
         return self.image_encoder.classifier[2].p
 
+    def tp_chains(self):
+        return [head_chain("image_encoder")]
+
     def keep_mask_shape(self, batch: int):
-        return (batch, self.image_encoder.classifier[0].weight.shape[0])
+        return (batch, self.image_encoder.classifier.hidden)
 
     decode_dropout_rate = TEXT_DROPOUT
 

@@ -40,7 +40,7 @@ import torch
 
 from mvae_tpu_torch.core.losses import bce_row_sum
 from mvae_tpu_torch.device import resolve_device
-from mvae_tpu_torch.models.base import MultimodalVAE
+from mvae_tpu_torch.models.base import MultimodalVAE, head_chain
 from mvae_tpu_torch.models.celeba import ImageDecoder, ImageEncoder
 from mvae_tpu_torch.nn.dcgan import stacked, stacked_head
 from mvae_tpu_torch.nn.initializers import init_parameters_
@@ -100,9 +100,12 @@ class VisionMVAE(MultimodalVAE):
     def dropout_rate(self) -> float:
         return self.image_encoder.classifier[2].p
 
+    def tp_chains(self):
+        return [head_chain(f"{m}_encoder") for m in MODALITIES]
+
     def keep_mask_shape(self, batch: int):
         return (N_MODALITIES, batch,
-                self.image_encoder.classifier[0].weight.shape[0])
+                self.image_encoder.classifier.hidden)
 
     def encode(self, inputs, keep_mask=None):
         if self.stack_modalities:

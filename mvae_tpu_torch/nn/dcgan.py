@@ -34,6 +34,13 @@ posterior heads as batched matmuls. The parameters stay the modules' own,
 so the state_dict does not change and gradients reach each module. The
 values are those of the k stacks, to the order of the convolutions' sums.
 
+Tensor parallelism (parallel/mesh.py): a posterior head's fc is a column
+layer and its out a row layer (nn/layers.py:linear), so the hidden
+features stay on their rank and the 2L posterior is whole after one
+all-reduce; the dropout between them takes the rank's columns of the
+global (N, hidden) keep-mask (train/loop.py:local_noise). The stacked
+head stacks each rank's slices.
+
 spec row: (c_out, kernel, stride, pad, use_bn)
 """
 
@@ -42,7 +49,7 @@ from torch import nn
 
 from mvae_tpu_torch.nn.conv import (
     Conv2d, ConvTranspose2d, conv2d, conv_transpose2d)
-from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish, swish
+from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish, linear, swish
 from mvae_tpu_torch.nn.norm import (
     BatchNorm, BNSwishSequential, bn_swish_from_moments, bn_swish_walk,
     stacked_bn)
@@ -128,9 +135,11 @@ class PosteriorHead(nn.Sequential):
                          Dropout(dropout),
                          Linear(hidden, 2 * n_latents, device=device))
         self.compute_dtype = compute_dtype
+        self.hidden = hidden        # the keep-mask's width, on every rank
 
     def forward(self, x, keep_mask=None):
-        """keep_mask: (N, hidden) bool, the dropout's, in train mode."""
+        """keep_mask: (N, hidden) bool, the dropout's, in train mode (the
+        rank's columns of it under tensor parallelism)."""
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         fc, act, drop, out = self
@@ -161,15 +170,17 @@ def stacked(seqs, x):
 def stacked_head(heads, h, keep_mask=None):
     """k PosteriorHeads as one: h (k, N, d_in), keep_mask (k, N, hidden)
     in train mode -> (k, N, 2L) f32. Each matmul is a torch.bmm over the
-    k weights, the bias added after it in h's dtype, as linear does."""
+    k weights, the bias added after it in h's dtype, as linear does, and
+    under tensor parallelism over the rank's k slices."""
     if heads[0].compute_dtype is not None:
         h = h.to(heads[0].compute_dtype)
     fcs, outs = zip(*((hd[0], hd[3]) for hd in heads))
     drop = heads[0][2]
 
     def fc(layers, x):
-        w = torch.stack([m.weight for m in layers]).to(x.dtype)
-        b = torch.stack([m.bias for m in layers]).to(x.dtype)
-        return torch.bmm(x, w.transpose(1, 2)) + b[:, None]
+        w = torch.stack([m.weight for m in layers])
+        b = torch.stack([m.bias for m in layers])[:, None]
+        return linear(x, w, b, layers[0].tp,
+                      lambda x, w: torch.bmm(x, w.transpose(1, 2)))
 
     return fc(outs, drop(swish(fc(fcs, h)), keep_mask)).to(torch.float32)

@@ -4,7 +4,18 @@
 Weights are stored f32 and cast to the input's dtype at use, so a bf16
 activation runs a bf16 matmul while the parameters stay f32 (the JAX
 package's mixed-precision rule, mvae_tpu/nn/dcgan.py:_cast).
+
+Tensor parallelism (parallel/mesh.py:shard_params_tp sets a Linear's `tp`
+to a TPRole): a column layer holds its rank's output features, takes its
+input through copy_to_tp and adds its bias slice; a row layer holds its
+rank's input features, reduces its partial product in f32 across the tp
+group and adds its replicated bias in the input's dtype, so a bf16 layer
+rounds once, as on one device; a column layer that ends its MLP list
+(`gather`) all-gathers its features. The swish between a pair is
+elementwise and runs on the rank's columns.
 """
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -12,14 +23,37 @@ from torch.nn import functional as F
 
 from mvae_tpu_torch.nn.initializers import (
     kaiming_uniform_bound, normal_, uniform_)
+from mvae_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp, gather_from_tp, reduce_from_tp)
 
 
-def linear(x, weight, bias=None):
+class TPRole(NamedTuple):
+    """A linear layer's part in tensor parallelism: kind "col" (output
+    features sharded) or "row" (input features sharded) over the tp
+    group; gather: a column layer whose features are all-gathered after
+    it (the last layer of its MLP list)."""
+    kind: str
+    group: object
+    gather: bool = False
+
+
+def linear(x, weight, bias=None, tp=None, product=F.linear):
     """x @ weight.T + bias in x's dtype; weight is torch's (out, in). The
     product rounds to x's dtype before the bias is added, as `x @ w + b`
-    does in the JAX package (F.linear's fused bias would round once)."""
-    y = F.linear(x, weight.to(x.dtype))
-    return y if bias is None else y + bias.to(x.dtype)
+    does in the JAX package (F.linear's fused bias would round once).
+    tp: the layer's TPRole, or None (see the module docstring).
+    product(x, w): x @ w.T (torch.bmm's for stacked layers)."""
+    if tp is not None and tp.kind == "row":
+        part = product(x.float(), weight.to(x.dtype).float())
+        y = reduce_from_tp(part, tp.group).to(x.dtype)
+    else:
+        if tp is not None:
+            x = copy_to_tp(x, tp.group)
+        y = product(x, weight.to(x.dtype))
+    y = y if bias is None else y + bias.to(x.dtype)
+    if tp is not None and tp.gather:
+        y = gather_from_tp(y, -1, tp.group)
+    return y
 
 
 class _Swish(torch.autograd.Function):
@@ -53,6 +87,8 @@ def swish(x):
 
 
 class Linear(nn.Module):
+    tp = None           # a TPRole under tensor parallelism
+
     def __init__(self, d_in: int, d_out: int, *, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty((d_out, d_in), device=device))
@@ -64,7 +100,7 @@ class Linear(nn.Module):
         uniform_(self.bias, bound, generator)
 
     def forward(self, x):
-        return linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias, self.tp)
 
 
 class Embedding(nn.Module):

@@ -13,7 +13,8 @@ deprecated.)
 
 `all_reduce_sum.calls` counts the collectives of all three (forward and
 backward), as a kernel's wrapper counts its launches
-(ops/_cuda.py:launched).
+(ops/_cuda.py:launched). `gather_rows` joins the ranks' rows (serving
+over a data-parallel group, serve.py).
 """
 
 import threading
@@ -56,3 +57,12 @@ def all_reduce_sum_grad(group, *tensors):
     """all_reduce_sum, differentiable: the gradient of a rank's sums is the
     sum across the ranks of the gradients they receive."""
     return _AllReduceSum.apply(group, *tensors)
+
+
+def gather_rows(group, t):
+    """The group's tensors of t's shape joined along the rows, in rank
+    order: one all-gather."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts)

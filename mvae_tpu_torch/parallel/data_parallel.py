@@ -15,19 +15,8 @@ into its key). No CLI uses it, as in the JAX package.
 
 import torch
 
-from mvae_tpu_torch.nn.norm import BatchNorm
 from mvae_tpu_torch.parallel.collectives import sum_in_place
 from mvae_tpu_torch.train import loop as L
-
-
-def average_running_stats(model, dp):
-    """The BNs' running means and variances averaged across the ranks, in
-    one all-reduce over a flat buffer."""
-    bufs = [b for m in model.modules() if isinstance(m, BatchNorm)
-            for b in (m.running_mean, m.running_var)]
-    flat = sum_in_place(dp.group, torch.cat(bufs)).div_(dp.world)
-    for b, v in zip(bufs, flat.split([b.numel() for b in bufs])):
-        b.copy_(v)
 
 
 def make_replica_train_step(model, term_masks, term_lambdas, *, lr: float,
@@ -42,7 +31,7 @@ def make_replica_train_step(model, term_masks, term_lambdas, *, lr: float,
     def replica_step(batch, beta, noise=None, **terms):
         loss, per_term = step(batch, beta, noise, **terms)
         with torch.no_grad():
-            average_running_stats(model, dp)
+            L.average_running_stats(model, dp.group, dp.world)
         out = sum_in_place(dp.group, torch.cat([loss[None], per_term]))
         out = out.div_(dp.world)
         return out[0], out[1:]

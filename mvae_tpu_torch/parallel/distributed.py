@@ -20,8 +20,12 @@ mvae_tpu/parallel/distributed.py).
   process-major mesh does (global_batch_tree, data/pipeline.py:
   shard_batch).
 
-Multi-process runs are data-parallel only, as in the JAX package: every
-rank holds the whole model (parallel/mesh.py).
+The ranks form the (data, model) grid of parallel/mesh.py: where N does
+not divide the batch, the leftover factor is tensor and expert
+parallelism, on one node only (LOCAL_WORLD_SIZE, or all N ranks where
+--coordinator starts them without it), as the JAX package allows it
+within one process's devices only; `process_rows` and `local_rows` then
+take the dp index and size.
 """
 
 import datetime
@@ -92,11 +96,12 @@ def maybe_initialize(args=None, *, timeout=TIMEOUT):
     if not 0 <= rank < world:
         raise SystemExit(f"distributed: process id {rank} is not in "
                          f"[0, {world})")
-    if getattr(args, "batch_size", None) is not None:
-        check_batch(args.batch_size, world)     # before the rendezvous
     local_rank = _env_int("LOCAL_RANK")
     local_rank = rank if local_rank is None else local_rank
     local_world = _env_int("LOCAL_WORLD_SIZE") or world
+    if getattr(args, "batch_size", None) is not None:
+        # before the rendezvous
+        check_batch(args.batch_size, world, local_world)
     device = rank_device(getattr(args, "device", None), local_rank)
     backend, why = choose_backend(device, local_world)
     if device.type == "cuda":

@@ -17,12 +17,22 @@ a server will see, conditioned on the modality sets of `conditions=`.
 
 The HTTP front (serve_http.py) serves these endpoints over the network,
 coalescing concurrent /embed and /reconstruct requests into one call.
+
+Serving over a data-parallel group (`Sampler(model, dp=...)`, a
+parallel.mesh.DataParallel: the counterpart of the JAX Sampler's mesh=,
+mvae_tpu/serve.py:60-80, 135-141): the parameters stay replicated, every
+rank calls each endpoint with the same request, the bucket rounds up to a
+multiple of the group's size, each rank computes its rows of the padded
+batch (the prior's noise is drawn at the global shape from the seed and
+each rank keeps its rows; a condition's posterior is every rank's), and
+the results are all-gathered, so every rank returns one device's values.
 """
 
 import torch
 
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.models import model_ctor
+from mvae_tpu_torch.parallel.collectives import gather_rows
 from mvae_tpu_torch.utils.weights import (
     checkpoint_family, load_reference_checkpoint)
 
@@ -48,25 +58,51 @@ def _pad_rows(x, m):
 
 
 class Sampler:
-    def __init__(self, model, *, device=None):
+    def __init__(self, model, *, device=None, dp=None):
         """model: an eval-mode model on `device` (None: the CUDA card,
-        raises without one; "cpu": the CPU)."""
+        raises without one; "cpu": the CPU). dp: a DataParallel group to
+        serve over (see the module docstring), or None."""
         device = resolve_device(device)
         if model.device != device:
             raise ValueError(f"the model lives on {model.device}, the "
                              f"sampler was asked to serve on {device}")
         self.model = model.eval()
         self.device = device
+        self.dp = dp if dp is not None and dp.world > 1 else None
+
+    def _bucket_m(self, n: int) -> int:
+        """The batch bucket: the next power of two, rounded up to a
+        multiple of the group's size (equal rows a rank)."""
+        m = _bucket(n)
+        if self.dp is not None:
+            m = -(-m // self.dp.world) * self.dp.world
+        return m
+
+    def _mine(self, x):
+        """This rank's rows of a padded batch."""
+        if self.dp is None:
+            return x
+        b = x.shape[0] // self.dp.world
+        return x[self.dp.rank * b:(self.dp.rank + 1) * b]
+
+    def _joined(self, tree):
+        """The group's rows of each tensor of a dict or tuple, in rank
+        order."""
+        if self.dp is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: gather_rows(self.dp.group, v) for k, v in tree.items()}
+        return tuple(gather_rows(self.dp.group, v) for v in tree)
 
     @classmethod
     def from_checkpoint(cls, path, *, device=None, compute_dtype=None,
-                        family=None):
+                        family=None, dp=None):
         """Serve a reference-layout `.pth.tar` of a ported family: the
         port's own checkpoints, which name it, and those of the JAX
         package's utils/torch_export.py:export_checkpoint or the
         reference, whose keys tell it (utils/weights.py:
         checkpoint_family). family: the family the caller expects; a
-        checkpoint of another raises ValueError."""
+        checkpoint of another raises ValueError. dp: as __init__'s."""
         device = resolve_device(device)
         sd, meta = load_reference_checkpoint(path, device=device)
         found = checkpoint_family(sd, meta)
@@ -75,7 +111,7 @@ class Sampler:
         model = model_ctor(found)(
             meta["n_latents"], compute_dtype, device=device)
         model.load_state_dict(sd, strict=True)
-        return cls(model, device=device)
+        return cls(model, device=device, dp=dp)
 
     def _tensor(self, x):
         return torch.as_tensor(x, device=self.device)
@@ -104,7 +140,7 @@ class Sampler:
             return torch.zeros((n,) + tuple(shape), dtype=dtype,
                                device=self.device)
 
-        for m in sorted({_bucket(n) for n in buckets}):
+        for m in sorted({self._bucket_m(n) for n in buckets}):
             self.sample(n=m)
             for names in conditions:
                 self.sample(n=m, condition={k: zeros(k, 1) for k in names})
@@ -119,24 +155,25 @@ class Sampler:
         at the bucket size from a generator seeded with `seed`.
         infer_options: the model's own (celeba19's attrs_mask, the
         attribute experts that join the condition)."""
-        m = _bucket(n)
+        m = self._bucket_m(n)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        z = torch.randn((m, self.model.n_latents), generator=gen,
-                        device=self.device)
+        z = self._mine(torch.randn((m, self.model.n_latents), generator=gen,
+                                   device=self.device))
         if condition:
             cond = {k: self._tensor(v) for k, v in condition.items()}
             mu, logvar = self.model.infer(cond, **infer_options)
             z = mu[0] + z * torch.exp(0.5 * logvar[0])
-        return {k: v[:n] for k, v in self.decode_latents(z).items()}
+        out = self._joined(self.decode_latents(z))
+        return {k: v[:n] for k, v in out.items()}
 
     @torch.inference_mode()
     def embed(self, inputs: dict):
         """Fused posterior (mu, logvar) of the given modalities."""
         vals = {k: self._tensor(v) for k, v in inputs.items()}
         n = next(iter(vals.values())).shape[0]
-        m = _bucket(n)
-        mu, logvar = self.model.infer(
-            {k: _pad_rows(v, m) for k, v in vals.items()})
+        m = self._bucket_m(n)
+        mu, logvar = self._joined(self.model.infer(
+            {k: self._mine(_pad_rows(v, m)) for k, v in vals.items()}))
         return mu[:n], logvar[:n]
 
     @torch.inference_mode()
@@ -145,6 +182,8 @@ class Sampler:
         mean."""
         vals = {k: self._tensor(v) for k, v in inputs.items()}
         n = next(iter(vals.values())).shape[0]
-        m = _bucket(n)
-        mu, _ = self.model.infer({k: _pad_rows(v, m) for k, v in vals.items()})
-        return {k: v[:n] for k, v in self.decode_latents(mu).items()}
+        m = self._bucket_m(n)
+        mu, _ = self.model.infer(
+            {k: self._mine(_pad_rows(v, m)) for k, v in vals.items()})
+        out = self._joined(self.decode_latents(mu))
+        return {k: v[:n] for k, v in out.items()}

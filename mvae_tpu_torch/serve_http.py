@@ -27,14 +27,29 @@ pool of 4 threads, so that their device calls overlap; each leaves the
 card by one host copy. /sample is served directly.
 
 Runs on the CUDA card unless --device says otherwise (raises without
-one). --dp (serving over a data-parallel group of devices) is refused:
-the port trains data-parallel (mvae_tpu_torch/parallel/) but does not
-serve so yet.
+one).
+
+--dp N serves over a data-parallel group of N ranks on this node (the
+JAX front's data-parallel mesh, mvae_tpu/serve_http.py:370-379): main
+spawns N - 1 worker processes, the group meets at a rendezvous file
+(gloo where ranks share a card or run on the CPU, NCCL where each has a
+card, parallel/distributed.py:choose_backend), and every rank holds a
+Sampler(dp=) of the checkpoint. This process, rank 0, runs the front:
+each Sampler call, the batcher's and /sample's one at a time
+(GroupFront), first broadcasts a header (the endpoint, the modality
+names, the shapes and dtypes, n, the seed and the options) and then the
+request's tensors; the workers (follow) make the same call, and the
+Sampler's all-gather gives every rank the answer. A "stop" header ends
+the workers when the server closes.
 """
 
 import argparse
 import base64
+import datetime
 import json
+import multiprocessing
+import os
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -42,10 +57,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.models import FAMILIES
+from mvae_tpu_torch.parallel.distributed import choose_backend, rank_device
+from mvae_tpu_torch.parallel.mesh import DataParallel
 from mvae_tpu_torch.serve import Sampler
+
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 # ---------------------------------------------------------------------------
 # wire format
@@ -330,6 +350,157 @@ class ServeApp:
 
 
 # ---------------------------------------------------------------------------
+# serving over a data-parallel group (--dp)
+# ---------------------------------------------------------------------------
+
+
+def _bcast_header(header, device):
+    """Rank 0 sends a JSON header (None elsewhere); every rank returns
+    it: two broadcasts, its length and its bytes."""
+    raw = (b"" if header is None else json.dumps(header).encode())
+    size = torch.tensor([len(raw)], dtype=torch.int64, device=device)
+    dist.broadcast(size, src=0)
+    buf = torch.zeros(int(size.item()), dtype=torch.uint8, device=device)
+    if header is not None:
+        buf.copy_(torch.frombuffer(bytearray(raw), dtype=torch.uint8))
+    dist.broadcast(buf, src=0)
+    return json.loads(bytes(buf.cpu().numpy()).decode())
+
+
+def _bcast_tensors(header, tensors, device):
+    """The header's tensors from rank 0 (tensors elsewhere: None), one
+    broadcast each, in the header's order."""
+    out = []
+    for i, (shape, dtype) in enumerate(zip(header["shapes"],
+                                           header["dtypes"])):
+        t = (tensors[i].contiguous() if tensors is not None else
+             torch.empty(shape, dtype=getattr(torch, dtype), device=device))
+        dist.broadcast(t, src=0)
+        out.append(t)
+    return out
+
+
+def _call(sampler, header, tensors):
+    """The Sampler call a header names, on the broadcast tensors."""
+    op = header["op"]
+    named = dict(zip(header["names"], tensors))
+    if op == "sample":
+        return sampler.sample(n=header["n"], condition=named or None,
+                              seed=header["seed"], **header["options"])
+    return getattr(sampler, op)(named)
+
+
+class GroupFront:
+    """Rank 0's face of a Sampler(dp=) to the ServeApp: each endpoint
+    call, one at a time, is broadcast to the workers (follow) before it
+    is made here."""
+
+    warmup = Sampler.warmup
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+        self.model = sampler.model
+        self.device = sampler.device
+        self._lock = threading.Lock()
+
+    def _bucket_m(self, n):
+        return self.sampler._bucket_m(n)
+
+    def _run(self, op, named, n=0, seed=0, options=None):
+        tensors = [torch.as_tensor(v, device=self.device)
+                   for v in named.values()]
+        header = dict(op=op, names=list(named), n=n, seed=seed,
+                      options=options or {},
+                      shapes=[list(t.shape) for t in tensors],
+                      dtypes=[str(t.dtype).split(".")[-1] for t in tensors])
+        with self._lock:
+            _bcast_header(header, self.device)
+            return _call(self.sampler, header,
+                         _bcast_tensors(header, tensors, self.device))
+
+    def sample(self, n=1, condition=None, seed=0, **infer_options):
+        options = {k: torch.as_tensor(v).tolist()
+                   for k, v in infer_options.items()}
+        return self._run("sample", condition or {}, n, seed, options)
+
+    def embed(self, inputs):
+        return self._run("embed", inputs)
+
+    def reconstruct(self, inputs):
+        return self._run("reconstruct", inputs)
+
+    def close(self):
+        """End the workers' loops."""
+        with self._lock:
+            _bcast_header({"op": "stop"}, self.device)
+
+
+def follow(sampler):
+    """A worker's loop: make each call rank 0 broadcasts, until "stop"."""
+    while True:
+        header = _bcast_header(None, sampler.device)
+        if header["op"] == "stop":
+            return
+        _call(sampler, header, _bcast_tensors(header, None, sampler.device))
+
+
+def _init_rank(rank, world, store, device):
+    """Join the serving group as `rank`: (its device, its DataParallel,
+    the backend, why that backend)."""
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend, why = choose_backend(dev, world)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=GROUP_TIMEOUT)
+    return dev, DataParallel(dist.group.WORLD, rank, world), backend, why
+
+
+def _worker_main(rank, world, store, ns):
+    dev, dp, _, _ = _init_rank(rank, world, store, ns.device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        follow(Sampler.from_checkpoint(ns.checkpoint, device=dev,
+                                       family=ns.family, dp=dp))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_group(ns, tmp):
+    """Spawn the ns.dp - 1 workers and join the group as rank 0: (the
+    workers, this rank's device, its DataParallel)."""
+    store = os.path.join(tmp, "store")
+    ctx = multiprocessing.get_context("spawn")
+    workers = [ctx.Process(target=_worker_main, args=(r, ns.dp, store, ns),
+                           daemon=True) for r in range(1, ns.dp)]
+    for w in workers:
+        w.start()
+    dev, dp, backend, why = _init_rank(0, ns.dp, store, ns.device)
+    print(f"serving over a {ns.dp}-device data-parallel mesh (backend "
+          f"{backend}: {why})", flush=True)
+    return workers, dev, dp
+
+
+def stop_group(front, workers, timeout_s=60):
+    """Stop the workers (a "stop" header; front None: rank 0 never served,
+    so they are killed), wait for them, leave the group; a worker that
+    outlives timeout_s is killed."""
+    try:
+        if front is not None:
+            front.close()
+            for w in workers:
+                w.join(timeout_s)
+    finally:
+        for w in workers:
+            if w.is_alive():
+                w.kill()
+                w.join(10)
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # HTTP transport
 # ---------------------------------------------------------------------------
 
@@ -397,25 +568,42 @@ def parser():
                     help="torch device [default: the CUDA card; raises "
                          "without one]")
     ap.add_argument("--dp", type=int, default=1,
-                    help="not ported yet (serving over N devices): refused "
-                         "above 1")
+                    help="serve over a data-parallel group of N ranks on "
+                         "this node (batch buckets round up to a multiple "
+                         "of N)")
     return ap
 
 
 def main(argv=None):
     ap = parser()
     ns = ap.parse_args(argv)
-    if ns.dp != 1:
-        ap.error("--dp is not ported yet: the port serves on one device")
-    device = resolve_device(ns.device)
-    sampler = Sampler.from_checkpoint(ns.checkpoint, device=device,
-                                      family=ns.family)
+    if ns.dp < 1:
+        ap.error("--dp takes a group size of at least 1")
+    with tempfile.TemporaryDirectory(prefix="serve_http_") as tmp:
+        workers, dp = [], None
+        if ns.dp > 1:
+            workers, device, dp = start_group(ns, tmp)
+        else:
+            device = resolve_device(ns.device)
+        front = None
+        try:
+            sampler = Sampler.from_checkpoint(
+                ns.checkpoint, device=device, family=ns.family, dp=dp)
+            front = sampler if dp is None else GroupFront(sampler)
+            serve(front, ns)
+        finally:
+            if dp is not None:
+                stop_group(front, workers)
+
+
+def serve(front, ns):
+    """Warm the endpoints up and serve HTTP until interrupted."""
     if not ns.no_warmup:
         t = time.time()
         print("warming up the endpoints ...", flush=True)
-        sampler.warmup(buckets=warmup_buckets(ns.max_batch))
+        front.warmup(buckets=warmup_buckets(ns.max_batch))
         print(f"warmup done in {time.time() - t:.1f}s", flush=True)
-    app = ServeApp(sampler, window_ms=ns.window_ms, max_batch=ns.max_batch)
+    app = ServeApp(front, window_ms=ns.window_ms, max_batch=ns.max_batch)
     srv = make_server(app, ns.host, ns.port)
     print(f"serving {ns.family} on http://{ns.host}:{srv.server_address[1]}",
           flush=True)

@@ -11,20 +11,30 @@ of each batch resident; with dp=None it is the single process on the
 whole batches. `spawn_ranks(world, replay_all, recipes)` spawns `world`
 processes, a gloo or NCCL group as parallel/distributed.py chooses (ranks
 that share a card use gloo), replays every recipe on each and returns
-their outcomes.
+their outcomes. The ranks form the grid of parallel/mesh.py over the
+recipe's global batch: where `world` does not divide B, the leftover
+factor is a model axis (tensor and expert parallelism), each rank's model
+sharded before the window (shard_params_tp), its rows its dp index's.
 An outcome: after each of the recipe's windows (dispatches) the window's
 losses (this rank's), the parameters, their gradients at its last step
-(after the all-reduce) and the BN running statistics; and the kernel
-launches and all-reduces of the whole replay.
+(after the all-reduce) and the BN running statistics, the sharded ones
+gathered to their full shape; and the kernel launches, the dp group's
+all-reduces and the tp group's collectives of the window's steps.
 
 A recipe with sync_bn=False replays the per-replica step
 (parallel/data_parallel.py) instead, one step at a time.
+
+Serving over a group: `spawn_ranks(world, serve_endpoints, payload)` has
+each rank serve a checkpoint through Sampler(dp=) of the default group and
+call every endpoint (`endpoint_outputs`), whose answers the caller holds
+against one device's.
 """
 
 import datetime
 import multiprocessing
 import os
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -32,10 +42,13 @@ import torch.distributed as dist
 from mvae_tpu_torch import ops
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.nn.norm import BatchNorm
+from mvae_tpu_torch.parallel import tensor_parallel
 from mvae_tpu_torch.parallel.collectives import all_reduce_sum
 from mvae_tpu_torch.parallel.data_parallel import make_replica_train_step
 from mvae_tpu_torch.parallel.distributed import choose_backend, rank_device
-from mvae_tpu_torch.parallel.mesh import data_parallel
+from mvae_tpu_torch.parallel.mesh import (
+    DataParallel, data_parallel, gather_full, shard_params_tp)
+from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.train.loop import make_multi_train_step
 
 TIMEOUT_S = 300
@@ -72,24 +85,41 @@ def _copy(t):
     return None if t is None else t.detach().to("cpu", copy=True)
 
 
+def _full(model, tensors):
+    """name -> tensor of the model's parameters, gathered to the full
+    model's names and shapes where it is sharded."""
+    layout = getattr(model, "tp_layout", None)
+    if layout is None:
+        return tensors
+    return gather_full(layout, tensors, layout.params)
+
+
 def _snapshot(model, losses):
+    params = dict(model.named_parameters())
     return dict(
         losses=_copy(losses),
-        params={n: _copy(p) for n, p in model.named_parameters()},
-        grads={n: _copy(p.grad) for n, p in model.named_parameters()},
+        params={n: _copy(p) for n, p in _full(model, params).items()},
+        grads={n: _copy(p) for n, p in _full(
+            model, {n: p.grad for n, p in params.items()}).items()},
         running={n: _copy(v) for n, v in model.state_dict().items()
                  if n.endswith(("running_mean", "running_var"))})
 
 
 def replay(rc, device, dp=None) -> dict:
-    """Run recipe rc on `device` as rank dp.rank of dp (None: alone):
+    """Run recipe rc on `device` as dp index dp.rank of dp (None: alone;
+    with a model axis the model is sharded over dp's tp group):
     {"name", "windows": [a snapshot after each window: the window's
     losses (this rank's), the parameters, their gradients at its last
-    step, the running statistics], "n_bn", "launches", "all_reduces"}."""
+    step, the running statistics, its seconds to the end of its work],
+    "n_bn", "launches", "all_reduces", "tp_collectives": the last three
+    over the windows' steps alone, "collective_ms": collective_ms's
+    reading after them}."""
     cls, args, kw = rc["model"]
     model = cls(*args, device=device, **kw)
     model.load_state_dict({n: v.to(device) for n, v in
                            rc["state_dict"].items()}, strict=True)
+    if dp is not None and dp.tp_world > 1:
+        shard_params_tp(model, dp)
     k = len(rc["betas"])
     world, rank = (1, 0) if dp is None else (dp.world, dp.rank)
     b = len(next(iter(rc["data"].values()))) // k // world
@@ -102,7 +132,8 @@ def replay(rc, device, dp=None) -> dict:
         return None if v is None else v[lo:hi].to(device)
 
     gen = torch.Generator(device=device).manual_seed(rc["seed"])
-    launches0, calls0 = ops.launch_counts(), all_reduce_sum.calls
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    calls = {"all_reduces": 0, "tp_collectives": 0}
     if rc["sync_bn"]:
         step = make_multi_train_step(model, generator=gen, device=device,
                                      dp=dp, **rc["step_kw"])
@@ -126,15 +157,24 @@ def replay(rc, device, dp=None) -> dict:
         terms = ({} if rc["masks"] is None else
                  dict(masks=window(lo, hi, rc["masks"]),
                       lambdas=window(lo, hi, rc["lambdas"])))
+        launches0, calls0 = ops.launch_counts(), (
+            all_reduce_sum.calls, tensor_parallel.calls)
+        t0 = time.perf_counter()
         losses = step(data, idxs[lo:hi], window(lo, hi, rc["betas"]),
                       noise=noise, **terms)
-        out.append(_snapshot(model, losses))
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        for k, v in ops.launch_counts().items():
+            launches[k] += v - launches0[k]
+        calls["all_reduces"] += all_reduce_sum.calls - calls0[0]
+        calls["tp_collectives"] += tensor_parallel.calls - calls0[1]
+        out.append(dict(_snapshot(model, losses), seconds=seconds))
         lo = hi
-    return dict(name=rc["name"], windows=out,
+    cost = {} if dp is None else collective_ms(dp, device, (
+        b, 2 * model.n_latents))
+    return dict(name=rc["name"], windows=out, collective_ms=cost,
                 n_bn=sum(isinstance(m, BatchNorm) for m in model.modules()),
-                launches={k: v - launches0[k]
-                          for k, v in ops.launch_counts().items()},
-                all_reduces=all_reduce_sum.calls - calls0)
+                launches=launches, **calls)
 
 
 def _rank_main(fn, rank, world, store, payload_path, device, out_dir,
@@ -198,13 +238,73 @@ def spawn_ranks(world: int, fn, payload, *, device=None,
                            weights_only=False) for r in range(world)]
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def collective_ms(dp, device, shape, reps=20) -> dict:
+    """Host ms a call, to its end, of an all-reduce of an f32 `shape`
+    tensor (a head's (rows, 2L) posterior) on the tp group where dp has
+    one, and of a BN layer's (2, 1, 64) sums on the dp group: reps calls
+    after one warm-up."""
+    out = {}
+    for name, group, t in (
+            ("tp", dp.tp_group, torch.zeros(shape, device=device)),
+            ("dp", dp.group, torch.zeros((2, 1, 64), device=device))):
+        if group is None:
+            continue
+        dist.all_reduce(t, group=group)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(t, group=group)
+        _sync(device)
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
 def replay_all(recipes, device) -> list:
-    """Every recipe replayed on this rank of the default group: the rank
-    function of spawn_ranks(world, replay_all, recipes), whose result
-    outs[rank][i] is recipe i's outcome on that rank."""
+    """Every recipe replayed on this rank of the default group, the grid
+    over the recipe's global batch: the rank function of
+    spawn_ranks(world, replay_all, recipes), whose result outs[rank][i]
+    is recipe i's outcome on that rank."""
     outs = []
     for rc in recipes:
         rows = len(next(iter(rc["data"].values()))) // len(rc["betas"])
         outs.append(replay(rc, device, data_parallel(rows)))
     return outs
 
+
+
+def endpoint_outputs(sampler, inputs, conditions) -> dict:
+    """Every endpoint of `sampler` on `inputs` (name -> a batch of rows):
+    the prior sample (5 rows, seed 3), and for each modality set of
+    `conditions` the sample conditioned on its first row (3 rows, seed
+    4), embed and reconstruct; name -> output tensor, on the CPU."""
+    out = {f"sample {k}": v for k, v in sampler.sample(n=5, seed=3).items()}
+    for names in conditions:
+        sub = {k: inputs[k] for k in names}
+        tag = "+".join(names)
+        got = sampler.sample(n=3, seed=4, condition={
+            k: v[:1] for k, v in sub.items()})
+        out.update({f"sample|{tag} {k}": v for k, v in got.items()})
+        mu, logvar = sampler.embed(sub)
+        out.update({f"embed|{tag} mu": mu, f"embed|{tag} logvar": logvar})
+        got = sampler.reconstruct(sub)
+        out.update({f"reconstruct|{tag} {k}": v for k, v in got.items()})
+    return {k: v.detach().to("cpu", copy=True) for k, v in out.items()}
+
+
+def serve_endpoints(payload, device) -> dict:
+    """The rank function of serving over a group: payload["path"] served
+    through Sampler(dp=) over the default group (compute dtype
+    payload["dtype"]), endpoint_outputs of payload["inputs"] and
+    payload["conditions"]."""
+    dp = DataParallel(dist.group.WORLD, dist.get_rank(),
+                      dist.get_world_size())
+    sampler = Sampler.from_checkpoint(payload["path"], device=device,
+                                      compute_dtype=payload["dtype"], dp=dp)
+    return endpoint_outputs(sampler, {k: v.to(device) for k, v in
+                                      payload["inputs"].items()},
+                            payload["conditions"])

@@ -31,31 +31,37 @@ on the host from np.random.default_rng(seed + 1), as the JAX package does
 (:221, 269-272); the checkpoint keeps that Generator's state too, so a
 resume continues its sequence (the JAX package restarts it).
 
-Data parallelism across processes (the JAX package's mesh and
-multi-process branches, :53-142, 161-186, 223-259, 344-394): with
---coordinator host:port --process-id i --n-processes N, or --distributed
-under torchrun, `parallel/distributed.py:maybe_initialize` starts the
-process group before anything touches the model, and N ranks train one
-model on global batches of B rows, B / N a rank (the train step's dp,
-train/loop.py: BN statistics shared, gradients averaged; one device's
-values on the whole batch). A batch that N does not divide is refused
-(parallel/mesh.py: the JAX package's tensor-parallel factor is not
-ported). Rank 0's initial weights are broadcast to the others. Resident:
-each rank keeps its 1/N block of the train and test sets after dropping
-len % N rows, the budget applies to a shard, and rank r permutes its
-block's rows with SeedSequence([seed, epoch, r]) (with N = 1, the
-single-device order above). Host streaming: every rank iterates the same
-global batches and keeps its rows (distributed.local_rows). The logged
-loss is averaged across the ranks once a window (resident) or a log line
-(streaming). Eval: each rank evaluates its rows, rank 0 also the len % N
-rows no shard holds (streaming: the ragged last batch), and the test loss
-is the rows-weighted mean over all ranks, one device's. Only rank 0 logs
-and writes the checkpoints; post_epoch runs on every rank and gates its
-own file writes (distributed.is_coordinator). --resume: every rank reads
-the same file.
-
-Not ported yet: tensor and expert parallelism (the JAX mesh's "model"
-axis) and serving over a data-parallel group.
+Parallelism across processes (the JAX package's mesh and multi-process
+branches, :53-142, 161-186, 223-259, 344-394): with --coordinator
+host:port --process-id i --n-processes N, or --distributed under
+torchrun, `parallel/distributed.py:maybe_initialize` starts the process
+group before anything touches the model, and the N ranks form JAX's
+(data, model) grid over global batches of B rows (parallel/mesh.py):
+n_dp = gcd(N, B) dp indices of B / n_dp rows each (the train step's dp,
+train/loop.py: BN statistics shared over the dp group, gradients
+averaged; one device's values on the whole batch), and n_tp =
+N / n_dp ranks a dp index that split the parameters JAX's tp_spec_tree
+shards (tensor and expert parallelism, on one node only). Rank 0's state,
+resumed or initial, is broadcast to every rank before the sharding, and
+with a model axis each rank then keeps its slices (shard_params_tp) and
+the JAX line "mesh over all N devices: ..." is logged. Everything below
+that is keyed by a rank is keyed by its dp index d of n_dp: the ranks of
+one dp index see the same rows. Resident: each dp index keeps its
+1/n_dp block of the train and test sets after dropping len % n_dp rows,
+the budget applies to a shard, and it permutes its block's rows with
+SeedSequence([seed, epoch, d]) (with n_dp = 1, the single-device order
+above). Host streaming: every rank iterates the same global batches and
+keeps its dp index's rows (distributed.local_rows). The logged loss is
+averaged over the dp group once a window (resident) or a log line
+(streaming). Eval: each rank evaluates its dp index's rows, dp index 0
+also the len % n_dp rows no shard holds (streaming: the ragged last
+batch), and the test loss is the rows-weighted mean over the dp group,
+one device's. Only rank 0 logs and writes the checkpoints, in the
+reference layout: with a model axis the parameters and Adam's moments
+are gathered over the tp group first (train/checkpoint.py); post_epoch
+runs on every rank and gates its own file writes
+(distributed.is_coordinator). --resume: every rank reads the same file,
+a one-device checkpoint or a grid's alike, and a model axis slices it.
 
 `load_model_checkpoint` rebuilds a model from a `.pth.tar`: the entry of
 the sample and loglike CLIs.
@@ -75,9 +81,12 @@ from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.parallel.collectives import sum_in_place
 from mvae_tpu_torch.parallel.distributed import (
     local_rows, maybe_initialize, process_rows)
-from mvae_tpu_torch.parallel.mesh import data_parallel
+from mvae_tpu_torch.parallel.mesh import (
+    data_parallel, mesh_line, shard_params_tp)
 from mvae_tpu_torch.train import loop as L
-from mvae_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from mvae_tpu_torch.train.checkpoint import (
+    load_checkpoint, load_optimizer_state, model_state, optimizer_state,
+    save_checkpoint)
 from mvae_tpu_torch.utils.profiling import maybe_trace
 from mvae_tpu_torch.utils.weights import load_reference_checkpoint
 
@@ -219,17 +228,16 @@ def global_mean(sums, dp, device) -> float:
     return sums[0] / sums[1]
 
 
-def broadcast_state(model, dp):
-    """Rank 0's parameters and buffers to every rank, in one broadcast a
-    dtype over a flat buffer."""
+def broadcast_state(model):
+    """Rank 0's parameters and buffers to every rank of the default group,
+    in one broadcast a dtype over a flat buffer."""
     by_dtype = {}
     for t in list(model.parameters()) + list(model.buffers()):
         by_dtype.setdefault(t.dtype, []).append(t)
     with torch.no_grad():
         for ts in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.broadcast(flat, src=dist.get_global_rank(dp.group, 0),
-                           group=dp.group)
+            dist.broadcast(flat, src=0)
             for t, v in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(v.view_as(t))
 
@@ -265,6 +273,8 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
     the model is this rank's replica. Returns the model."""
     rank, world = maybe_initialize(args)
     dp = data_parallel(args.batch_size) if dist.is_initialized() else None
+    # the dp index and size: what keys the rows a rank sees
+    d_rank, n_dp = (0, 1) if dp is None else (dp.rank, dp.world)
     coordinator = rank == 0
     log = print if coordinator else (lambda *a, **k: None)
     device = resolve_device(device)
@@ -274,20 +284,13 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
     dynamic = make_masks is not None
     reckoned = reckoned_bytes(train_ds) + reckoned_bytes(test_ds)
     streaming = getattr(args, "no_device_data", False)
-    device_data = not streaming and reckoned // world < DEVICE_DATA_BUDGET
-    make_step = L.make_multi_train_step if device_data else L.make_train_step
-    step = make_step(
-        model, None if dynamic else term_masks,
-        None if dynamic else term_lambdas, lr=args.lr, generator=generator,
-        device=device, recon_support=recon_support,
-        fast_skip_decode=fast_skip_decode, recon_masks=recon_masks, dp=dp)
-    optimizer = step.optimizer
-    start_epoch, best_loss = 1, float("inf")
+    device_data = not streaming and reckoned // n_dp < DEVICE_DATA_BUDGET
+    start_epoch, best_loss, opt_state = 1, float("inf"), None
     if args.resume:
         ckpt = load_checkpoint(args.resume, device=device)
         model.load_state_dict(ckpt["state_dict"], strict=True)
         if {"optimizer", "epoch", "generator"} <= set(ckpt):
-            optimizer.load_state_dict(ckpt["optimizer"])
+            opt_state = ckpt["optimizer"]
             generator.set_state(ckpt["generator"])
             if "mask_rng" in ckpt:
                 mask_rng.bit_generator.state = ckpt["mask_rng"]
@@ -300,10 +303,26 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
             log(f"warm-started from {args.resume} (params only; "
                 f"fresh optimizer)")
     if dp is not None:
-        broadcast_state(model, dp)
-        log(f"data-parallel over {world} processes (backend "
-            f"{dist.get_backend(dp.group)}): {args.batch_size // world} of "
-            f"each batch's {args.batch_size} rows a rank")
+        broadcast_state(model)
+        backend = dist.get_backend()
+        if dp.tp_world > 1:
+            shard_params_tp(model, dp)
+            log(mesh_line(dp, args.batch_size))
+            log(f"backend {backend}: {args.batch_size // n_dp} of each "
+                f"batch's {args.batch_size} rows a dp index")
+        else:
+            log(f"data-parallel over {world} processes (backend "
+                f"{backend}): {args.batch_size // world} of each batch's "
+                f"{args.batch_size} rows a rank")
+    make_step = L.make_multi_train_step if device_data else L.make_train_step
+    step = make_step(
+        model, None if dynamic else term_masks,
+        None if dynamic else term_lambdas, lr=args.lr, generator=generator,
+        device=device, recon_support=recon_support,
+        fast_skip_decode=fast_skip_decode, recon_masks=recon_masks, dp=dp)
+    optimizer = step.optimizer
+    if opt_state is not None:
+        load_optimizer_state(model, optimizer, opt_state)
 
     eval_step = L.make_eval_step(
         model, term_masks if eval_term_masks is None else eval_term_masks,
@@ -311,17 +330,17 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
         device=device, device_data=device_data,
         recon_masks=eval_recon_masks)
     B, K = args.batch_size, max(1, args.log_interval)
-    b = B // world                              # a rank's rows a step
+    b = B // n_dp                               # a rank's rows a step
     n_batches = num_batches(len(train_ds), B, True)
     if device_data:
-        train_rows = shard_rows(len(train_ds), rank, world)
-        test_rows = shard_rows(len(test_ds), rank, world)
+        train_rows = shard_rows(len(train_ds), d_rank, n_dp)
+        test_rows = shard_rows(len(test_ds), d_rank, n_dp)
         train_dev = to_device_data(train_ds, device, train_rows)
         test_dev = to_device_data(test_ds, device, test_rows)
         n_train = train_rows.stop - train_rows.start
         n_test = test_rows.stop - test_rows.start
         mib = sum(v.numel() * v.element_size() for v in train_dev.values())
-        shard = f", a shard of 1/{world} a rank" if world > 1 else ""
+        shard = f", a shard of 1/{n_dp} a rank" if n_dp > 1 else ""
         log(f"input pipeline: device-resident ({mib / 2 ** 20:.0f} MiB on "
             f"{device}{shard}), {K} steps/dispatch")
     else:
@@ -332,15 +351,15 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
             f"{device} a step, {K} steps a log line")
 
     def global_losses(losses):
-        """A window's (k,) losses on the device, averaged over the ranks,
-        read back once."""
+        """A window's (k,) losses on the device, averaged over the dp
+        group, read back once."""
         if dp is not None:
-            losses = sum_in_place(dp.group, losses).div_(world)
+            losses = sum_in_place(dp.group, losses).div_(n_dp)
         return losses.tolist()
 
     def epoch_device(epoch, meter):
         n_steps = 0
-        for lo, idxs in epoch_windows(seed, epoch, n_train, b, K, rank):
+        for lo, idxs in epoch_windows(seed, epoch, n_train, b, K, d_rank):
             k = len(idxs)
             betas = window_betas(epoch, lo, k, n_batches,
                                  args.annealing_epochs)
@@ -380,7 +399,7 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
                     terms = {k: v[0] for k, v in _step_terms(
                         make_masks, mask_rng, 1, device).items()}
                 if dp is not None:
-                    batch = local_rows(batch, rank, world)
+                    batch = local_rows(batch, d_rank, n_dp)
                 loss, _ = step(to_device_batch(batch, device), beta, **terms)
                 pending.append(loss)
                 rows.append(B)
@@ -403,14 +422,15 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
     def test_loss():
         if device_data:
             sums = eval_sums(eval_step, test_dev, n_test, b)
-            left = len(test_ds) % world     # the rows no shard holds
-            if coordinator and left:
+            left = len(test_ds) % n_dp      # the rows no shard holds
+            if d_rank == 0 and left:
                 tail = to_device_data(test_ds, device, slice(
                     len(test_ds) - left, None))
                 extra = eval_sums(eval_step, tail, left, left)
                 sums = (sums[0] + extra[0], sums[1] + extra[1])
         else:
-            sums = eval_sums_host(eval_step, test_ds, B, device, rank, world)
+            sums = eval_sums_host(eval_step, test_ds, B, device, d_rank,
+                                  n_dp)
         return global_mean(sums, dp, device)
 
     for epoch in range(start_epoch, args.epochs + 1):
@@ -431,11 +451,14 @@ def run_training(model, train_ds, test_ds, args, term_masks, term_lambdas,
             post_epoch(epoch, model)
         is_best = loss < best_loss
         best_loss = min(loss, best_loss)
+        # every rank: under a model axis the gathers are collectives
+        state_dict = model_state(model)
+        opt = optimizer_state(model, optimizer)
         if coordinator:
             extra = ({"mask_rng": mask_rng.bit_generator.state} if dynamic
                      else {})
-            save_checkpoint(dict(meta, state_dict=model.state_dict(),
-                                 optimizer=optimizer.state_dict(),
+            save_checkpoint(dict(meta, state_dict=state_dict,
+                                 optimizer=opt,
                                  epoch=epoch,
                                  generator=generator.get_state(),
                                  best_loss=float(best_loss),

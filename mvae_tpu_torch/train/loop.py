@@ -13,7 +13,22 @@ steps every replica on the same gradient and the replicas stay equal. The
 per-term mean over a rank's rows (core/engine.py) averages to the mean
 over the global batch through that average. This is the JAX package's
 GSPMD step on a "data" mesh axis (parallel/data_parallel.py:44's pmean
-written out). It does not go through DistributedDataParallel: the step
+written out).
+
+Tensor and expert parallelism (a dp with a model axis, the model sharded
+by parallel/mesh.py:shard_params_tp): the ranks of one dp index hold the
+same rows and split the sharded parameters. Everything above is keyed by
+the dp index and runs over the dp group: the BN statistics, the noise's
+rows, a sharded parameter's gradient average (its gradient is whole on
+its rank: the tp collectives of nn/layers.py complete it). A replicated
+parameter's gradient is averaged over the world instead: the tp ranks of
+a dp index hold it alike up to the rounding of kernels that are not
+deterministic (cuDNN's f32 weight gradients on the card), and the
+world's mean, the dp group's mean to that rounding, keeps the replicas
+bit for bit equal; for the same reason the BN running statistics are
+averaged over the world after each step. The encoder dropout's keep-mask is drawn whole,
+(B, hidden), and a rank keeps the columns of its slice of the head's
+hidden features. It does not go through DistributedDataParallel: the step
 drives the model through core/engine.py:multi_term_elbo, not forward(),
 and a step may leave parameters without a gradient (celeba19's sampled
 terms, --fast-term-decode), which DDP handles only with
@@ -21,10 +36,11 @@ find_unused_parameters and an extra pass over the graph.
 """
 
 import torch
+import torch.distributed as dist
 
 from mvae_tpu_torch.core.engine import fast_decode_terms, multi_term_elbo
 from mvae_tpu_torch.device import resolve_device
-from mvae_tpu_torch.nn.norm import set_bn_sync
+from mvae_tpu_torch.nn.norm import BatchNorm, set_bn_sync
 from mvae_tpu_torch.parallel.collectives import sum_in_place
 
 
@@ -134,14 +150,20 @@ def local_noise(model, noise, dp):
     """This rank's rows of the train step's noise for the global batch:
     eps (T, B, D) and the encoder's keep-mask at their batch axis, the
     decoder's keep-masks for the T * B decoded rows (term-major) at the
-    rows of each term."""
+    rows of each term; the rows of the dp index. Where the head's fc is a
+    column layer, the encoder's keep-mask keeps the tp index's columns of
+    its last axis (the head's hidden features)."""
     eps, keep = noise[:2]
     t, rows = eps.shape[:2]
     b = rows // dp.world
     lo = dp.rank * b
-    out = [eps[:, lo:lo + b],
-           None if keep is None else
-           keep.narrow(_batch_axis(model.keep_mask_shape, rows), lo, b)]
+    if keep is not None:
+        keep = keep.narrow(_batch_axis(model.keep_mask_shape, rows), lo, b)
+        tp = model.dropout_tp()
+        if tp is not None and tp.kind == "col":
+            cols = keep.shape[-1] // dp.tp_world
+            keep = keep.narrow(-1, dp.tp_rank * cols, cols)
+    out = [eps[:, lo:lo + b], keep]
     if len(noise) > 2:
         dec = noise[2]
         ax = _batch_axis(model.decode_keep_mask_shape, t * rows)
@@ -152,21 +174,50 @@ def local_noise(model, noise, dp):
     return tuple(out)
 
 
-def average_gradients(params, dp):
-    """Replace every parameter's gradient by its mean across the ranks, in
-    one all-reduce over a flat buffer a dtype (the parameters are f32).
-    A gradient that is None on this rank counts as zeros, since another
-    rank may have one: every parameter leaves with a gradient, as in the
-    JAX package, whose gradients are dense."""
+def _average(params, group, world):
+    """Each parameter's gradient replaced by its mean across the group's
+    `world` ranks, one all-reduce over a flat buffer a dtype."""
     by_dtype = {}
     for p in params:
         by_dtype.setdefault(p.dtype, []).append(p)
     for ps in by_dtype.values():
         flat = torch.cat([(torch.zeros_like(p) if p.grad is None
                            else p.grad).reshape(-1) for p in ps])
-        sum_in_place(dp.group, flat).div_(dp.world)
+        sum_in_place(group, flat).div_(world)
         for p, g in zip(ps, flat.split([p.numel() for p in ps])):
             p.grad = g.view_as(p)
+
+
+def average_running_stats(model, group, world):
+    """The BNs' running means and variances averaged across the group's
+    `world` ranks, in one all-reduce over a flat buffer (none without a
+    BN)."""
+    bufs = [b for m in model.modules() if isinstance(m, BatchNorm)
+            for b in (m.running_mean, m.running_var)]
+    if not bufs:
+        return
+    flat = sum_in_place(group, torch.cat(bufs)).div_(world)
+    for b, v in zip(bufs, flat.split([b.numel() for b in bufs])):
+        b.copy_(v)
+
+
+def average_gradients(params, dp, sharded=()):
+    """Replace every parameter's gradient by its mean across the ranks (the
+    parameters are f32): over the dp group, or, with a model axis, the
+    `sharded` ones over the dp group and the others over the world (the
+    module docstring). A gradient that is None on this rank counts as
+    zeros, since another rank may have one: every parameter leaves with
+    a gradient, as in the JAX package, whose gradients are dense."""
+    if dp.tp_world == 1:
+        _average(params, dp.group, dp.world)
+        return
+    mine = {id(p) for p in sharded}
+    split = ([p for p in params if id(p) in mine],
+             [p for p in params if id(p) not in mine])
+    for ps, group, world in zip(split, (dp.group, dist.group.WORLD),
+                                (dp.world, dp.world * dp.tp_world)):
+        if ps:
+            _average(ps, group, world)
 
 
 def make_train_step(model, term_masks, term_lambdas, *, lr: float,
@@ -215,6 +266,9 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
                                  betas=(0.9, 0.999), eps=1e-8)
 
     params = list(model.parameters())
+    plan = getattr(getattr(model, "tp_layout", None), "plan", {})
+    sharded = [p for n, p in model.named_parameters()
+               if plan.get(n) is not None]
     bn_group = dp.group if dp is not None and sync_bn else None
 
     def train_step(batch, beta, noise=None, masks=masks, lambdas=lambdas):
@@ -235,8 +289,12 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
                                      recon_masks=rmasks)
         total.backward()
         if dp is not None:
-            average_gradients(params, dp)
+            average_gradients(params, dp, sharded)
         optimizer.step()
+        if dp is not None and dp.tp_world > 1:
+            with torch.no_grad():
+                average_running_stats(model, dist.group.WORLD,
+                                      dp.world * dp.tp_world)
         return total.detach(), aux["per_term"].detach()
 
     train_step.optimizer = optimizer

@@ -5,13 +5,12 @@ the reference's flag surface with the JAX package's defaults, without
 plus --device.
 
 --no-device-data streams the batches from the host (train/driver.py).
-The multi-process flags start data-parallel training
+The multi-process flags start training across processes
 (parallel/distributed.py:maybe_initialize): --coordinator host:port
 --process-id i --n-processes N, one process a rank, or a bare
---distributed under torchrun, which sets the ranks in the environment. A
-batch that N does not divide is refused (parallel/mesh.py): tensor and
-expert parallelism, where the JAX package sends the leftover factor, are
-not ported yet.
+--distributed under torchrun, which sets the ranks in the environment.
+Where N does not divide the batch, the leftover factor is tensor and
+expert parallelism (parallel/mesh.py), on one node only.
 """
 
 import argparse

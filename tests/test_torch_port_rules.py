@@ -158,8 +158,9 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
     """The CLI resolves its device before it loads data: on a host without
     a card it raises unless --device cpu; it takes --no-device-data (host
     streaming) and the four multi-process flags, refuses before any
-    rendezvous a batch that the processes do not divide (the JAX package's
-    tensor-parallel case, not ported) and a start without a rank, and
+    rendezvous a model axis across nodes (a batch the processes do not
+    divide, with fewer of them on this node: the JAX package refuses
+    tensor parallelism across hosts) and a start without a rank, and
     refuses the JAX CLI's --cuda and --exact-decode, which would do
     nothing here."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -185,10 +186,12 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
             args.n_processes) == (True, "127.0.0.1:1", 1, 3)
     for env in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(env, raising=False)
-    with pytest.raises(SystemExit, match="tensor parallelism, which is not "
-                       "ported yet"):
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    with pytest.raises(SystemExit, match="multi-node runs ship "
+                       "data-parallel only"):
         celeba_cli.main(["--device", "cpu", "--coordinator", "127.0.0.1:1",
                          "--process-id", "0", "--n-processes", "3"])
+    monkeypatch.delenv("LOCAL_WORLD_SIZE")
     for flag in (["--distributed"], ["--coordinator", "localhost:1"]):
         with pytest.raises(SystemExit, match="--process-id i"):
             celeba_cli.main(["--device", "cpu"] + flag)

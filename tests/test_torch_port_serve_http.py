@@ -527,10 +527,12 @@ def test_main_serves_the_checkpoint(checkpoint, monkeypatch, capsys):
 
 
 def test_main_refuses_dp_and_another_family(checkpoint, capsys):
+    """A group size below 1 and a checkpoint of another family are refused
+    (--dp 2 serves: test_main_serves_over_a_dp_group_as_one_device)."""
     with pytest.raises(SystemExit):
         serve_http.main(["--checkpoint", checkpoint, "--family", "mnist",
-                         "--device", "cpu", "--dp", "2"])
-    assert "--dp is not ported yet" in capsys.readouterr().err
+                         "--device", "cpu", "--dp", "0"])
+    assert "--dp takes a group size of at least 1" in capsys.readouterr().err
     with pytest.raises(ValueError, match="holds a mnist model, not "
                                          "fashionmnist"):
         serve_http.main(["--checkpoint", checkpoint, "--family",
@@ -538,3 +540,65 @@ def test_main_refuses_dp_and_another_family(checkpoint, capsys):
     with pytest.raises(SystemExit):
         serve_http.main(["--checkpoint", checkpoint, "--family", "nope",
                          "--device", "cpu"])
+
+
+def _served(checkpoint, monkeypatch, dp):
+    """One request at each endpoint through main's app with --dp dp (the
+    server faked: its serve_forever sends them): name -> (status,
+    payload)."""
+    got = {}
+    image = _imgs(3, seed=5).tolist()
+
+    class FakeServer:
+        server_address = ("127.0.0.1", 4321)
+
+        def __init__(self, app):
+            self.app = app
+
+        def serve_forever(self):
+            h = self.app.handle
+            got["embed"] = h("POST", "/embed", {"inputs": {"image": image}})
+            got["reconstruct"] = h("POST", "/reconstruct", {"inputs": {
+                "image": image, "text": [1, 2, 3]}})
+            got["sample"] = h("POST", "/sample", {"n": 5, "seed": 3})
+            got["sample_cond"] = h("POST", "/sample", {
+                "n": 3, "seed": 4, "condition": {"text": 7}})
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serve_http, "make_server",
+                        lambda app, host, port: FakeServer(app))
+    serve_http.main(["--checkpoint", checkpoint, "--family", "mnist",
+                     "--device", "cpu", "--max-batch", "4", "--dp", str(dp)])
+    return got
+
+
+def test_main_serves_over_a_dp_group_as_one_device(checkpoint, monkeypatch,
+                                                   capsys):
+    """--dp 2 spawns a worker rank (gloo on the CPU), prints JAX's mesh
+    line, warms up through the group and answers every endpoint with one
+    device's values (each rank's rows of the bucket, gathered); on the
+    server's end the worker stops and the group is left."""
+    one = _served(checkpoint, monkeypatch, 1)
+    two = _served(checkpoint, monkeypatch, 2)
+    assert "serving over a 2-device data-parallel mesh" in \
+        capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
+    for name, (status, payload) in one.items():
+        assert status == two[name][0] == 200, (name, two[name])
+        assert set(payload) == set(two[name][1])
+        for k, v in payload.items():
+            _close(two[name][1][k], v, f"{name} {k}")
+
+
+def test_bucket_rounds_up_to_a_multiple_of_dp():
+    """Sampler(dp=) buckets as mvae_tpu/serve.py:135-141: the next power
+    of two, rounded up to a multiple of the group's size."""
+    from mvae_tpu_torch.parallel.mesh import DataParallel
+    model = MnistMVAE(L, device="cpu")
+    for world, want in ((1, [1, 2, 4, 4, 8]), (3, [3, 3, 6, 6, 9]),
+                        (6, [6, 6, 6, 6, 12])):
+        s = Sampler(model, device="cpu", dp=DataParallel(None, 0, world))
+        assert [s._bucket_m(n) for n in (1, 2, 3, 4, 5)] == want
