@@ -10,14 +10,17 @@ loglike CLIs, serving) and the CelebA sample and loglike CLIs, then
 trains the CelebA protocol of the convergence gate and holds its scores
 against the JAX package's rows, trains data-parallel (two ranks sharing
 the card, one NCCL rank, the CLI on two processes) and on a dp4 x tp2
-grid of eight ranks (the CLI too), serves over a group of two, and shows
-that those paths went through the kernels.
+grid of eight ranks (the CLI too), serves over a group of two, runs the
+native host ingest (the MultiMNIST compositor, the JPEG decode and the
+CelebA CLI on a JPEG tree), and shows that those paths went through the
+kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Phases (any failure exits non-zero; nothing is caught but an HTTP
 error status, which phase 3b reads as the status it checks):
-  1. card, versions, kernel build time
+  1. card, versions, kernel build time; the host library's build time
+     (data/native.py: core, and decode where the image headers are)
   2. kernels vs their plain versions at the paths' shapes, with times:
      the PoE's forward and backward, the BCE; the four BN passes at each
      of the train step's 11 BN layers; conv2d_moments at the encoder's 3
@@ -140,6 +143,18 @@ error status, which phase 3b reads as the status it checks):
      every endpoint, then serve_http at --dp 2 and --dp 1 side by side,
      the same request to each and serve_http_bench's burst in turns
      (requests/s, p50)
+  6j. the native host ingest (data/native.py) on the card's host: the CPU,
+     g++ and the image headers' versions, each part's probe; make_dataset
+     at MultiMNIST's canonical 60000 / 10000 rows on the native
+     compositor, twice and bit for bit alike, against the numpy path at
+     2000 rows, the JAX package's validity checks and the shards read
+     back; a tree of the synthetic CelebA set's 2500 rows as 178x218
+     JPEGs (and four PNGs) loaded natively and with exact_decode in turns
+     (images/s, the pixel gap held under 4/255); the CelebA train CLI on
+     it for two epochs by default and with --exact-decode (load wall,
+     Throughput, finite losses). Without the image headers the native
+     decode's part is skipped, said so, and the tree's loads and CLI runs
+     go through PIL
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -159,7 +174,7 @@ error status, which phase 3b reads as the status it checks):
   in turns, and one window of each runs under
   torch.use_deterministic_algorithms(warn_only=True), whose warnings name
   the ops with no deterministic form.
-  8. the kernels line: launches on phases 3-5 and 6b-6i (6h's and 6i's
+  8. the kernels line: launches on phases 3-5 and 6b-6j (6h's and 6i's
      spawned ranks' own included), error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
@@ -182,7 +197,9 @@ import io
 import json
 import math
 import os
+import platform
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -203,7 +220,9 @@ import torch.nn.functional as F
 from mvae_tpu_torch import ops
 from mvae_tpu_torch.core.engine import multi_term_elbo
 from mvae_tpu_torch.core.loglike import iwae_log_marginal
-from mvae_tpu_torch.data.celeba import load_celeba
+from mvae_tpu_torch.data import native as host_native
+from mvae_tpu_torch.data.celeba import (
+    ATTR_IX_TO_KEEP, load_celeba, synthetic_celeba)
 from mvae_tpu_torch.data.mnist import load_mnist, synthetic_mnist, write_idx
 from mvae_tpu_torch.experiments.celeba import loglike as celeba_loglike
 from mvae_tpu_torch.experiments.celeba import sample as celeba_sample
@@ -220,7 +239,8 @@ from mvae_tpu_torch.experiments.multimnist import (
 from mvae_tpu_torch.core.engine import fast_decode_terms
 from mvae_tpu_torch.core.subsets import (
     celeba19_recon_support, celeba19_step_terms)
-from mvae_tpu_torch.data.multimnist import load_multimnist, make_dataset
+from mvae_tpu_torch.data.multimnist import (
+    SEED as MM_SEED, load_multimnist, make_dataset, mk_dataset)
 from mvae_tpu_torch.data.pipeline import ArrayDataset
 from mvae_tpu_torch.data.vision import derive_modalities, load_celeb_vision
 from mvae_tpu_torch.experiments.vision import (
@@ -3213,6 +3233,291 @@ def phase_tp(dev, card, root):
     return launches
 
 
+# phase 6j: the native host ingest (data/native.py) on the card's host
+MM_FULL = (60000, 10000)        # MultiMNIST's canonical train and test rows
+MM_NUMPY_ROWS = 2000            # the numpy compositor's rows, for its rate
+INGEST_ROWS = (2000, 500)       # the synthetic CelebA set's train, val rows
+CELEBA_WH = (178, 218)          # the aligned CelebA crop, width x height
+# native against PIL, mean |gap| over a set's pixels: tests/test_native.py:78
+DECODE_GAP = 4 / 255
+
+
+def host_setting():
+    """The host's CPU, the compiler, the image headers' versions and the
+    probe of each native part; returns the CPU model."""
+    with open("/proc/cpuinfo") as f:          # the first processor's
+        info = dict(ln.split(":", 1) for ln in f.read().split("\n\n")[0]
+                    .splitlines() if ":" in ln)
+    info = {k.strip(): v.strip() for k, v in info.items()}
+    # a virtual machine may name its CPU "unknown": the vendor and the
+    # family, model and stepping numbers identify it all the same
+    model = (f"{info.get('model name', 'an unnamed CPU')} "
+             f"({info.get('vendor_id', platform.machine())} family "
+             f"{info.get('cpu family', '?')} model {info.get('model', '?')} "
+             f"stepping {info.get('stepping', '?')}, {platform.machine()})")
+    gxx = shutil.which("g++")
+    version = (subprocess.run([gxx, "--version"], capture_output=True,
+                              text=True, timeout=60).stdout.splitlines()[0]
+               if gxx else "no g++")
+    print(f"[ingest] host: {model}, {info.get('cpu MHz', '?')} MHz, cache "
+          f"{info.get('cache size', '?')}; {len(os.sched_getaffinity(0))} "
+          f"cores for this process ({os.cpu_count()} online); {version}")
+    for part in ("core", "decode"):
+        reason = host_native.unavailable_reason(part)
+        print(f"[ingest] probe {part}: "
+              + ("available" if reason is None else f"unavailable: {reason}"))
+    if host_native.available("decode"):
+        src = ("#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+               "JPEG_LIB_VERSION LIBJPEG_TURBO_VERSION PNG_LIBPNG_VER_STRING"
+               "\n")
+        out = subprocess.run([gxx, "-E", "-P", "-x", "c++", "-"], input=src,
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.strip().splitlines()[-1]
+        print(f"[ingest] headers: JPEG_LIB_VERSION LIBJPEG_TURBO_VERSION "
+              f"PNG_LIBPNG_VER_STRING = {out} (an undefined macro stays "
+              f"its name)")
+    return model
+
+
+def read_shards(d):
+    out = {}
+    for split in ("training", "test"):
+        with np.load(os.path.join(d, "multimnist", f"{split}.npz")) as z:
+            out[split] = (z["images"], z["texts"])
+    return out
+
+
+def ingest_compositor(card, cpu, root):
+    """make_dataset at the canonical rows with its default, the native
+    compositor, twice (bit for bit alike), against the numpy path at
+    MM_NUMPY_ROWS; the compositors alone on the same digits; JAX's
+    validity checks (tests/test_native.py:14-42); the shards read back."""
+    dirs = [os.path.join(root, "mm_full", r) for r in "ab"]
+    walls = []
+    for d in dirs:
+        t0 = time.perf_counter()
+        make_dataset(d, n_train=MM_FULL[0], n_test=MM_FULL[1])
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    make_dataset(os.path.join(root, "mm_numpy"), n_train=MM_NUMPY_ROWS,
+                 n_test=0, use_native=False)
+    numpy_wall = time.perf_counter() - t0
+    a, b = read_shards(dirs[0]), read_shards(dirs[1])
+    for split in a:
+        for x, y in zip(a[split], b[split]):
+            expect(np.array_equal(x, y), f"ingest: two native make_dataset "
+                   f"runs differ in {split}")
+    images, texts = a["training"]
+    expect(images.shape == (MM_FULL[0], 50, 50) and texts.shape ==
+           (MM_FULL[0], 4), f"ingest: shard shapes {images.shape}")
+    counts = (texts != 11).sum(1)
+    expect(set(np.unique(counts).tolist()) == {0, 1, 2, 3, 4},
+           "ingest: not every digit count 0-4 occurs")
+    expect(texts.min() >= 0 and texts.max() <= 11 and
+           (texts[texts != 11] <= 9).all(), "ingest: labels out of range")
+    expect(images[counts == 0].max() == 0, "ingest: a k = 0 canvas has ink")
+    expect((images[counts > 0].reshape(-1, 2500).max(1) > 0).all(),
+           "ingest: a canvas with digits is blank")
+    for train, (imgs, txt) in ((True, a["training"]), (False, a["test"])):
+        ds = load_multimnist(dirs[0], train=train).arrays
+        expect(np.array_equal(ds["image"][..., 0],
+                              imgs.astype(np.float32) / 255.0)
+               and np.array_equal(ds["text"], txt),
+               "ingest: load_multimnist reads other arrays")
+    src = load_mnist(dirs[0], train=True, flatten=False).arrays
+    digits = (src["image"].reshape(-1, 28, 28) * 255.0).astype(np.uint8)
+    t0 = time.perf_counter()
+    host_native.multimnist_generate(digits, src["text"], MM_FULL[0])
+    gen_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mk_dataset(MM_NUMPY_ROWS, digits.astype(np.float32), src["text"],
+               np.random.default_rng(MM_SEED))
+    gen_numpy = time.perf_counter() - t0
+    rows = sum(MM_FULL)
+    print(f"[ingest] MultiMNIST make_dataset, native (default), {rows} "
+          f"rows: {walls} s wall, {[rows / w for w in walls]} rows/s (the "
+          f"two runs equal bit for bit; the MNIST load and the compressed "
+          f"shards included); numpy (use_native=False), {MM_NUMPY_ROWS} "
+          f"rows: {numpy_wall} s, {MM_NUMPY_ROWS / numpy_wall} rows/s | "
+          f"{card}; {cpu}")
+    print(f"[ingest] the compositors alone on the {len(digits)} synthetic "
+          f"digits: native {MM_FULL[0]} rows in {gen_native} s, "
+          f"{MM_FULL[0] / gen_native} rows/s; numpy {MM_NUMPY_ROWS} rows in "
+          f"{gen_numpy} s, {MM_NUMPY_ROWS / gen_numpy} rows/s; ratio "
+          f"{(MM_FULL[0] / gen_native) / (MM_NUMPY_ROWS / gen_numpy)} | "
+          f"{card}; {cpu}")
+
+
+PNG_KINDS = ("rgb", "rgba", "palette", "16bit")
+
+
+def write_jpeg_tree(root):
+    """The phase's copy of scripts/native_decode_impact.py:build_jpeg_tree:
+    the synthetic CelebA set's INGEST_ROWS rows upsampled to the aligned
+    178x218 geometry as quality-95 JPEGs with the Eval and Anno files,
+    plus one PNG of each PNG_KINDS in the train partition (the 16-bit one
+    a grayscale picture in the high byte, its 8-bit twin beside the
+    tree). Returns the twin's path."""
+    from PIL import Image
+    for d in ("Eval", "Anno", "img_align_celeba"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    n_train, n_val = INGEST_ROWS
+    tr, va = synthetic_celeba(n_train, seed=0), synthetic_celeba(n_val,
+                                                                seed=1)
+    imgs = np.concatenate([tr.arrays["image"], va.arrays["image"]])
+    attrs = np.concatenate([tr.arrays["attrs"], va.arrays["attrs"]])
+    names = [f"{i + 1:06d}.jpg" for i in range(len(imgs))]
+    parts = [0 if i < n_train else 1 for i in range(len(imgs))]
+    pics = [Image.fromarray((im * 255).astype(np.uint8)).resize(
+        CELEBA_WH, Image.BILINEAR) for im in imgs]
+    for name, pic in zip(names, pics):
+        pic.save(os.path.join(root, "img_align_celeba", name), quality=95)
+    gray = np.asarray(pics[3].convert("L"))
+    pngs = {"rgb": pics[0], "rgba": pics[1].convert("RGBA"),
+            "palette": pics[2].quantize(64),
+            "16bit": Image.fromarray(gray.astype(np.uint16) * 257)}
+    for i, kind in enumerate(PNG_KINDS):
+        names.append(f"png_{kind}.png")
+        parts.append(0)
+        attrs = np.concatenate([attrs, attrs[i:i + 1]])
+        pngs[kind].save(os.path.join(root, "img_align_celeba", names[-1]))
+    twin = os.path.join(root, "..", "png_16bit_as_8bit.png")
+    Image.fromarray(gray).save(twin)
+    with open(os.path.join(root, "Eval", "list_eval_partition.txt"),
+              "w") as f:
+        f.writelines(f"{n} {p}\n" for n, p in zip(names, parts))
+    with open(os.path.join(root, "Anno", "list_attr_celeba.txt"), "w") as f:
+        f.write(f"{len(names)}\n" + " ".join(f"a{j}" for j in range(40))
+                + "\n")
+        for name, a in zip(names, attrs):
+            row = -np.ones(40, np.int64)
+            row[np.asarray(ATTR_IX_TO_KEEP)] = 2 * a.astype(np.int64) - 1
+            f.write(name + " " + " ".join(f"{v:2d}" for v in row) + "\n")
+    return twin
+
+
+def ingest_decode(card, cpu, root):
+    """The JPEG tree loaded through load_celeba natively and with
+    exact_decode in turns (native, PIL, PIL, native): images/s each, the
+    pixel gap between them (JPEG rows held under DECODE_GAP, each PNG
+    apart); where the decode part is unavailable, with exact_decode
+    twice. Returns the tree."""
+    tree = os.path.join(root, "celeba_jpeg", "data")
+    t0 = time.perf_counter()
+    twin = write_jpeg_tree(tree)
+    print(f"[ingest] wrote the JPEG tree ({sum(INGEST_ROWS)} JPEGs at "
+          f"{CELEBA_WH[0]}x{CELEBA_WH[1]}, quality 95, and "
+          f"{len(PNG_KINDS)} PNGs) in {time.perf_counter() - t0} s")
+    for part in ("train", "val"):          # the attribute caches first
+        load_celeba(tree, part, max_examples=1, exact_decode=True)
+    decode = host_native.available("decode")
+    loads, sets = {False: [], True: []}, {}
+    for exact in (False, True, True, False) if decode else (True, True):
+        t0 = time.perf_counter()
+        sets[exact] = [load_celeba(tree, part, exact_decode=exact)
+                       for part in ("train", "val")]
+        loads[exact].append(time.perf_counter() - t0)
+    n = sum(len(ds) for ds in sets[True])
+    for exact in (False, True) if decode else (True,):
+        what = "PIL (exact_decode)" if exact else "native"
+        print(f"[ingest] load_celeba {what}: {n} images in {loads[exact]} s, "
+              f"{[n / t for t in loads[exact]]} images/s | {card}; {cpu}")
+    if not decode:
+        print("[ingest] the native decode not measured: "
+              + host_native.unavailable_reason("decode"))
+        return tree
+    nat = np.concatenate([ds.arrays["image"] for ds in sets[False]])
+    pil = np.concatenate([ds.arrays["image"] for ds in sets[True]])
+    expect(nat.shape == pil.shape == (n, 64, 64, 3)
+           and np.isfinite(nat).all(), f"ingest: decoded {nat.shape}")
+    gap = np.abs(nat - pil) * 255.0
+    n_train = INGEST_ROWS[0]
+    jpeg = np.concatenate([gap[:n_train], gap[n_train + len(PNG_KINDS):]])
+    mean, p99 = float(jpeg.mean()), float(np.percentile(jpeg, 99))
+    png_gaps = {k: float(gap[n_train + i].mean())
+                for i, k in enumerate(PNG_KINDS)}
+    print(f"[ingest] native against PIL over the {len(jpeg)} JPEGs: mean "
+          f"|gap| {mean} / 255, p99 {p99} / 255, max {float(jpeg.max())} / "
+          f"255; each PNG's mean |gap| / 255: {png_gaps} (PIL clips a "
+          f"16-bit PNG at 255 where libpng keeps the high byte)")
+    expect(mean < DECODE_GAP * 255, f"ingest: mean JPEG gap {mean} / 255")
+    for k in ("rgb", "rgba", "palette"):
+        expect(png_gaps[k] < DECODE_GAP * 255, f"ingest: {k} PNG gap")
+    expect(np.array_equal(nat[n_train + PNG_KINDS.index("16bit")],
+                          host_native.decode_image_64(twin).astype(
+                              np.float32) / 255.0),
+           "ingest: the 16-bit PNG is not its 8-bit twin")
+    return tree
+
+
+def ingest_cli(card, cpu, tree, root):
+    """The CelebA train CLI on the JPEG tree in bf16 (the defaults), two
+    epochs (the driver prints its Throughput line from the second) by
+    default and with --exact-decode, each into a new directory: the
+    loaders' wall time, the Throughput line, finite losses."""
+    real, loads = celeba_cli.load_celeba, []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        ds = real(*args, **kw)
+        loads.append((time.perf_counter() - t0, kw.get("exact_decode")))
+        return ds
+    celeba_cli.load_celeba = timed
+    try:
+        for flags in ([], ["--exact-decode"]):
+            out_dir = tempfile.mkdtemp(dir=root, prefix="ingest_cli_")
+            rec = TimedLines(sys.stdout)
+            with contextlib.redirect_stdout(rec):
+                celeba_cli.main(["--epochs", "2", "--annealing-epochs", "1",
+                                 "--log-interval", "10", "--data-dir", tree,
+                                 "--out-dir", out_dir] + flags)
+            lines = [line for _, line in rec.lines]
+            losses = [float(line.split()[-1]) for line in lines
+                      if line.startswith(("====> Epoch", "====> Test Loss"))]
+            throughput = [line for line in lines if "Throughput" in line]
+            expect(len(losses) == 4 and all(np.isfinite(losses)),
+                   f"ingest CLI {flags}: losses {losses}")
+            # the default run says so where the native decode is
+            # unavailable, once for each of its two loaders
+            said = sum("native decode unavailable" in line for line in lines)
+            expect(said == (0 if flags or host_native.available("decode")
+                            else 2), f"ingest CLI {flags}: {said} lines "
+                   "on the decode")
+            expect(len(throughput) == 1 and not any(
+                "synthetic" in line for line in lines),
+                f"ingest CLI {flags}: {lines[:3]}")
+            expect([e for _, e in loads[-2:]] == [bool(flags)] * 2,
+                   f"ingest CLI {flags}: the loaders got {loads[-2:]}")
+            what = ("--exact-decode" if flags else "the default, native "
+                    "decode" if host_native.available("decode") else
+                    "the default, PIL (no native decode here)")
+            print(f"[ingest] CelebA CLI on the JPEG tree, {what}: "
+                  f"train and val load {[t for t, _ in loads[-2:]]} s; "
+                  f"{throughput[0]}; epoch and test losses {losses} | "
+                  f"{card}; {cpu}")
+    finally:
+        celeba_cli.load_celeba = real
+
+
+def phase_ingest(dev, card, root):
+    """Phase 6j: the native host ingest on the card's host. Where the probe
+    finds no image headers, the native decode's part is skipped (said so)
+    and the JPEG tree's loads and CLI runs go through PIL."""
+    cpu = host_setting()
+    for part in ("core", "decode"):
+        if host_native.available(part):
+            lib = host_native.library(part)
+            print(f"[ingest] {part} library built and loaded in "
+                  f"{lib.build_seconds} s (phase 1)")
+    expect(host_native.available("core"), "ingest: the core library "
+           "cannot build: " + str(host_native.unavailable_reason("core")))
+    ingest_compositor(card, cpu, root)
+    lap("ingest: the compositor")
+    tree = ingest_decode(card, cpu, root)
+    lap("ingest: the decode")
+    ingest_cli(card, cpu, tree, root)
+
+
 # kernel families of the profile lines, first match wins
 FAMILIES = (
     ("all-reduce (NCCL)", lambda k: "nccl" in k.lower()),
@@ -3295,7 +3600,7 @@ def lap(what):
 
 def run(dev, card, peaks, root):
     """Phases 2-7 with their files under root; returns the kernel rows of
-    phase 2 and the launches of phases 3-5 and 6b-6i."""
+    phase 2 and the launches of phases 3-5 and 6b-6j."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
@@ -3328,7 +3633,9 @@ def run(dev, card, peaks, root):
             + BN_KERNELS, "celeba19": tuple(KERNELS),
             "vision": tuple(KERNELS),
             "convergence": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
-            + BN_KERNELS, "dp": tuple(KERNELS), "tp": tuple(KERNELS)}
+            + BN_KERNELS, "dp": tuple(KERNELS), "tp": tuple(KERNELS),
+            "ingest": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
+            + BN_KERNELS}
     launches, out = {}, {}
     for phase, fn in (
             ("serve", lambda: phase_serving(dev, card)),
@@ -3345,7 +3652,8 @@ def run(dev, card, peaks, root):
                 dev, card, root, out["families"]["celeba"])),
             ("convergence", lambda: phase_convergence(dev, card, root)),
             ("dp", lambda: phase_dp(dev, card, root, data)),
-            ("tp", lambda: phase_tp(dev, card, root))):
+            ("tp", lambda: phase_tp(dev, card, root)),
+            ("ingest", lambda: phase_ingest(dev, card, root))):
         ops.reset_launch_counts()
         out[phase] = fn()
         torch.cuda.synchronize()
@@ -3389,6 +3697,12 @@ def main():
           f"tensor-core TFLOP/s")
     lib = ops.library()
     print(f"[build] kernels built and loaded in {lib.build_seconds} s")
+    # the host library's parts (data/native.py): core must build; decode
+    # where the probe finds the image headers (phase 6j says which)
+    for part in ("core", "decode"):
+        if part == "core" or host_native.available(part):
+            print(f"[build] host library {part} built and loaded in "
+                  f"{host_native.library(part).build_seconds} s")
     lap("start and build")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -6,9 +6,15 @@ The reference's layout under the data directory: partition file
 (-1 -> 0, cached to `Anno/attr_<partition>.npy`), 18 of 40 attributes kept
 (Perarnau et al. 2016, celeba/datasets.py:32), images from
 `img_align_celeba/` resized and center-cropped to 64 (celeba/train.py:
-146-148) with PIL, imported when real files are read. The JAX package's
-native libjpeg decode is not ported: every image takes the PIL path, which
-is the reference's exact pixel semantics.
+146-148). As in the JAX package, they decode natively by default (libjpeg's
+DCT-domain prescale, box halvings and a bilinear resample: data/native.py,
+a few levels a pixel from PIL), and through PIL, the reference's exact
+pixel semantics, under exact_decode (the train CLIs' --exact-decode), where
+the `decode` library is unavailable, and from the first file the native
+decoder refuses to the end of the set. PIL is imported when it decodes.
+The native default is there for parity with the JAX package's pixels, not
+for speed: it needs the libjpeg and libpng headers, and on a host without
+them (the H100 machines the port has run on so far) every image takes PIL.
 
 No-network fallback: a deterministic synthetic set with attribute-dependent
 image structure, same shapes and dtypes, bit-identical to the JAX
@@ -19,7 +25,9 @@ import os
 
 import numpy as np
 
+from mvae_tpu_torch.data import native
 from mvae_tpu_torch.data.pipeline import ArrayDataset, warn_synthetic
+from mvae_tpu_torch.parallel.distributed import is_coordinator
 
 VALID_PARTITIONS = {'train': 0, 'val': 1, 'test': 2}
 ATTR_TO_IX_DICT = {
@@ -100,10 +108,39 @@ def _resize_center_crop_64(img):
     return img.crop((left, top, left + 64, top + 64))
 
 
+def _pil_decode_64(path):
+    with _pil_image().open(path) as im:
+        return np.asarray(_resize_center_crop_64(im.convert('RGB')),
+                          np.float32) / 255.0
+
+
+def _say(msg):
+    if is_coordinator():
+        print(f"[mvae_tpu_torch.data] {msg}")
+
+
+def _native_decode(exact_decode):
+    """Whether the native decode takes the images; says why not where it
+    was wanted and its library is unavailable."""
+    if exact_decode:
+        return False
+    reason = native.unavailable_reason("decode")
+    if reason is not None:
+        _say(f"CelebA: native decode unavailable ({reason}); decoding "
+             "with PIL")
+    return reason is None
+
+
 def load_celeba(data_dir='./data', partition='train', *, synthetic_ok=True,
-                max_examples=None, synthetic_n=None, download=False):
+                max_examples=None, synthetic_n=None, download=False,
+                exact_decode=False):
     """Returns ArrayDataset with image (N,64,64,3) float32 [0,1] and
     attrs (N,18) float32 {0,1}.
+
+    exact_decode=True decodes the real images with PIL (the reference's
+    pixel semantics) instead of the native libjpeg path (the default
+    where it builds), whose DCT-prescaled decode differs from PIL by a few
+    levels a pixel (mvae_tpu/data/celeba.py:97-101).
 
     download=True: CelebA has no programmatic download (the official
     distribution is interactive Google-Drive hosting; the reference also
@@ -117,17 +154,27 @@ def load_celeba(data_dir='./data', partition='train', *, synthetic_ok=True,
               "list_eval_partition.txt, Anno/list_attr_celeba.txt, and "
               "img_align_celeba/*.jpg — proceeding without.")
     if os.path.isfile(eval_file):
-        Image = _pil_image()
         paths = load_eval_partition(partition, data_dir)
         attrs = load_attributes(paths, partition, data_dir)
         if max_examples:
             paths, attrs = paths[:max_examples], attrs[:max_examples]
         imgs = np.empty((len(paths), 64, 64, 3), np.float32)
+        use_native = _native_decode(exact_decode)
         for i, p in enumerate(paths):
-            with Image.open(os.path.join(data_dir, 'img_align_celeba',
-                                         p)) as im:
-                imgs[i] = np.asarray(_resize_center_crop_64(
-                    im.convert('RGB')), np.float32) / 255.0
+            full = os.path.join(data_dir, 'img_align_celeba', p)
+            if use_native:
+                try:
+                    imgs[i] = native.decode_image_64(full).astype(
+                        np.float32) / 255.0
+                    continue
+                except ValueError as e:
+                    # a file the native decoder refuses (a CMYK JPEG,
+                    # which libjpeg will not give as RGB): PIL from here
+                    # on, as the JAX package does
+                    use_native = False
+                    _say(f"CelebA: {e}; decoding this and the remaining "
+                         f"{len(paths) - i - 1} images with PIL")
+            imgs[i] = _pil_decode_64(full)
         return ArrayDataset({"image": imgs, "attrs": attrs})
     if not synthetic_ok:
         raise FileNotFoundError(f"no CelebA metadata under {data_dir}")

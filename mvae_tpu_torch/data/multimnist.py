@@ -1,5 +1,5 @@
 """MultiMNIST: 0-4 MNIST digits composited on a 50x50 canvas (the port's
-copy of the numpy generator of mvae_tpu/data/multimnist.py; reference
+copy of mvae_tpu/data/multimnist.py; reference
 multimnist/datasets.py:107-342).
 
 Per example, k ~ U{min_digits..max_digits} digits, each shrunk to side
@@ -8,11 +8,13 @@ scipy.misc.imresize, removed from scipy) and placed at a random offset in
 [0, 50 - side - 1] (or centred without translation). The digits are
 summed; a canvas with a pixel above 255 is redrawn whole. The fixed
 variant puts digits of side 21 on four fixed pads; `reverse`, `scramble`
-and `no_repeat` act on the label string. Generation is deterministic from
-np.random.default_rng(681307), so the port writes the same shards as the
-JAX package's numpy path (`make_dataset(..., use_native=False)`). The JAX
-package's native C++ compositor is not ported: it draws from another RNG,
-and the numpy path takes long for the 60k/10k canonical sizes.
+and `no_repeat` act on the label string. As in the JAX package,
+`make_dataset` composites the random variant with the native C++ generator
+where its `core` library builds (data/native.py: xoshiro256** and
+Box-Muller from the seed 681307), and with the numpy generator here
+(np.random.default_rng(681307)) for the fixed variant, for
+use_native=False and where the library is unavailable. The two draw from
+different RNGs; each writes the shards the JAX package's same path writes.
 
 Shards: <root>/multimnist/{training,test}.npz with `images` (N, 50, 50)
 uint8 and `texts` (N, 4) int32, the JAX package's layout: each side reads
@@ -24,6 +26,7 @@ import os
 import numpy as np
 import torch.distributed as dist
 
+from mvae_tpu_torch.data import native
 from mvae_tpu_torch.data.download import DownloadError, download_idx
 from mvae_tpu_torch.data.mnist import load_mnist
 from mvae_tpu_torch.data.pipeline import ArrayDataset
@@ -155,18 +158,37 @@ def mk_dataset(n, digits_pool, labels_pool, rng, *, min_digits=0,
     return images, texts
 
 
-def make_dataset(root="./data", *, n_train=60000, n_test=10000, **opts):
+def make_dataset(root="./data", *, n_train=60000, n_test=10000,
+                 use_native=None, **opts):
     """Generate both splits from the MNIST digits under root (the IDX files
     or the synthetic fallback) and write the shards; returns their
-    directory. opts: mk_dataset's options."""
+    directory. opts: mk_dataset's options. The random variant runs through
+    the native compositor where its library can build, unless
+    use_native=False (mvae_tpu/data/multimnist.py:165-195); the fixed
+    variant always through numpy."""
     out_dir = os.path.join(root, "multimnist")
     os.makedirs(out_dir, exist_ok=True)
+    native_ok = False
+    if not opts.get("fixed") and use_native is not False:
+        reason = native.unavailable_reason("core")
+        native_ok = reason is None
+        if reason is not None:
+            print(f"[mvae_tpu_torch.data] MultiMNIST: native compositor "
+                  f"unavailable ({reason}); compositing with numpy")
     for split, n in (("training", n_train), ("test", n_test)):
         src = load_mnist(root, train=(split == "training"), flatten=False)
         digits = src.arrays["image"].reshape(-1, 28, 28) * 255.0
-        rng = np.random.default_rng(SEED)
-        images, texts = mk_dataset(n, digits, src.arrays["text"], rng,
-                                   **opts)
+        labels = src.arrays["text"]
+        if native_ok:
+            images, texts = native.multimnist_generate(
+                digits.astype(np.uint8), labels, n,
+                min_digits=opts.get("min_digits", 0),
+                max_digits=opts.get("max_digits", 4),
+                resize=opts.get("resize", True),
+                translate=opts.get("translate", True), seed=SEED)
+        else:
+            rng = np.random.default_rng(SEED)
+            images, texts = mk_dataset(n, digits, labels, rng, **opts)
         np.savez_compressed(os.path.join(out_dir, f"{split}.npz"),
                             images=images, texts=texts)
     return out_dir

@@ -133,12 +133,13 @@ def _load_precomputed_masks(data_dir, paths):
 
 def load_celeb_vision(data_dir='./data', partition='train', *,
                       synthetic_ok=True, max_examples=None, download=False,
-                      device=None):
+                      device=None, exact_decode=False):
     """The six modalities of a CelebA partition (the real files or the
     synthetic set, data/celeba.py), derived on `device` (None: the CUDA
-    card)."""
+    card); exact_decode: load_celeba's (PIL for the real images)."""
     base = load_celeba(data_dir, partition, synthetic_ok=synthetic_ok,
-                       max_examples=max_examples, download=download)
+                       max_examples=max_examples, download=download,
+                       exact_decode=exact_decode)
     masks = None
     if os.path.isfile(os.path.join(data_dir, 'Eval/list_eval_partition.txt')):
         paths = load_eval_partition(partition, data_dir)

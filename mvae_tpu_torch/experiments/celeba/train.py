@@ -43,8 +43,10 @@ def main(argv=None):
     if not args.bf16:
         # --f32 promises the reference numerics: no TF32 in cuDNN's convs
         torch.backends.cudnn.allow_tf32 = False
-    train_ds = load_celeba(args.data_dir, 'train', download=args.download)
-    test_ds = load_celeba(args.data_dir, 'val')   # the reference evals on val
+    train_ds = load_celeba(args.data_dir, 'train', download=args.download,
+                           exact_decode=args.exact_decode)
+    test_ds = load_celeba(args.data_dir, 'val',   # the reference evals on val
+                          exact_decode=args.exact_decode)
     model = CelebaMVAE(args.n_latents,
                        torch.bfloat16 if args.bf16 else None,
                        conv_moments=args.conv_moments, device=device,

@@ -7,7 +7,10 @@ multimnist/datasets.py:293-311):
 
 Writes <data-dir>/multimnist/{training,test}.npz from the MNIST digits
 under <data-dir>/MNIST/raw (or the synthetic fallback), bit-identical to
-the JAX package's numpy path.
+the JAX package's CLI on the same host: the random variant through the
+native compositor where its library builds (data/native.py; the 60k/10k
+canonical rows in seconds), the fixed variant and a host without g++
+through the numpy generator.
 """
 
 import argparse
@@ -17,10 +20,10 @@ from mvae_tpu_torch.data.multimnist import make_dataset
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="Composite MultiMNIST shards with the numpy generator. "
-                    "The JAX package's native compositor is not ported: "
-                    "the canonical 60k/10k rows take a long time here; "
-                    "small --n-train/--n-test finish in seconds.")
+        description="Composite MultiMNIST shards: the native C++ "
+                    "compositor where g++ is on PATH (the canonical 60k/10k "
+                    "rows in seconds), else the numpy generator (long at "
+                    "those sizes); --fixed always takes numpy.")
     p.add_argument('--min-digits', type=int, default=0)
     p.add_argument('--max-digits', type=int, default=4)
     p.add_argument('--no-resize', action='store_true', default=False)
@@ -31,8 +34,8 @@ def main(argv=None):
     p.add_argument('--no-repeat', action='store_true', default=False)
     p.add_argument('--data-dir', type=str, default='./data')
     p.add_argument('--n-train', type=int, default=60000,
-                   help='training rows [default: 60000; long without the '
-                        'native compositor]')
+                   help='training rows [default: 60000; long on the '
+                        'numpy generator]')
     p.add_argument('--n-test', type=int, default=10000)
     args = p.parse_args(argv)
     out = make_dataset(

@@ -100,8 +100,10 @@ def main(argv=None):
                        stack_modalities=args.stack_modalities, device=device,
                        generator=torch.Generator().manual_seed(args.seed))
     train_ds = load_celeb_vision(args.data_dir, 'train',
-                                 download=args.download, device=device)
-    test_ds = load_celeb_vision(args.data_dir, 'val', device=device)
+                                 download=args.download, device=device,
+                                 exact_decode=args.exact_decode)
+    test_ds = load_celeb_vision(args.data_dir, 'val', device=device,
+                                exact_decode=args.exact_decode)
     return run_training(
         model, train_ds, test_ds, args, TERM_MASKS, TERM_LAMBDAS,
         out_dir=args.out_dir, device=device,

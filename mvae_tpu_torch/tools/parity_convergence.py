@@ -70,7 +70,7 @@ from mvae_tpu_torch.train.loop import make_eval_step
 
 ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = ROOT / "mvae_tpu_torch"
-SOURCE_SUFFIXES = (".py", ".cu", ".cuh")
+SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cc")
 JAX_ROWS = ROOT / "PARITY_convergence.json"
 PORT_ROWS = ROOT / "PARITY_convergence_torch.json"
 MULTIMNIST_DIR = ROOT / "data" / "parity_multimnist"
@@ -357,9 +357,9 @@ def gate(port_runs, jax_mean, jax_spread):
 
 
 def code_digest():
-    """A digest of the port's sources (every .py, .cu and .cuh file under
-    mvae_tpu_torch/, by relative path and bytes): the code a row came
-    from."""
+    """A digest of the port's sources (every .py, .cu, .cuh and .cc file
+    under mvae_tpu_torch/, by relative path and bytes): the code a row
+    came from."""
     h = hashlib.sha256()
     for f in sorted(PACKAGE.rglob("*")):
         if f.suffix in SOURCE_SUFFIXES and "__pycache__" not in f.parts:

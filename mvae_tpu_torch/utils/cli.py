@@ -1,8 +1,8 @@
 """The CLIs' argument parsers (counterpart of mvae_tpu/utils/cli.py:7-78):
 the reference's flag surface with the JAX package's defaults, without
---cuda (the port runs on the card unless --device says otherwise) and
---exact-decode (it decodes real images with PIL, the exact path, always),
-plus --device.
+--cuda (the port runs on the card unless --device says otherwise), plus
+--device. --exact-decode decodes real CelebA images with PIL instead of
+the native libjpeg path (data/celeba.py).
 
 --no-device-data streams the batches from the host (train/driver.py).
 The multi-process flags start training across processes
@@ -56,6 +56,10 @@ def train_parser(*, n_latents, epochs, annealing_epochs, lr, batch_size=100,
                            if bf16_default else ''))
     p.add_argument('--f32', dest='bf16', action='store_false',
                    help='float32 compute (the reference numerics)')
+    p.add_argument('--exact-decode', action='store_true', default=False,
+                   help='force the PIL-exact image decode path for real '
+                        'CelebA ingest (reference pixel semantics) instead '
+                        'of the faster native libjpeg path')
     p.add_argument('--download', action='store_true', default=False,
                    help='fetch the MNIST / FashionMNIST archives first '
                         '(needs network access; on a failure, go on with '

@@ -424,9 +424,10 @@ def test_merge_pools_only_rows_of_the_written_rows_code(tmp_path,
 
 
 def test_code_digest_follows_the_port_sources(tmp_path, monkeypatch):
-    """code_digest reads every .py, .cu and .cuh file of the package by
-    path and bytes: a changed byte, a new source or a renamed one moves
-    it; a file of another kind does not."""
+    """code_digest reads every .py, .cu, .cuh and .cc file of the package
+    by path and bytes: a changed byte, a new source (a kernel's header or
+    the host library's C++) or a renamed one moves it; a file of another
+    kind does not."""
     pkg = tmp_path / "mvae_tpu_torch"
     (pkg / "csrc").mkdir(parents=True)
     (pkg / "a.py").write_text("x = 1\n")
@@ -439,9 +440,12 @@ def test_code_digest_follows_the_port_sources(tmp_path, monkeypatch):
     seen.append(pc.code_digest())
     (pkg / "csrc" / "r.cuh").write_text("// r\n")
     seen.append(pc.code_digest())
+    (pkg / "csrc" / "host").mkdir()
+    (pkg / "csrc" / "host" / "h.cc").write_text("// h\n")
+    seen.append(pc.code_digest())
     (pkg / "a.py").rename(pkg / "b.py")
     seen.append(pc.code_digest())
-    assert len(set(seen)) == 4 and all(len(d) == 16 for d in seen)
+    assert len(set(seen)) == 5 and all(len(d) == 16 for d in seen)
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import torch
 
 from mvae_tpu.core.engine import multi_term_elbo as jax_multi_term_elbo
 from mvae_tpu.data import multimnist as jax_mm
+from mvae_tpu.data import native as jax_native
 from mvae_tpu.data import text as jax_text
 from mvae_tpu.data.mnist import load_mnist as jax_load_mnist
 from mvae_tpu.models.multimnist import MultiMnistMVAE as JaxMultiMnist
@@ -50,6 +51,9 @@ from mvae_tpu_torch.train.driver import load_model_checkpoint
 from mvae_tpu_torch.train.loop import decode_batch, draw_noise, make_eval_step
 from mvae_tpu_torch.utils.weights import checkpoint_family, state_dict_from_jax
 
+from mvae_tpu_torch.data import native as port_native
+from tests._torch_native import (
+    build_jax_library, jax_library_reason, use_jax_library)
 from tests.test_torch_import import _build_multimnist
 from tests.test_torch_port_modules import TOL, _randomize_bn, rel_l1
 
@@ -486,13 +490,34 @@ def test_generator_is_the_numpy_path_bit_for_bit(opts):
         np.testing.assert_array_equal(g, w)
 
 
-def test_shards_load_both_ways(tmp_path):
-    """make_dataset writes the shards the JAX package's numpy path writes,
-    byte for byte in their arrays, and each side loads the other's."""
+@pytest.fixture(scope="module")
+def jax_native_so(tmp_path_factory):
+    """The JAX package's native library, built read-only from its sources
+    (never by make in its directory); None where it cannot build here."""
+    return build_jax_library(tmp_path_factory.mktemp("jax_native"))
+
+
+@pytest.mark.parametrize("use_native", [False, None])
+def test_shards_load_both_ways(tmp_path, monkeypatch, jax_native_so,
+                               use_native):
+    """make_dataset writes the shards the JAX package's make_dataset writes
+    with the same use_native, byte for byte in their arrays, and each side
+    loads the other's: False is both numpy generators; None (the default)
+    both native compositors where g++ builds them, both numpy where there
+    is no g++."""
+    core, jax_lib = port_native.unavailable_reason("core"), \
+        jax_library_reason()
+    if use_native is None and core is None and jax_lib is not None:
+        pytest.skip(f"the port composites natively, the JAX package's "
+                    f"library cannot build: {jax_lib}")
+    use_jax_library(monkeypatch, jax_native_so)
     port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
-    port_mm.make_dataset(str(port_dir), n_train=30, n_test=12)
+    port_mm.make_dataset(str(port_dir), n_train=30, n_test=12,
+                         use_native=use_native)
     jax_mm.make_dataset(str(jax_dir), n_train=30, n_test=12,
-                        use_native=False)
+                        use_native=use_native)
+    assert (jax_native._lib is not None) == (
+        use_native is None and jax_native_so is not None)
     for train in (True, False):
         got = port_mm.load_multimnist(str(jax_dir), train=train)
         want = jax_mm.load_multimnist(str(port_dir), train=train)

@@ -62,9 +62,9 @@ CLIS = ["experiments.celeba.train", "experiments.celeba.sample",
 
 
 def test_import_rule_covers_the_trainer():
-    """The walk above reaches the data loaders, the image transforms, the
-    models, the driver, the checkpoint code, the IWAE, the PNG writer and
-    every CLI."""
+    """The walk above reaches the data loaders, the native host ingest's
+    bindings, the image transforms, the models, the driver, the checkpoint
+    code, the IWAE, the PNG writer and every CLI."""
     mods = set(_all_modules())
     for name in ["data.pipeline", "data.celeba", "data.mnist",
                  "data.multimnist", "data.text", "models.mnist",
@@ -77,7 +77,7 @@ def test_import_rule_covers_the_trainer():
                  "image.transforms", "data.vision", "models.vision",
                  "experiments.vision.setup",
                  "tools.parity_convergence", "serve_http", "data.download",
-                 "tools.serve_http_bench"] + CLIS:
+                 "tools.serve_http_bench", "data.native"] + CLIS:
         assert f"mvae_tpu_torch.{name}" in mods, name
 
 
@@ -88,6 +88,22 @@ def test_sources_name_no_jax_and_no_mvae_tpu_module():
     assert len(files) > 15
     for f in files:
         assert not bad.search(f.read_text()), f
+
+
+def test_sources_name_no_path_into_the_jax_native_directory():
+    """The port builds its host library from its own copy of the C++
+    sources (csrc/host/): no file of the package names the repository's
+    native/ directory as a path, so nothing of it reads, builds into or
+    loads from there."""
+    bad = re.compile(r"""(?<![\w.-])native/|["']native["']""")
+    files = [f for f in sorted(PKG.rglob("*")) if f.is_file()
+             and f.suffix in (".py", ".cc", ".cu", ".cuh", ".h")]
+    assert any(f.suffix == ".cc" for f in files)
+    for f in files:
+        assert not bad.search(f.read_text()), f
+    assert bad.search('os.path.join(root, "native")')
+    assert bad.search("make -C native/ -s")
+    assert not bad.search("csrc/host/mvae_native.cc, data/native.py")
 
 
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(
@@ -161,8 +177,8 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
     rendezvous a model axis across nodes (a batch the processes do not
     divide, with fewer of them on this node: the JAX package refuses
     tensor parallelism across hosts) and a start without a rank, and
-    refuses the JAX CLI's --cuda and --exact-decode, which would do
-    nothing here."""
+    refuses the JAX CLI's --cuda, which would do nothing here; it takes
+    --exact-decode (PIL for real images)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     loads = []
     monkeypatch.setattr(celeba_cli, "load_celeba",
@@ -196,10 +212,38 @@ def test_train_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
         with pytest.raises(SystemExit, match="--process-id i"):
             celeba_cli.main(["--device", "cpu"] + flag)
     assert len(loads) == 2 and not torch.distributed.is_initialized()
-    for flag in ("--cuda", "--exact-decode"):
-        with pytest.raises(SystemExit):
-            celeba_cli.main(["--device", "cpu", flag])
-        assert "unrecognized arguments" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        celeba_cli.main(["--device", "cpu", "--cuda"])
+    assert "unrecognized arguments" in capsys.readouterr().err
+    with pytest.raises(ZeroDivisionError):
+        celeba_cli.main(["--device", "cpu", "--exact-decode",
+                         "--out-dir", str(tmp_path)])
+    assert len(loads) == 3 and capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("family,loader", [("celeba", "load_celeba"),
+                                           ("celeba19", "load_celeba"),
+                                           ("vision", "load_celeb_vision")])
+def test_exact_decode_reaches_the_celeba_loaders(monkeypatch, tmp_path,
+                                                 family, loader):
+    """--exact-decode goes to the train and val loaders of the CelebA,
+    celeba19 and vision train CLIs (the JAX CLIs' wiring); without it
+    they ask for the native decode."""
+    import importlib
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
+                        torch.backends.cudnn.allow_tf32)
+    cli = importlib.import_module(f"mvae_tpu_torch.experiments.{family}.train")
+    seen = []
+
+    def load(data_dir, partition, **kw):
+        seen.append((partition, kw["exact_decode"]))
+        if len(seen) % 2 == 0:
+            raise ZeroDivisionError
+    monkeypatch.setattr(cli, loader, load)
+    for flags, exact in (([], False), (["--exact-decode"], True)):
+        with pytest.raises(ZeroDivisionError):
+            cli.main(["--device", "cpu", "--out-dir", str(tmp_path)] + flags)
+        assert seen[-2:] == [("train", exact), ("val", exact)]
 
 
 @pytest.mark.parametrize("family,loader", [("multimnist", "load_multimnist"),
