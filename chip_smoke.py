@@ -12,8 +12,8 @@ against the JAX package's rows, trains data-parallel (two ranks sharing
 the card, one NCCL rank, the CLI on two processes) and on a dp4 x tp2
 grid of eight ranks (the CLI too), serves over a group of two, runs the
 native host ingest (the MultiMNIST compositor, the JPEG decode and the
-CelebA CLI on a JPEG tree), and shows that those paths went through the
-kernels.
+CelebA CLI on a JPEG tree) and the port's measuring tools, and shows
+that those paths went through the kernels.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -75,37 +75,34 @@ error status, which phase 3b reads as the status it checks):
      500 test rows) each; the train CLI with its defaults (bf16, L=64,
      B=100) for 2 epochs, --resume for a third; the sample CLI in its
      four modes; the loglike CLI at K=100 for image, text and joint;
-     Sampler.from_checkpoint at every endpoint; the bf16 train step in
-     turns against the plain versions; profile lines of a train step and
-     of an IWAE batch (K=100, B=100). Then the CelebA loglike CLI (K=100,
+     Sampler.from_checkpoint at every endpoint; profile lines of a bf16
+     train step (its windows' losses finite) and of an IWAE batch (K=100,
+     B=100). Then the CelebA loglike CLI (K=100,
      500 rows) and sample CLI (--condition-on-attrs) from 6b's checkpoint
   6d. MultiMNIST: shards of 2000 / 500 rows from the synthetic digits;
      the train CLI with its defaults (bf16, L=64, B=100) for 2 epochs,
      --resume for a third; the sample CLI from the prior and conditioned
      on a digit string, an image of it and both; the loglike CLI at K=100
      for image, text and joint; Sampler.from_checkpoint at every endpoint;
-     the bf16 train step in turns against the plain versions; profile
-     lines of a step and of an IWAE batch
+     profile lines of a bf16 step and of an IWAE batch
   6e. celeba19 on 6b's synthetic CelebA set: the train CLI in bf16 at
      --approx-m 1 (T=21; the image BCE's bf16 math) for 2 epochs on the
-     fused route, --resume for a third, one more with --fast-term-decode;
+     fused route, --resume for a third with --fast-term-decode;
      the sample CLI (prior, --condition-on-attrs Smiling); the joint
-     loglike CLI at K=100; Sampler.from_checkpoint; the train step in
-     turns against the plain versions, reference-exact and fast; profile
-     lines of both steps and of an IWAE batch
+     loglike CLI at K=100; Sampler.from_checkpoint; profile lines of the
+     train step, reference-exact and fast, and of an IWAE batch
   6f. vision on 6b's synthetic CelebA set: derive_modalities on the card
      (timed, its hysteresis iterations), the train CLI at its defaults
      (bf16, L=250, B=50, T=7 terms that each reconstruct all six
-     modalities) for 2 epochs on the fused route, --resume for a third,
-     a fourth streamed from the host (--no-device-data), a reconstruction
-     grid each epoch; the sample CLI conditioned on a test image read as
+     modalities) for 2 epochs on the fused route, --resume for a third
+     streamed from the host (--no-device-data), a reconstruction grid each
+     epoch; the sample CLI conditioned on a test image read as
      each of the six modalities; the joint loglike CLI at K=100;
-     Sampler.from_checkpoint at every endpoint; the bf16 train step in
-     turns against the plain versions; profile lines of the step and of
-     an IWAE batch (two decode chunks); the step of --stack-modalities
-     (each group of three modalities one grouped stack) in turns against
-     the loop, with a profile line of each, and one epoch of the train
-     CLI with --stack-modalities
+     Sampler.from_checkpoint at every endpoint; profile lines of the bf16
+     step and of an IWAE batch (two decode chunks); a profile line of the
+     step of --stack-modalities (each group of three modalities one
+     grouped stack) and of the loop, and one epoch of the train CLI with
+     --stack-modalities (the steps' time is 6k's)
   6g. the convergence gate's main path: the runner of
      mvae_tpu_torch/tools/parity_convergence.py on the CelebA protocol in
      bf16 at seed 0 (CelebaMVAE(100), the synthetic set of 2000 / 500
@@ -126,14 +123,15 @@ error status, which phase 3b reads as the status it checks):
      NCCL rank against the step with no group, bf16 B=100, in turns, with
      launches and all-reduces a step, one all-reduce's host cost and
      profile lines; then the CelebA train CLI as two processes
-     (--coordinator, --process-id, --n-processes), two epochs and a
-     --resume for a third, rank 0 alone logging and writing,
+     (--coordinator, --process-id, --n-processes), an epoch and a
+     --resume for a second, rank 0 alone logging and writing,
      Sampler.from_checkpoint on its model_best.pth.tar
   6i. tensor and expert parallelism (parallel/mesh.py's grid): eight ranks
      spawned on the card over gloo at global B=100, the JAX package's
      dp4 x tp2, against this process on the whole batches with the same
-     noise: CelebaMVAE(100) at the CLI weights, bf16 and f32, unfused and
-     fused, and celeba19 in bf16 (9 of 18 experts a rank): step 1's loss,
+     noise: CelebaMVAE(100) at the CLI weights, bf16 on the unfused route
+     and f32 on the fused one, and celeba19 in bf16 (9 of 18 experts a
+     rank): step 1's loss,
      every gradient gathered to full shape, the running statistics and
      the parameters, then the losses of steps 2-3 and every rank's state
      equal, each rank's launches and its collectives a step on the dp and
@@ -155,6 +153,15 @@ error status, which phase 3b reads as the status it checks):
      Throughput, finite losses). Without the image headers the native
      decode's part is skipped, said so, and the tree's loads and CLI runs
      go through PIL
+  6k. the measuring tools (mvae_tpu_torch/tools/) at full width:
+     tools/bench.py at --k 20 --windows 5 (CelebA bf16 steps/s against
+     the reference flow in turns, mfu, the idle share, peak memory),
+     tools/bench_families.py --bf16 --flops --k 20 (all six families),
+     tools/roofline_family.py --family celeba --bf16 --top 10 and
+     tools/serve_latency.py for celeba (6b's checkpoint) and mnist: every
+     JSON line parses, every mfu in (0, 1.05], every idle share in [0, 1];
+     then FlopCounterMode's count of one shipped CelebA step equal to the
+     FLOPs from shapes plus the dead decodes'
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -174,12 +181,12 @@ error status, which phase 3b reads as the status it checks):
   in turns, and one window of each runs under
   torch.use_deterministic_algorithms(warn_only=True), whose warnings name
   the ops with no deterministic form.
-  8. the kernels line: launches on phases 3-5 and 6b-6j (6h's and 6i's
+  8. the kernels line: launches on phases 3-5 and 6b-6k (6h's and 6i's
      spawned ranks' own included), error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
 Phases 3-5 and 6c-6f end with a torch.profiler breakdown of device time
-per call.
+per call (tools/measure.py:profile_breakdown).
 Weights are random from seed 0, the BN statistics and affine parameters
 too. The last line is {"ok": true, "device": {...}}.
 
@@ -216,6 +223,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 from mvae_tpu_torch import ops
 from mvae_tpu_torch.core.engine import multi_term_elbo
@@ -263,13 +271,17 @@ from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.serve_http import (
     ServeApp, decode_array, encode_array, make_server, warmup_buckets)
 from mvae_tpu_torch.tools import dp_check
+from mvae_tpu_torch.tools import bench as bench_tool
+from mvae_tpu_torch.tools import (
+    bench_families, measure, roofline_family, serve_http_bench,
+    serve_latency)
 from mvae_tpu_torch.tools import parity_convergence as parity
-from mvae_tpu_torch.tools import serve_http_bench
+from mvae_tpu_torch.tools.measure import host_ms, profile_breakdown
 from mvae_tpu_torch.train.checkpoint import BEST, CKPT
 from mvae_tpu_torch.train.driver import to_device_data
 from mvae_tpu_torch.train.loop import (
     decode_batch, draw_noise, make_eval_step, make_multi_train_step,
-    resolve_decode_dtype)
+    make_train_step, resolve_decode_dtype)
 from mvae_tpu_torch.utils.png import write_png
 
 MASKS = [[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]]
@@ -526,19 +538,6 @@ def reduction_at(op, geo):
         ops._cuda.check(f"bn {op} at {geo}", rc)
         return s, q
     return fn
-
-
-def host_ms(fn, reps=20):
-    """Median wall time of fn() + synchronize, in ms."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(out)
 
 
 def bound(nbytes, nops, peaks, rate=None):
@@ -1248,12 +1247,12 @@ def phase_train(dev, card, data, out):
     profiler's own work grows with the events it keeps). Beta 1, as after
     the CLI's 20 annealing epochs. Records each window's mean loss and the
     running statistics before training, for the checks."""
-    # a warm-up pair, then K, P, P, K twice (K: kernel path, P: plain);
-    # the routes likewise, F, U, U, F twice (F: fused, U: unfused): the
-    # default follows them (earlier rounds of four, PERF.md), and the host's
-    # noise is large
-    order = (False, True) + (False, True, True, False) * 2
-    route_order = (False, True) + (False, True, True, False) * 2
+    # a warm-up pair, then K, P, P, K (K: kernel path, P: plain); the
+    # routes likewise, F, U, U, F (F: fused, U: unfused): one round each,
+    # as the kernel path's step over longer windows is tools/bench.py's
+    # (phase 6k)
+    order = (False, True) + (False, True, True, False)
+    route_order = (False, True) + (False, True, True, False)
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
         model = celeba(dtype, dev, seed=10)
@@ -1275,7 +1274,7 @@ def phase_train(dev, card, data, out):
             if i >= 2:
                 times[plain].append(ms)
         print(f"[train] {dt} B=100 T=3 K={TRAIN_K}: mean loss per window "
-              f"{losses} (K, P | K, P, P, K, K, P, P, K)")
+              f"{losses} (K, P | K, P, P, K)")
         print(f"[train] {dt} B=100 T=3 step: {times[False]} ms (plain "
               f"versions {times[True]} ms), host clock per window / K; "
               f"{pairs_won(times[False], times[True])} | {card}")
@@ -1297,7 +1296,7 @@ def phase_train(dev, card, data, out):
                 r_times[not unfused].append(ms)
         print(f"[train] {dt} B=100 T=3 step, encoder route: fused "
               f"(conv2d_moments) {r_times[True]} ms, unfused {r_times[False]}"
-              f" ms, in turns F, U, U, F twice, host clock per window "
+              f" ms, in turns F, U, U, F, host clock per window "
               f"/ K; fused against unfused: "
               f"{pairs_won(r_times[True], r_times[False])} | {card}")
         for fused, label in ((True, "fused"), (False, "unfused")):
@@ -1337,21 +1336,22 @@ class TimedLines(io.TextIOBase):
         self.sink.flush()
 
 
-def run_train_cli(main, argv, first_extra, out_dir, what, real_data=False):
+def run_train_cli(main, argv, first_extra, out_dir, what, real_data=False,
+                  resume_extra=()):
     """A train CLI's main for CLI_EPOCHS epochs (with first_extra), then
-    --resume of its checkpoint for one more, on the card. Checks the
-    reference's log lines (two train lines an epoch: 20 steps, windows of
-    10), both files, the epoch the resume starts at and a finite test loss
-    each epoch, and with real_data that the loader read files (no
-    synthetic fallback). Returns (test losses, throughput lines, each
-    epoch's training wall s)."""
+    --resume of its checkpoint for one more (with resume_extra), on the
+    card. Checks the reference's log lines (two train lines an epoch: 20
+    steps, windows of 10), both files, the epoch the resume starts at and
+    a finite test loss each epoch, and with real_data that the loader read
+    files (no synthetic fallback). Returns (test losses, throughput lines,
+    each epoch's training wall s, the resumed run's lines)."""
     rec = TimedLines(sys.stdout)
     with contextlib.redirect_stdout(rec):
         rec.lines.append((time.perf_counter(), f"[{what}] start"))
         main(argv + ["--epochs", str(CLI_EPOCHS)] + first_extra)
         rec.lines.append((time.perf_counter(), f"[{what}] resume"))
         main(argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume",
-                     os.path.join(out_dir, CKPT)])
+                     os.path.join(out_dir, CKPT), *resume_extra])
     for name in (CKPT, BEST):
         expect(os.path.isfile(os.path.join(out_dir, name)),
                f"{what}: no {name}")
@@ -1388,7 +1388,7 @@ def run_train_cli(main, argv, first_extra, out_dir, what, real_data=False):
             start = t
         elif line.startswith("====> Epoch"):
             train_s.append(t - start)
-    return tests, throughput, train_s
+    return tests, throughput, train_s, lines[i:]
 
 
 def phase_cli(dev, card, root):
@@ -1407,7 +1407,7 @@ def phase_cli(dev, card, root):
     out_dir = os.path.join(tmp, "models")
     argv = ["--annealing-epochs", "1", "--log-interval", "10",
             "--out-dir", out_dir, "--data-dir", os.path.join(tmp, "data")]
-    tests, throughput, train_s = run_train_cli(
+    tests, throughput, train_s, _ = run_train_cli(
         celeba_cli.main, argv, ["--conv-moments"], out_dir, "cli")
     epochs = list(range(1, CLI_EPOCHS + 2))
     print(f"[cli] CelebaMVAE(100) bf16 B=100, 20 steps an epoch: "
@@ -1491,17 +1491,16 @@ def family_device_data(family, data_dir, dev):
 
 
 def family_train_timing(dev, card, family, data):
-    """The family's bf16 train step at B=100 in turns against the plain
-    versions, with its profile line (timed_turns); for fashionmnist also
-    what the convergence runner's cuDNN flags cost it
-    (determinism_readings)."""
+    """The family's bf16 train step at B=100, with its profile line
+    (profiled_window); for fashionmnist also what the convergence
+    runner's cuDNN flags cost it (determinism_readings)."""
     model = FAMILY_CLIS[family][3](
         64, torch.bfloat16, device=dev,
         generator=torch.Generator().manual_seed(40))
     multi = make_multi_train_step(
         model, MASKS, FAM_LAMBDAS, lr=FAM_LR, device=dev,
         generator=torch.Generator(device=dev).manual_seed(41))
-    timed_turns(dev, card, f"{family} T=3", multi, data, lambda k: {})
+    profiled_window(dev, card, f"{family} T=3", multi, data, lambda k: {})
     if family == "fashionmnist":
         determinism_readings(dev, card, family, multi, data)
 
@@ -1542,8 +1541,8 @@ def phase_families(dev, card, root, celeba_dir):
     of phase 6b); the sample CLI in its four modes from model_best.pth.tar;
     the loglike CLI at K=100 on the N_FAM_TEST test rows for image, text
     and joint (finite, negative); Sampler.from_checkpoint answering one
-    request at every endpoint; the bf16 train step timed in turns against
-    the plain versions, with its profile line; the profile line of one
+    request at every endpoint; the bf16 train step's profile line
+    (profiled_window); the profile line of one
     IWAE batch (K=100, B=100, f32). Then CelebaMVAE(100) from phase 6b's
     checkpoint: the loglike CLI (joint, K=100, the CelebA loader's test
     partition: 500 synthetic rows), the sample CLI with --condition-on-attrs, and its IWAE batch's
@@ -1556,7 +1555,7 @@ def phase_families(dev, card, root, celeba_dir):
         dirs[family] = data_dir
         write_idx_set(data_dir, variant)
         t0 = time.perf_counter()
-        tests, throughput, train_s = run_train_cli(
+        tests, throughput, train_s, _ = run_train_cli(
             train.main, ["--out-dir", out_dir, "--data-dir", data_dir], [],
             out_dir, family, real_data=True)
         print(f"[{family}] {cls.__name__}(64) bf16 B=100, 20 steps an "
@@ -1695,13 +1694,11 @@ def check_mm_outputs(out, n):
         (n, 4), device=out["text"].device), rtol=1e-5, atol=1e-5)
 
 
-def ab_turns(dev, name, a, b, data, steps_extra, batch=BATCH,
-             k_steps=TRAIN_K):
-    """Windows of k_steps train steps at B=batch of two variants in turns
-    after a warm-up pair (A, B | A, B, B, A, A, B, B, A); a and b are
+def ab_turns(dev, name, a, b, data, batch=BATCH):
+    """Windows of TRAIN_K train steps at B=batch of two variants in turns
+    after a warm-up pair (A, B | A, B, B, A); a and b are
     (label, multi, context factory): make_multi_train_step's window run
-    inside the context. steps_extra(k): the window's extra arguments
-    (celeba19's masks). Returns ({label: host ms per step of each timed
+    inside the context. Returns ({label: host ms per step of each timed
     window}, the mean loss of every window)."""
     rng = np.random.default_rng(42)
     n = next(iter(data.values())).shape[0]
@@ -1710,17 +1707,16 @@ def ab_turns(dev, name, a, b, data, steps_extra, batch=BATCH,
         return torch.from_numpy(np.stack([rng.permutation(n)[:batch]
                                           for _ in range(k)])).to(dev)
 
-    betas = torch.ones(k_steps, device=dev)
-    order = (a, b) + (a, b, b, a) * 2
+    betas = torch.ones(TRAIN_K, device=dev)
+    order = (a, b) + (a, b, b, a)
     losses, times = [], {a[0]: [], b[0]: []}
     for i, (label, multi, context) in enumerate(order):
-        extra = steps_extra(k_steps)
         torch.cuda.synchronize()
         with context():
             t0 = time.perf_counter()
-            window_losses = multi(data, window(k_steps), betas, **extra)
+            window_losses = multi(data, window(TRAIN_K), betas)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / k_steps
+            ms = (time.perf_counter() - t0) * 1e3 / TRAIN_K
         expect(bool(torch.isfinite(window_losses).all()),
                f"{name} {label}: loss not finite {window_losses}")
         losses.append(window_losses.mean().item())
@@ -1729,31 +1725,27 @@ def ab_turns(dev, name, a, b, data, steps_extra, batch=BATCH,
     return times, losses
 
 
-def timed_turns(dev, card, name, multi, data, steps_extra, batch=BATCH,
-                k_steps=TRAIN_K):
-    """A family's bf16 train step at B=batch in windows of k_steps steps
-    of make_multi_train_step, kernel path and plain versions in turns
-    after a warm-up pair (as phase 5), then a device-time breakdown per
-    step. steps_extra(k): the window's extra arguments (celeba19's
-    masks)."""
-    times, losses = ab_turns(
-        dev, name, ("kernels", multi, contextlib.nullcontext),
-        ("plain", multi, ops.plain_versions), data, steps_extra, batch,
-        k_steps)
-    print(f"[{name}] bf16 B={batch} K={k_steps}: mean loss per window "
-          f"{losses} (K, P | K, P, P, K, K, P, P, K)")
-    print(f"[{name}] bf16 B={batch} step: {times['kernels']} ms (plain "
-          f"versions {times['plain']} ms), host clock per window / K; "
-          f"{pairs_won(times['kernels'], times['plain'])} | {card}")
+def profiled_window(dev, card, name, multi, data, steps_extra,
+                    batch=BATCH):
+    """A family's bf16 train step at B=batch on the kernel path: windows
+    of PROFILE_K steps of make_multi_train_step under a device-time
+    breakdown per step (profile_breakdown), every window's losses finite.
+    steps_extra(k): the window's extra arguments (celeba19's masks). The
+    step's time over longer windows is tools/bench_families.py's (phase
+    6k)."""
     rng = np.random.default_rng(43)
     n = next(iter(data.values())).shape[0]
     idxs = torch.from_numpy(np.stack([rng.permutation(n)[:batch]
                                       for _ in range(PROFILE_K)])).to(dev)
+    betas = torch.ones(PROFILE_K, device=dev)
+    extra = steps_extra(PROFILE_K)
+    losses = []
     profile_breakdown(
         f"{name} train bf16 B={batch} step (window of {PROFILE_K})",
-        lambda: multi(data, idxs, torch.ones(PROFILE_K, device=dev),
-                      **steps_extra(PROFILE_K)), card,
+        lambda: losses.append(multi(data, idxs, betas, **extra)), card,
         reps=1, wall_reps=1, per=PROFILE_K)
+    expect(all(bool(torch.isfinite(x).all()) for x in losses),
+           f"{name}: a window's loss is not finite {losses}")
 
 
 @contextlib.contextmanager
@@ -1777,8 +1769,7 @@ def determinism_readings(dev, card, name, multi, data, batch=BATCH):
     warnings name every op of the step that has no deterministic form."""
     times, _ = ab_turns(
         dev, name, ("cuDNN defaults", multi, contextlib.nullcontext),
-        ("cudnn.deterministic", multi, cudnn_deterministic), data,
-        lambda k: {}, batch)
+        ("cudnn.deterministic", multi, cudnn_deterministic), data, batch)
     a, b = times["cuDNN defaults"], times["cudnn.deterministic"]
     print(f"[determinism] {name} bf16 B={batch} step: cuDNN defaults {a} "
           f"ms, cudnn.deterministic {b} ms (median "
@@ -1821,8 +1812,8 @@ def phase_multimnist(dev, card, root):
     for CLI_EPOCHS epochs, then --resume for one more; the sample CLI from
     the prior, a digit string, a test image of it and both; the loglike CLI
     at K=100 for image, text and joint; Sampler.from_checkpoint at every
-    endpoint; the bf16 train step in turns against the plain versions with
-    its profile line; one IWAE batch's profile line. Returns the data
+    endpoint; the bf16 train step's profile line (profiled_window); one
+    IWAE batch's profile line. Returns the data
     directory."""
     tmp = os.path.join(root, "multimnist")
     data_dir, out_dir = (os.path.join(tmp, d) for d in ("data", "models"))
@@ -1831,7 +1822,7 @@ def phase_multimnist(dev, card, root):
     print(f"[multimnist] shards of {N_MM_TRAIN} / {N_MM_TEST} rows written in "
           f"{time.perf_counter() - t0} s (numpy generator, host)")
     t0 = time.perf_counter()
-    tests, throughput, train_s = run_train_cli(
+    tests, throughput, train_s, _ = run_train_cli(
         mm_train.main, ["--out-dir", out_dir, "--data-dir", data_dir], [],
         out_dir, "multimnist")
     print(f"[multimnist] MultiMnistMVAE(64) bf16 B=100, 20 steps an epoch: "
@@ -1888,7 +1879,7 @@ def phase_multimnist(dev, card, root):
         model, MASKS, MM_LAMBDAS, lr=FAM_LR, device=dev,
         generator=torch.Generator(device=dev).manual_seed(41))
     data = to_device_data(load_multimnist(data_dir, train=True), dev)
-    timed_turns(dev, card, "multimnist", multi, data, lambda k: {})
+    profiled_window(dev, card, "multimnist", multi, data, lambda k: {})
     determinism_readings(dev, card, "multimnist", multi, data)
     model, batch, eps = iwae_inputs("multimnist", dev, data_dir)
     profile_breakdown(
@@ -1904,32 +1895,24 @@ def phase_celeba19(dev, card, root, data_dir):
     set of phase 6b's data directory (2000 train, 500 val, 500 test rows).
     The train CLI in bf16 at --approx-m 1 (the image BCE's bf16 math, the
     CLI's default) for CLI_EPOCHS epochs on the encoder's fused route
-    (--conv-moments), --resume for one more on the default route, then one
-    more with --fast-term-decode (the f32 math); the sample CLI with
+    (--conv-moments), --resume for one more on the default route with
+    --fast-term-decode (the f32 math); the sample CLI with
     --condition-on-attrs Smiling and from the prior; the loglike CLI
-    (joint, K=100); Sampler.from_checkpoint; the bf16 train step in turns
-    against the plain versions with its profile line, the same under
-    --fast-term-decode, and one IWAE batch's profile line."""
+    (joint, K=100); Sampler.from_checkpoint; the bf16 train step's
+    profile line (profiled_window), the same under --fast-term-decode,
+    and one IWAE batch's profile line."""
     out_dir = os.path.join(root, "celeba19", "models")
     argv = ["--out-dir", out_dir, "--data-dir", data_dir]
     t0 = time.perf_counter()
-    tests, throughput, train_s = run_train_cli(
-        c19_train.main, argv, ["--conv-moments"], out_dir, "celeba19")
-    _, lines = run_main(c19_train.main, argv + [
-        "--epochs", str(CLI_EPOCHS + 2), "--fast-term-decode", "--resume",
-        os.path.join(out_dir, CKPT)])
-    expect(any(line.startswith("resumed from ")
-               and line.endswith(f"at epoch {CLI_EPOCHS + 1}")
-               for line in lines), "celeba19 fast: no resume line")
-    fast = [float(line.split()[-1]) for line in lines
-            if line.startswith("====> Test Loss")]
-    expect(len(fast) == 1 and np.isfinite(fast[0]),
-           f"celeba19 fast: test losses {fast}")
+    # the resumed epoch runs --fast-term-decode
+    tests, throughput, train_s, _ = run_train_cli(
+        c19_train.main, argv, ["--conv-moments"], out_dir, "celeba19",
+        resume_extra=["--fast-term-decode"])
     print(f"[celeba19] Celeba19MVAE(100) bf16 B=100 T=21, 20 steps an "
           f"epoch: {throughput} ; epoch training wall s {train_s}; test "
-          f"losses {tests}, then {fast} after an epoch of "
-          f"--fast-term-decode; the CLI runs {time.perf_counter() - t0} s "
-          f"| {card}")
+          f"losses {tests[:-1]}, then {tests[-1:]} after the resumed "
+          f"epoch of --fast-term-decode; the CLI runs "
+          f"{time.perf_counter() - t0} s | {card}")
     best = os.path.join(out_dir, BEST)
     for i, extra in enumerate(([], ["--condition-on-attrs", "Smiling"])):
         d = os.path.join(root, "celeba19", f"samples{i}")
@@ -1973,9 +1956,8 @@ def phase_celeba19(dev, card, root, data_dir):
             model, None, None, lr=LR, device=dev,
             generator=torch.Generator(device=dev).manual_seed(45),
             recon_support=celeba19_recon_support(1), fast_skip_decode=fast)
-        timed_turns(dev, card, "celeba19" + (" --fast-term-decode" if fast
-                                             else " T=21"), multi, data,
-                    terms)
+        profiled_window(dev, card, "celeba19" + (
+            " --fast-term-decode" if fast else " T=21"), multi, data, terms)
     model, batch, eps = iwae_inputs("celeba19", dev, data_dir)
     profile_breakdown(
         f"celeba19 IWAE f32 K={IWAE_K} B={BATCH} joint",
@@ -1990,7 +1972,6 @@ def phase_celeba19(dev, card, root, data_dir):
 
 V_BATCH = 50            # experiments/vision/train.py: batch 50
 V_LOG = 20              # steps a window: 2 train lines an epoch of 40
-V_K = 10                # steps a timed window
 V_TEST = 500            # the synthetic set's test rows: the loglike's N
 # Canny on the card against the CPU (TF32 off): a pixel whose CPU
 # magnitude (or NMS interpolant, or gradient octant) lies within this
@@ -2016,13 +1997,14 @@ def phase_vision(dev, card, root, data_dir):
     iterations; the train CLI at its defaults (bf16, L=250, batch 50,
     T=7 terms that each reconstruct all six modalities) for CLI_EPOCHS
     epochs on the encoders' fused route (--conv-moments), --resume for one
-    more on the default route, then one more streamed from the host
-    (--no-device-data); a reconstruction grid each epoch; the sample CLI
+    more on the default route streamed from the host (--no-device-data);
+    a reconstruction grid each epoch; the sample CLI
     conditioned on a test image read as each of the six modalities; the
     loglike CLI (joint, K=100, the 500 test rows);
-    Sampler.from_checkpoint at every endpoint; the bf16 train step in
-    turns against the plain versions with its profile line; one IWAE
-    batch's profile line. Returns the train rows' six modalities."""
+    Sampler.from_checkpoint at every endpoint; the bf16 train step's
+    profile line (profiled_window), the loop's and --stack-modalities'
+    (stacked_windows); one IWAE batch's profile line. Returns the train
+    rows' six modalities."""
     tmp = os.path.join(root, "vision")
     out_dir = os.path.join(tmp, "models")
     rgb = load_celeba(data_dir, "train").arrays["image"]
@@ -2038,39 +2020,24 @@ def phase_vision(dev, card, root, data_dir):
     argv = ["--annealing-epochs", "1", "--log-interval", str(V_LOG),
             "--out-dir", out_dir, "--data-dir", data_dir]
     t0 = time.perf_counter()
-    tests, throughput, train_s = run_train_cli(
-        v_train.main, argv, ["--conv-moments"], out_dir, "vision")
-    rec = TimedLines(sys.stdout)
-    with contextlib.redirect_stdout(rec):
-        v_train.main(argv + ["--epochs", str(CLI_EPOCHS + 2),
-                             "--no-device-data", "--resume",
-                             os.path.join(out_dir, CKPT)])
-    lines = [line for _, line in rec.lines]
-    # the streamed epoch's training: its pipeline line to its epoch line
-    host_s = (next(t for t, line in rec.lines if line.startswith("====> E"))
-              - next(t for t, line in rec.lines
-                     if line.startswith("input pipeline")))
+    # the resumed epoch streams from the host; its training wall (the
+    # pipeline line to the epoch line) is train_s's last
+    tests, throughput, train_s, resumed = run_train_cli(
+        v_train.main, argv, ["--conv-moments"], out_dir, "vision",
+        resume_extra=["--no-device-data"])
     expect(any(line.startswith("input pipeline: host streaming "
-                               "(--no-device-data") for line in lines),
+                               "(--no-device-data") for line in resumed),
            "vision: no host-streaming line")
-    expect(any(line.endswith(f"at epoch {CLI_EPOCHS + 1}")
-               for line in lines), "vision host: no resume line")
-    expect(sum(line.startswith(f"Train Epoch: {CLI_EPOCHS + 2} [")
-               for line in lines) == 2, "vision host: not 2 train lines")
-    host = [float(line.split()[-1]) for line in lines
-            if line.startswith("====> Test Loss")]
-    expect(len(host) == 1 and np.isfinite(host[0]),
-           f"vision host: test losses {host}")
-    for e in range(1, CLI_EPOCHS + 3):
+    for e in range(1, CLI_EPOCHS + 2):
         with open(os.path.join(out_dir, "reconstructions",
                                f"epoch_{e}.png"), "rb") as f:
             expect(f.read(8) == b"\x89PNG\r\n\x1a\n",
                    f"vision: reconstructions/epoch_{e}.png")
     print(f"[vision] VisionMVAE(250) bf16 B=50 T=7, 40 steps an epoch: "
-          f"{throughput} ; epoch training wall s {train_s}; test losses "
-          f"{tests}, then {host} after an epoch streamed from the host "
-          f"in {host_s} s; the CLI runs {time.perf_counter() - t0} s "
-          f"| {card}")
+          f"{throughput} ; epoch training wall s {train_s[:-1]}; test "
+          f"losses {tests[:-1]}, then {tests[-1:]} after the resumed epoch "
+          f"streamed from the host in {train_s[-1]} s; the CLI runs "
+          f"{time.perf_counter() - t0} s | {card}")
 
     st_dir = os.path.join(tmp, "stacked")
     t0 = time.perf_counter()
@@ -2132,10 +2099,10 @@ def phase_vision(dev, card, root, data_dir):
         generator=torch.Generator(device=dev).manual_seed(61),
         recon_masks=v_train.RECON_MASKS)
     data = to_device_data(ArrayDataset(mods), dev)
-    timed_turns(dev, card, "vision T=7", multi, data, lambda k: {},
-                batch=V_BATCH, k_steps=V_K)
+    profiled_window(dev, card, "vision T=7", multi, data, lambda k: {},
+                    batch=V_BATCH)
     del multi, model
-    stacked_turns(dev, card, data)
+    stacked_windows(dev, card, data)
     model = VisionMVAE(250, device=dev,
                        generator=torch.Generator().manual_seed(50))
     batch = {m: torch.from_numpy(test[m][:BATCH]).to(dev)
@@ -2150,38 +2117,32 @@ def phase_vision(dev, card, root, data_dir):
     return mods
 
 
-def stacked_turns(dev, card, data):
-    """vision's bf16 train step, the loop against --stack-modalities
-    (VisionMVAE(stack_modalities=True)), both from one seed, in windows of
-    V_K steps in turns (ab_turns), then a profile line of each: wall and
-    device ms, launches a step, the device's idle share."""
-    multis = {}
-    for flag in (False, True):
-        model = VisionMVAE(250, torch.bfloat16, stack_modalities=flag,
-                           device=dev,
-                           generator=torch.Generator().manual_seed(62))
-        multis[flag] = make_multi_train_step(
-            model, v_train.TERM_MASKS, v_train.TERM_LAMBDAS, lr=LR,
-            device=dev, generator=torch.Generator(device=dev).manual_seed(63),
-            recon_masks=v_train.RECON_MASKS)
-    times, _ = ab_turns(
-        dev, "vision T=7", ("loop", multis[False], contextlib.nullcontext),
-        ("stacked", multis[True], contextlib.nullcontext), data,
-        lambda k: {}, V_BATCH, V_K)
-    print(f"[vision] bf16 B={V_BATCH} T=7 step: loop {times['loop']} ms, "
-          f"--stack-modalities {times['stacked']} ms, host clock per "
-          f"window / K; {pairs_won(times['loop'], times['stacked'])} | "
-          f"{card}")
+def stacked_windows(dev, card, data):
+    """vision's bf16 train step, the loop and --stack-modalities
+    (VisionMVAE(stack_modalities=True)), both from one seed: a profile
+    line of each (wall and device ms, launches a step, the device's idle
+    share), every window's losses finite."""
     rng = np.random.default_rng(64)
     n = next(iter(data.values())).shape[0]
     idxs = torch.from_numpy(np.stack([rng.permutation(n)[:V_BATCH]
                                       for _ in range(PROFILE_K)])).to(dev)
     betas = torch.ones(PROFILE_K, device=dev)
     for flag, label in ((False, "loop"), (True, "--stack-modalities")):
+        model = VisionMVAE(250, torch.bfloat16, stack_modalities=flag,
+                           device=dev,
+                           generator=torch.Generator().manual_seed(62))
+        multi = make_multi_train_step(
+            model, v_train.TERM_MASKS, v_train.TERM_LAMBDAS, lr=LR,
+            device=dev, generator=torch.Generator(device=dev).manual_seed(63),
+            recon_masks=v_train.RECON_MASKS)
+        losses = []
         profile_breakdown(
             f"vision train bf16 B={V_BATCH} T=7 step, {label} (window of "
-            f"{PROFILE_K})", lambda: multis[flag](data, idxs, betas), card,
+            f"{PROFILE_K})",
+            lambda: losses.append(multi(data, idxs, betas)), card,
             reps=1, wall_reps=1, per=PROFILE_K)
+        expect(all(bool(torch.isfinite(x).all()) for x in losses),
+               f"vision {label}: a window's loss is not finite {losses}")
 
 
 # phase 6g: the runner's row, held within SMOKE_SPREADS times the JAX
@@ -2677,6 +2638,9 @@ DP_TIMEOUT_S = 300      # a rank's run, or a CLI process
 REPO = os.path.dirname(os.path.abspath(__file__))
 TP_WORLD = 8            # ranks that share the card (gloo): B=100 on 8 is
                         # the JAX package's dp4 x tp2 (gcd(8, 100) = 4)
+# 6i's CelebA recipes: each dtype and each encoder route once on the grid
+# (6h runs all four at dp2; the CPU tests hold every family's tp step)
+TP_RECIPES = ("celeba bfloat16 unfused", "celeba float32 fused")
 TP_CALLS = {"celeba": 2, "celeba19": 5}   # tp collectives a step: the head
                         # pair's all-reduce and its input's gradient's;
                         # celeba19 adds the experts' two gathers and the
@@ -2827,7 +2791,7 @@ def dp_two_ranks(dev, card):
 def dp_one_rank_turns(dev, card, data, root):
     """The dp step under a process group of one NCCL rank against the step
     with no group, bf16 B=100, in windows of K=20 (ab_turns: A, B, B, A
-    twice after a warm-up pair): ms a step, the kernel launches and the
+    after a warm-up pair): ms a step, the kernel launches and the
     all-reduces a step, and a profile line of each (all-reduce device ms
     among the families)."""
     backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -2845,10 +2809,9 @@ def dp_one_rank_turns(dev, card, data, root):
                 generator=torch.Generator(device=dev).manual_seed(3))
         (a, b) = steps.items()
         times, losses = ab_turns(dev, "dp", (*a, contextlib.nullcontext),
-                                 (*b, contextlib.nullcontext), data,
-                                 lambda k: {})
+                                 (*b, contextlib.nullcontext), data)
         print(f"[dp] bf16 B=100 K={TRAIN_K}: mean loss per window {losses}"
-              f" (A, B | A, B, B, A, A, B, B, A; A {a[0]}, B {b[0]})")
+              f" (A, B | A, B, B, A; A {a[0]}, B {b[0]})")
         print(f"[dp] bf16 B=100 step: {b[0]} {times[b[0]]} ms, {a[0]} "
               f"{times[a[0]]} ms, host clock per window / K; "
               f"{pairs_won(times[b[0]], times[a[0]])} | {card}")
@@ -2956,10 +2919,9 @@ def epoch_wall(timed, epoch):
 def dp_cli(dev, card, root):
     """The CelebA train CLI on two processes that share the card (gloo),
     bf16 CelebaMVAE(100), B=100 (50 a rank), on the synthetic set (phase
-    6b's settings, 20 steps an epoch): two epochs (the second prints the
-    throughput), then --resume of rank 0's checkpoint by both for a
-    third; rank 0 alone logs and writes; Sampler.from_checkpoint answers
-    from its model_best.pth.tar."""
+    6b's settings, 20 steps an epoch): an epoch, then --resume of rank 0's
+    checkpoint by both for a second; rank 0 alone logs and writes;
+    Sampler.from_checkpoint answers from its model_best.pth.tar."""
     tmp = os.path.join(root, "dp_cli")
     dirs = [os.path.join(tmp, f"rank{r}") for r in range(DP_WORLD)]
     argv = ["--annealing-epochs", "1", "--log-interval", "10",
@@ -2967,13 +2929,13 @@ def dp_cli(dev, card, root):
     if dev.type != "cuda":
         argv += ["--device", str(dev)]
     t0 = time.perf_counter()
-    first, timed1 = dp_cli_run(argv + ["--epochs", "2"], dirs, "dp cli")
+    first, timed1 = dp_cli_run(argv + ["--epochs", "1"], dirs, "dp cli")
     t1 = time.perf_counter()
-    second, timed2 = dp_cli_run(argv + ["--epochs", "3", "--resume",
+    second, timed2 = dp_cli_run(argv + ["--epochs", "2", "--resume",
                                         os.path.join(dirs[0], CKPT)], dirs,
                                 "dp cli resume")
     t2 = time.perf_counter()
-    for out, epochs in ((first[0], (1, 2)), (second[0], (3,))):
+    for out, epochs in ((first[0], (1,)), (second[0], (2,))):
         lines = out.splitlines()
         expect(any(line.startswith("data-parallel over 2 processes "
                                    "(backend gloo)") for line in lines),
@@ -2988,7 +2950,7 @@ def dp_cli(dev, card, root):
         print(f"[dp cli] rank 0, epochs {epochs}: "
               f"{[x for x in lines if not x.startswith('Train')]}")
     expect(any(line.startswith("resumed from ") and line.endswith(
-        "at epoch 2") for line in second[0].splitlines()),
+        "at epoch 1") for line in second[0].splitlines()),
         "dp cli: no resume line")
     expect(all(out == "" for out in first[1:] + second[1:]),
            f"dp cli: rank 1 printed {first[1][:200]!r} {second[1][:200]!r}")
@@ -3000,15 +2962,12 @@ def dp_cli(dev, card, root):
     images = torch.rand((8, 64, 64, 3), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(9))
     check_images(sampler.reconstruct({"image": images}), 8)
-    throughput = [line for line in first[0].splitlines()
-                  if "Throughput" in line]
-    print(f"[dp cli] {DP_WORLD} processes, 2 epochs {t1 - t0} s, the "
-          f"resumed third {t2 - t1} s (process start, data and the "
-          f"build's load included); epoch 2 {throughput}; training wall "
-          f"from the input-pipeline line to the epoch line of epoch 1 "
-          f"(warm-up included) {epoch_wall(timed1, 1)} s and of the "
-          f"resumed epoch 3 {epoch_wall(timed2, 3)} s; {BEST} served one "
-          f"reconstruct request | {card}")
+    print(f"[dp cli] {DP_WORLD} processes, an epoch {t1 - t0} s, the "
+          f"resumed second {t2 - t1} s (process start, data and the "
+          f"build's load included); training wall from the input-pipeline "
+          f"line to the epoch line of epoch 1 {epoch_wall(timed1, 1)} s and "
+          f"of the resumed epoch 2 {epoch_wall(timed2, 2)} s (warm-up "
+          f"included); {BEST} served one reconstruct request | {card}")
 
 
 def phase_dp(dev, card, root, data):
@@ -3220,12 +3179,14 @@ def tp_serving(dev, card, best):
 
 
 def phase_tp(dev, card, root):
-    """Phase 6i: the dp4 x tp2 steps of CelebA (bf16 and f32, unfused and
-    fused) and celeba19 on eight ranks against one process, the CelebA
+    """Phase 6i: the dp4 x tp2 steps of CelebA (bf16 on the unfused
+    route, f32 on the fused one) and celeba19 on eight ranks against one
+    process, the CelebA
     CLI on eight processes and a resume, and serving over a group of two;
     returns the ranks' kernel launches."""
+    recipes = [rc for rc in dp_recipes() if rc["name"] in TP_RECIPES]
     launches = ranks_vs_one_process(dev, card, TP_WORLD,
-                                    dp_recipes() + [c19_recipe()], "tp")
+                                    recipes + [c19_recipe()], "tp")
     lap("tp: eight ranks against one process")
     best = tp_cli(dev, card, root)
     lap("tp: the CLI on eight processes")
@@ -3518,76 +3479,94 @@ def phase_ingest(dev, card, root):
     ingest_cli(card, cpu, tree, root)
 
 
-# kernel families of the profile lines, first match wins
-FAMILIES = (
-    ("all-reduce (NCCL)", lambda k: "nccl" in k.lower()),
-    ("poe_fwd", lambda k: "poe_fwd_kernel" in k),
-    ("poe_bwd", lambda k: "poe_bwd_kernel" in k),
-    ("bce_rowsum_fwd", lambda k: "bce_rowsum_kernel" in k),
-    ("bn_moments", lambda k: "bn_reduce_kernel" in k and "MomentsOp" in k),
-    ("bn_normalize", lambda k: "bn_normalize_kernel" in k),
-    ("bn_bwd_partials", lambda k: "bn_reduce_kernel" in k
-     and "PartialsOp" in k),
-    ("bn_dx", lambda k: "bn_dx_kernel" in k),
-    ("conv2d_moments", lambda k: "conv_moments" in k),
-    ("adam (foreach)", lambda k: "multi_tensor_apply" in k),
-    ("conv (cuDNN)", lambda k: ("xmma" in k and "gemm_" not in k)
-     or "cudnn" in k or "conv" in k.lower() or "dgrad" in k
-     or "wgrad" in k),
-    ("gemm (cuBLAS)", lambda k: "gemm" in k.lower()),
-    ("reduce", lambda k: "reduce" in k.lower()),
-    ("elementwise / copy", lambda k: "elementwise" in k
-     or "copy" in k.lower()),
-)
+# phase 6k: the port's measuring tools (mvae_tpu_torch/tools/), each at full
+# width through its main(), as `python -m mvae_tpu_torch.tools.<tool>` runs
+BENCH_RUNS = (
+    (bench_tool, ["--k", "20", "--windows", "5"]),
+    (bench_families, ["--bf16", "--flops", "--k", "20"]),
+    (roofline_family, ["--family", "celeba", "--bf16", "--top", "10",
+                       "--k", "20"]),
+    (serve_latency, ["--model", "celeba"]),    # + 6b's checkpoint
+    (serve_latency, ["--model", "mnist"]))
+MFU_MAX = 1.05          # above the peak only by the peak's rounding
 
 
-def profile_breakdown(name, fn, card, reps=5, wall_reps=20, per=1,
-                      host_top=0):
-    """Device time per call by kernel family (torch.profiler, CUPTI), the
-    launches per call, and the device's idle share against the call's
-    median wall time without the profiler; a call of `per` steps is
-    reported per step. host_top: also the ops of most host self time
-    (under the profiler, which adds its own)."""
-    from torch.profiler import ProfilerActivity, profile
-    wall = host_ms(fn, reps=wall_reps) / per
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+def flops_against_the_counter(dev, card):
+    """FlopCounterMode's count of one shipped CelebA train step on the card
+    (CelebaMVAE(100) bf16, B=100, T=3, the default route: no kernel of the
+    port does a product it would count) against measure.count_step from
+    shapes: the step's FLOPs plus the dead decodes' (every term's decode
+    of a modality at a loss weight of 0, and its backward), exactly."""
+    model = celeba(torch.bfloat16, dev, seed=11)
+    step = make_train_step(model, MASKS, LAMBDAS, lr=LR, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2),
+                           device_data=True)
+    data, idx = eval_data(dev)
+    step((data, idx), 0.5)
+    with FlopCounterMode(display=False) as counter:
+        step((data, idx), 0.5)
         torch.cuda.synchronize()
-    groups, other = {}, {}
-    launches = 0
-    for e in prof.key_averages():
-        if e.key.startswith("cudaLaunchKernel"):
-            launches += e.count
-        us = e.self_device_time_total
-        # a user annotation (Optimizer.step#Adam.step) spans kernels that
-        # are counted on their own
-        if (us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        ms = us / 1e3 / reps / per
-        fam = next((f for f, hit in FAMILIES if hit(e.key)), "other")
-        groups[fam] = groups.get(fam, 0.0) + ms
-        if fam == "other":
-            other[e.key[:70]] = other.get(e.key[:70], 0.0) + ms
-    dev_ms = sum(groups.values())
-    parts = ", ".join(f"{k} {v}" for k, v in
-                      sorted(groups.items(), key=lambda kv: -kv[1]))
-    top = "; ".join(f"{k} {v}" for k, v in
-                    sorted(other.items(), key=lambda kv: -kv[1])[:4])
-    what = "per step" if per > 1 else "per call"
-    print(f"[profile] {name}: wall {wall} ms, device {dev_ms} ms (idle "
-          f"share {1 - dev_ms / wall}), {launches / reps / per} launches "
-          f"{what}; device ms by family: {parts}; largest in other: {top} "
-          f"| {card}")
-    if host_top:
-        host = sorted(((e.self_cpu_time_total / 1e3 / reps / per, e.key,
-                        e.count / reps / per) for e in prof.key_averages()
-                       if e.self_cpu_time_total > 0), reverse=True)
-        print(f"[profile] {name}: host self ms {what} (calls) of the top "
-              f"{host_top} ops: " + "; ".join(
-                  f"{k} {ms} ({n})" for ms, k, n in host[:host_top]))
+    got = counter.get_total_flops()
+    want = measure.count_step(model, MASKS, LAMBDAS, BATCH)
+    print(f"[bench] one CelebA bf16 train step: FlopCounterMode "
+          f"{got} FLOPs; from shapes flops_per_step {want.needed} + dead "
+          f"decodes {want.dead} = {want.needed + want.dead} | {card}")
+    expect(got == want.needed + want.dead,
+           f"FlopCounterMode counts {got}, the shapes "
+           f"{want.needed} + {want.dead}")
+
+
+def phase_bench(dev, card, celeba_dir):
+    """Phase 6k: tools/bench.py (the reference flow in turns), tools/
+    bench_families.py (all six families, bf16, FLOPs), tools/
+    roofline_family.py (celeba, the top 10 kernels) and tools/
+    serve_latency.py (celeba from 6b's checkpoint, mnist's quick sampler)
+    at full width on the card. Every JSON line a tool prints parses and
+    is what it returned; every mfu lies in (0, MFU_MAX], every idle share
+    in [0, 1]; each line names this card; then the FLOP count from shapes
+    against FlopCounterMode's."""
+    name = torch.cuda.get_device_name(0)
+    printed = TimedLines(sys.stdout)
+    records = []
+    with contextlib.redirect_stdout(printed):
+        for tool, argv in BENCH_RUNS:
+            if tool is serve_latency and "celeba" in argv:
+                argv = [os.path.join(celeba_dir, BEST)] + argv
+            out = tool.main(argv)
+            records += out if isinstance(out, list) else [out]
+            lap(f"bench: {tool.__name__.split('.')[-1]} {' '.join(argv)}")
+    parsed = [json.loads(line) for _, line in printed.lines
+              if line.startswith("{")]
+    expect(parsed == records, "bench: the printed lines are not the "
+           "tools' records")
+    for rec in records:
+        what = rec.get("metric") or rec.get("family") or rec.get("endpoint")
+        expect(isinstance(rec["device"], dict)
+               and rec["device"]["name"] == name
+               and rec["device"]["power_limit"],
+               f"bench {what}: device {rec['device']}")
+        if rec.get("mfu") is not None or "flops_per_step" in rec:
+            expect(rec.get("mfu") is not None
+                   and 0 < rec["mfu"] <= MFU_MAX,
+                   f"bench {what}: mfu {rec.get('mfu')}")
+        if "idle_share" in rec:
+            expect(0 <= rec["idle_share"] <= 1,
+                   f"bench {what}: idle share {rec['idle_share']}")
+        if "p50_ms" in rec:
+            expect(0 < rec["p50_ms"] <= rec["p95_ms"],
+                   f"bench {what}: p50 {rec['p50_ms']}")
+    head = records[0]
+    expect(head["vs_baseline"] > 0 and head["windows"]["count"] == 10
+           and head["baseline_windows"]["count"] == 10,
+           f"bench: {head['windows']}, {head['baseline_windows']}")
+    roof = next(r for r in records if "port_kernels" in r)
+    expect(set(roof["port_kernels"]) == set(KERNELS)
+           and len(roof["top_kernels"]) == 10,
+           f"roofline: {roof['port_kernels']}")
+    print(f"[bench] {len(records)} JSON lines; CelebA {head['value']} "
+          f"steps/s, {head['vs_baseline']} times the reference flow's "
+          f"{head['baseline_steps_per_sec']}, mfu {head['mfu']} | {card}")
+    flops_against_the_counter(dev, card)
 
 
 _START = time.perf_counter()
@@ -3635,6 +3614,7 @@ def run(dev, card, peaks, root):
             "convergence": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
             + BN_KERNELS, "dp": tuple(KERNELS), "tp": tuple(KERNELS),
             "ingest": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
+            + BN_KERNELS, "bench": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
             + BN_KERNELS}
     launches, out = {}, {}
     for phase, fn in (
@@ -3653,7 +3633,8 @@ def run(dev, card, peaks, root):
             ("convergence", lambda: phase_convergence(dev, card, root)),
             ("dp", lambda: phase_dp(dev, card, root, data)),
             ("tp", lambda: phase_tp(dev, card, root)),
-            ("ingest", lambda: phase_ingest(dev, card, root))):
+            ("ingest", lambda: phase_ingest(dev, card, root)),
+            ("bench", lambda: phase_bench(dev, card, out["cli"]))):
         ops.reset_launch_counts()
         out[phase] = fn()
         torch.cuda.synchronize()

@@ -15,10 +15,12 @@ new compiler or another CPU builds anew. The build writes a temporary file
 and renames it into place: processes that build at once each load a whole
 library. Within a process one lock guards the first load.
 
-Whether a part is available is a probe, never a caught build error: for
-`core` a g++ on PATH, for `decode` also jpeglib.h and png.h found by that
+Whether a part is available is a probe, never a caught build error: the
+part's source in `csrc/host/` (an installed package may lack it), a g++
+on PATH, and for `decode` also jpeglib.h and png.h found by that
 compiler's preprocessor (a host without the image headers keeps the
-compositor). The probe runs once a process for each part and compiler.
+compositor). The probe runs once a process for each part, source and
+compiler.
 Where the probe passes and the build fails, the call raises with the
 compiler's log. The callers (data/celeba.py, data/multimnist.py) take
 their PIL or numpy path where a part is unavailable, and say so.
@@ -64,11 +66,13 @@ def unavailable_reason(part: str):
     if part not in PARTS:
         raise ValueError(f"unknown native part {part!r}: one of "
                          f"{list(PARTS)}")
-    return _probe(part, _compiler())
+    return _probe(part, SOURCES / PARTS[part][0], _compiler())
 
 
 @functools.cache
-def _probe(part: str, gxx):
+def _probe(part: str, source: Path, gxx):
+    if not source.is_file():
+        return f"no source {source}"
     if gxx is None:
         return "no g++ on PATH"
     if part == "decode":

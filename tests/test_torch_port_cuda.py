@@ -971,3 +971,17 @@ def test_bn_passes_under_a_one_rank_nccl_group_are_the_no_group_passes(
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+def test_bench_tool_reports_an_mfu_within_the_peak(cuda, capsys):
+    """tools/bench.py on the card at --k 2 --windows 1: the reference
+    flow in turns gives vs_baseline, the device metrics are read, and the
+    step's share of the card's peak (mfu) lies in (0, 1.05]."""
+    from mvae_tpu_torch.tools import bench
+    out = bench.main(["--k", "2", "--windows", "1", "--warmup", "1"])
+    assert out["device"]["name"] == torch.cuda.get_device_name(0)
+    assert out["device"]["power_limit"]
+    assert 0 < out["mfu"] <= 1.05
+    assert 0 <= out["idle_share"] <= 1 and out["vs_baseline"] > 0
+    assert out["launches_per_step"] > 0 and out["peak_mem_bytes"] > 0
+    assert out["windows"]["count"] == 2

@@ -175,6 +175,50 @@ def test_loaders_announce_and_fall_back_without_a_compiler(
                 np.testing.assert_array_equal(a[k], b[k])
 
 
+def test_missing_sources_make_the_parts_unavailable(monkeypatch, tmp_path,
+                                                    capsys):
+    """An installed package without csrc/host/: the probe names the
+    missing source in one line whatever the host has, so available() is
+    False, the build refuses with that reason, and make_dataset's default
+    takes the numpy path, the shards of use_native=False."""
+    empty = tmp_path / "no_sources"
+    empty.mkdir()
+    monkeypatch.setattr(native, "SOURCES", empty)
+    for part in ("core", "decode"):
+        reason = native.unavailable_reason(part)
+        assert reason == f"no source {empty / native.PARTS[part][0]}"
+        assert "\n" not in reason and not native.available(part)
+        with pytest.raises(RuntimeError, match="no source"):
+            native.build(part)
+    multimnist.make_dataset(str(tmp_path / "a"), n_train=12, n_test=5,
+                            use_native=None)
+    out = capsys.readouterr().out
+    assert out.count("native compositor unavailable (no source ") == 1
+    multimnist.make_dataset(str(tmp_path / "b"), n_train=12, n_test=5,
+                            use_native=False)
+    for split in ("training", "test"):
+        with np.load(tmp_path / "a" / "multimnist" / f"{split}.npz") as a, \
+                np.load(tmp_path / "b" / "multimnist" / f"{split}.npz") as b:
+            for k in ("images", "texts"):
+                np.testing.assert_array_equal(a[k], b[k])
+    monkeypatch.undo()
+    assert native.unavailable_reason("core") != \
+        f"no source {empty / 'mvae_native.cc'}"
+
+
+def test_package_data_ships_the_host_sources():
+    """pyproject.toml's package data for mvae_tpu_torch names the host
+    library's C++ sources beside the CUDA ones, and the pattern matches
+    both of them."""
+    import tomllib
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    data = conf["tool"]["setuptools"]["package-data"]["mvae_tpu_torch"]
+    assert "csrc/host/*.cc" in data and "csrc/*.cu" in data
+    pkg = ROOT / "mvae_tpu_torch"
+    shipped = {p.name for pat in data for p in pkg.glob(pat)}
+    assert {src for src, _ in native.PARTS.values()} <= shipped
+
+
 def test_batches_are_the_jax_packages(monkeypatch):
     """batches, numpy's fancy indexing with no native gather, yields the
     JAX package's batches (its gather on numpy here: its native one would

@@ -64,7 +64,7 @@ CLIS = ["experiments.celeba.train", "experiments.celeba.sample",
 def test_import_rule_covers_the_trainer():
     """The walk above reaches the data loaders, the native host ingest's
     bindings, the image transforms, the models, the driver, the checkpoint
-    code, the IWAE, the PNG writer and every CLI."""
+    code, the IWAE, the PNG writer, the measuring tools and every CLI."""
     mods = set(_all_modules())
     for name in ["data.pipeline", "data.celeba", "data.mnist",
                  "data.multimnist", "data.text", "models.mnist",
@@ -77,7 +77,9 @@ def test_import_rule_covers_the_trainer():
                  "image.transforms", "data.vision", "models.vision",
                  "experiments.vision.setup",
                  "tools.parity_convergence", "serve_http", "data.download",
-                 "tools.serve_http_bench", "data.native"] + CLIS:
+                 "tools.serve_http_bench", "data.native", "tools.measure",
+                 "tools.bench", "tools.bench_families",
+                 "tools.roofline_family", "tools.serve_latency"] + CLIS:
         assert f"mvae_tpu_torch.{name}" in mods, name
 
 
@@ -308,6 +310,36 @@ def test_serving_front_raises_without_cuda_unless_asked_for_cpu(
         bench.main([missing])
     with pytest.raises(FileNotFoundError):
         bench.main([missing, "--device", "cpu"])
+
+
+def test_measuring_tools_raise_without_cuda_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """The measuring tools (tools/bench.py, bench_families.py,
+    roofline_family.py, serve_latency.py) run on the card unless --device
+    cpu: without one they raise before they build a model or read a
+    checkpoint."""
+    from mvae_tpu_torch.tools import (
+        bench, bench_families, roofline_family, serve_latency)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(bench, "Ours", lambda *a: built.append(a) or 1 / 0)
+    monkeypatch.setattr(bench_families, "family_spec",
+                        lambda *a, **k: built.append(a) or 1 / 0)
+    missing = str(tmp_path / "missing.pth.tar")
+    runs = ((bench.main, [], ZeroDivisionError),
+            (bench_families.main, [], ZeroDivisionError),
+            (roofline_family.main, ["--family", "celeba"],
+             ZeroDivisionError),
+            (serve_latency.main, [missing, "--model", "celeba"],
+             FileNotFoundError))
+    for main, argv, _ in runs:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    assert built == []
+    for main, argv, err in runs:
+        with pytest.raises(err):
+            main(argv + ["--device", "cpu"])
+    assert len(built) == 3
 
 
 def test_train_mode_is_refused_until_ported():
