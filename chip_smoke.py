@@ -39,7 +39,11 @@ error status, which phase 3b reads as the status it checks):
      six decoders' G=7 planes and at the stacked groups' planes of
      --stack-modalities (three modalities' channels side by side: C =
      192, 384, 768 in the encoders, 384, 192, 96 at G=7 in the decoders),
-     conv2d_moments at its B=50 convs (bf16);
+     conv2d_moments at its B=50 convs (bf16); the grouped train step's
+     shapes (phase 5b): the BCE's (200, 12288) and (200, 18) CelebA rows
+     and celeba19's (300, 12288) in the bf16 math, the four BN passes at
+     the decoders' live and dead planes (CelebA's G = 2 and 1, MultiMNIST's
+     2 and 1, celeba19's 3 and 18);
      every kernel launched
      twice gives bit-identical results. Each kernel is timed two ways:
      device_ms (one launch between events, the L2 flushed before it:
@@ -63,6 +67,17 @@ error status, which phase 3b reads as the status it checks):
      default, unfused encoder route), then the encoder's fused route
      (conv2d_moments, opt-in) and its unfused route in turns, bf16 and
      f32
+  5b. the train step's grouped decode (core/engine.py:decode_plan, the
+     default for static masks and for celeba19's CLI support) against the
+     one-batch decode an all-ones recon_support gives: CelebA and
+     celeba19 bf16 at B=100 from the same weights and noise, one step of
+     each (loss above its floor, every gradient, the running statistics
+     after; FlopCounterMode's count of each equal to flops_per_step plus
+     its dead work from shapes; the port kernels' launches a step), then
+     windows of K=20 in turns G, O, O, G after a warm-up pair (host ms a
+     step), the peak device memory of a window and a profile line of
+     each (device ms, launches, idle share a step); MNIST's and
+     MultiMNIST's launches a step, grouped and one batch
   6. eval checks: kernel path vs the plain versions (posteriors, loss
      above its ln 2 floor); f32 card vs CPU (posteriors, decoder logits,
      loss above its floor)
@@ -123,15 +138,16 @@ error status, which phase 3b reads as the status it checks):
      NCCL rank against the step with no group, bf16 B=100, in turns, with
      launches and all-reduces a step, one all-reduce's host cost and
      profile lines; then the CelebA train CLI as two processes
-     (--coordinator, --process-id, --n-processes), an epoch and a
-     --resume for a second, rank 0 alone logging and writing,
-     Sampler.from_checkpoint on its model_best.pth.tar
+     (--coordinator, --process-id, --n-processes) for an epoch, rank 0
+     alone logging and writing, Sampler.from_checkpoint on its
+     model_best.pth.tar
   6i. tensor and expert parallelism (parallel/mesh.py's grid): eight ranks
      spawned on the card over gloo at global B=100, the JAX package's
      dp4 x tp2, against this process on the whole batches with the same
      noise: CelebaMVAE(100) at the CLI weights, bf16 on the unfused route
-     and f32 on the fused one, and celeba19 in bf16 (9 of 18 experts a
-     rank): step 1's loss,
+     and f32 on the fused one, and celeba19 in bf16 with the CLI's recon
+     support (9 of 18 experts a rank, the gathered ones it holds): step
+     1's loss,
      every gradient gathered to full shape, the running statistics and
      the parameters, then the losses of steps 2-3 and every rank's state
      equal, each rank's launches and its collectives a step on the dp and
@@ -161,7 +177,7 @@ error status, which phase 3b reads as the status it checks):
      tools/serve_latency.py for celeba (6b's checkpoint) and mnist: every
      JSON line parses, every mfu in (0, 1.05], every idle share in [0, 1];
      then FlopCounterMode's count of one shipped CelebA step equal to the
-     FLOPs from shapes plus the dead decodes'
+     FLOPs from shapes plus the grouped decode's dead forwards
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -181,7 +197,7 @@ error status, which phase 3b reads as the status it checks):
   in turns, and one window of each runs under
   torch.use_deterministic_algorithms(warn_only=True), whose warnings name
   the ops with no deterministic form.
-  8. the kernels line: launches on phases 3-5 and 6b-6k (6h's and 6i's
+  8. the kernels line: launches on phases 3-5b and 6b-6k (6h's and 6i's
      spawned ranks' own included), error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
@@ -226,7 +242,8 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from mvae_tpu_torch import ops
-from mvae_tpu_torch.core.engine import multi_term_elbo
+from mvae_tpu_torch.core.engine import (
+    decode_plan, multi_term_elbo, static_support)
 from mvae_tpu_torch.core.loglike import iwae_log_marginal
 from mvae_tpu_torch.data import native as host_native
 from mvae_tpu_torch.data.celeba import (
@@ -244,7 +261,6 @@ from mvae_tpu_torch.experiments.mnist import (
     loglike as mnist_loglike, sample as mnist_sample, train as mnist_train)
 from mvae_tpu_torch.experiments.multimnist import (
     loglike as mm_loglike, sample as mm_sample, train as mm_train)
-from mvae_tpu_torch.core.engine import fast_decode_terms
 from mvae_tpu_torch.core.subsets import (
     celeba19_recon_support, celeba19_step_terms)
 from mvae_tpu_torch.data.multimnist import (
@@ -399,6 +415,16 @@ FAMILY_BN_LAYERS = (
     ("celeba19 dec convT1", 1, 21, 100, 128, 64, torch.bfloat16),
     ("celeba19 dec convT2", 1, 21, 100, 64, 256, torch.bfloat16),
     ("celeba19 dec convT3", 1, 21, 100, 32, 1024, torch.bfloat16),
+    # the grouped train step's decoder planes (core/engine.py:decode_plan):
+    # the live terms' call and the dead terms' (forward passes alone)
+    ("celeba dec convT3 live", 1, 2, 100, 32, 1024, torch.bfloat16),
+    ("celeba dec convT3 dead", 1, 1, 100, 32, 1024, torch.bfloat16),
+    ("celeba attrs dec BN1d live", 3, 2, 100, 512, 1, torch.float32),
+    ("celeba attrs dec BN1d dead", 3, 1, 100, 512, 1, torch.float32),
+    ("multimnist dec convT3 live", 1, 2, 100, 32, 625, torch.bfloat16),
+    ("multimnist dec convT3 dead", 1, 1, 100, 32, 625, torch.bfloat16),
+    ("celeba19 dec convT3 live", 1, 3, 100, 32, 1024, torch.bfloat16),
+    ("celeba19 dec convT3 dead", 1, 18, 100, 32, 1024, torch.bfloat16),
 )
 # the BN layers of vision's bf16 train step at its B=50: six encoders'
 # (B = 50 rows) and six decoders' (G = 7 terms), "x6 per step"; timed
@@ -636,7 +662,10 @@ def phase_kernels(dev, card, peaks, flush):
     # vision's (their own generator too): the bf16 train step's T * B = 350
     # rows against 50 targets, 12288 wide (image, obscured, watermark) and
     # 4096 (gray, edge, mask), the joint eval's 50 rows of each, the IWAE's
-    # chunk of 50 samples of 100 rows of each (f32)
+    # chunk of 50 samples of 100 rows of each (f32); then the grouped
+    # train step's rows (core/engine.py:decode_plan): CelebA's image and
+    # attribute rows of its two live terms, celeba19's image rows of its
+    # three (the bf16 math)
     g_new = torch.Generator(device=dev).manual_seed(10)
     g_vis = torch.Generator(device=dev).manual_seed(13)
     bce_main = {}
@@ -663,7 +692,10 @@ def phase_kernels(dev, card, peaks, flush):
             (50, 50, 12288, f32, bf16, False, False),
             (50, 50, 4096, f32, bf16, False, False),
             (5000, 100, 12288, f32, f32, False, False),
-            (5000, 100, 4096, f32, f32, False, False))):
+            (5000, 100, 4096, f32, f32, False, False),
+            (200, 100, 12288, bf16, bf16, "grouped train", False),
+            (200, 100, 18, f32, f32, False, False),
+            (300, 100, 12288, bf16, bf16, "c19 grouped", True))):
         gen = (g_vis if i >= 17 else g_new if i >= 10
                else (g if k != 784 else g_fam))
         if main in ("c19 f32 math", "c19 bf16 math"):   # the same inputs
@@ -705,6 +737,9 @@ def phase_kernels(dev, card, peaks, flush):
           f"{bce_main['c19 bf16 math']} | {card}")
     print(f"[kernel] bce_rowsum_fwd vision train step, (350, 4096) bf16 "
           f"rows: {bce_main['vision train 4096']} | {card}")
+    print(f"[kernel] bce_rowsum_fwd grouped train steps: CelebA's (200, "
+          f"12288) bf16 image rows {bce_main['grouped train']}; celeba19's "
+          f"(300, 12288), bf16 math {bce_main['c19 grouped']} | {card}")
     return rows
 
 
@@ -1307,6 +1342,209 @@ def phase_train(dev, card, data, out):
                                       betas[:PROFILE_K]), card,
                 reps=1, wall_reps=1, per=PROFILE_K)
         out[dtype] = dict(losses=losses, stats0=stats0, model=model)
+
+
+# phase 5b: the train step's grouped decode (core/engine.py:decode_plan)
+# against the one-batch decode that an all-ones recon_support gives: the
+# CLIs' bf16 steps at B=100 on CelebA and celeba19 (full width), then the
+# launches of MNIST's and MultiMNIST's
+GROUPED_TURNS = (True, False) + (True, False, False, True)
+
+
+def grouped_family(family, dev):
+    """(model, T, recon_support of the grouped step, a window's terms(k)
+    -> make_multi_train_step's per-step masks and lambdas, or {}) of a
+    family's CLI step, bf16, random weights from a seed."""
+    if family == "celeba":
+        return (celeba(torch.bfloat16, dev, seed=12), len(MASKS),
+                static_support(MASKS, LAMBDAS), lambda k: {})
+    if family == "celeba19":
+        rng = np.random.default_rng(66)
+
+        def terms(k):
+            ms, ls = zip(*[c19_terms(rng) for _ in range(k)])
+            return {"masks": torch.from_numpy(np.stack(ms)).to(dev),
+                    "lambdas": torch.from_numpy(np.stack(ls)).to(dev)}
+        return (Celeba19MVAE(100, torch.bfloat16, bf16_loss=True,
+                             device=dev,
+                             generator=torch.Generator().manual_seed(13)),
+                21, celeba19_recon_support(1), terms)
+    cls = MnistMVAE if family == "mnist" else MultiMnistMVAE
+    return (cls(64, torch.bfloat16, device=dev,
+                generator=torch.Generator().manual_seed(14)),
+            len(MASKS), static_support(MASKS, MM_LAMBDAS), lambda k: {})
+
+
+def grouped_rows(family, dev):
+    """N_DATA random uint8 rows of MNIST's or MultiMNIST's shapes, resident
+    on the card."""
+    rng = np.random.default_rng(15)
+    shape = (784,) if family == "mnist" else (50, 50, 1)
+    text = (N_DATA,) if family == "mnist" else (N_DATA, 4)
+    return {"image": torch.from_numpy(rng.integers(
+                0, 256, (N_DATA,) + shape, dtype=np.uint8)).to(dev),
+            "text": torch.from_numpy(rng.integers(0, 10, text).astype(
+                np.int32)).to(dev)}
+
+
+def grouped_steps(family, dev, model, t, support, one=False):
+    """make_train_step (one=True) or make_multi_train_step of the family's
+    CLI step on `model` at recon_support `support`."""
+    make = make_train_step if one else make_multi_train_step
+    kw = dict(device_data=True) if one else {}
+    static = family in ("celeba", "mnist", "multimnist")
+    lambdas = LAMBDAS if family == "celeba" else MM_LAMBDAS
+    return make(model, MASKS if static else None,
+                lambdas if static else None, lr=LR, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(16),
+                recon_support=support, **kw)
+
+
+def grouped_check(dev, card, family, data, idx):
+    """One step of the grouped decode and one of the one-batch decode from
+    the same weights and noise: per-term loss above its floor at
+    STEP_RTOL, every gradient at GRAD_RTOL, the running statistics after
+    at EMA_TOL (bf16); FlopCounterMode's count of a step of each equal to
+    the count from shapes, flops_per_step plus the dead work
+    (tools/measure.py:count_step: on the grouped step the forward of the
+    BN'd decoders' dead terms, on the one batch every dead decode with
+    its backward), exactly; the port kernels' launches a step."""
+    model, t, support, terms = grouped_family(family, dev)
+    twin = copy.deepcopy(model)
+    ones = np.ones_like(support)
+    noise = draw_noise(model, t, BATCH, torch.Generator(
+        device=dev).manual_seed(17))
+    step_terms = {k: v[0] for k, v in terms(1).items()}
+    masks = step_terms.get("masks", torch.tensor(MASKS, device=dev))
+    lambdas = step_terms.get("lambdas", torch.tensor(
+        LAMBDAS if family == "celeba" else MM_LAMBDAS, device=dev))
+    floor = (masks.double().cpu() * lambdas.double().cpu()) @ (
+        family_floor(model) if family == "celeba19" else torch.tensor(
+            ELEMENTS, dtype=torch.float64) * np.log(2.0))
+    out, flops = {}, {}
+    for name, m, sup in (("grouped", model, support), ("one batch", twin,
+                                                       ones)):
+        step = grouped_steps(family, dev, m, t, sup, one=True)
+        expect((step.plan is None) == (name == "one batch"),
+               f"grouped {family}: the {name} step's plan {step.plan}")
+        ops.reset_launch_counts()
+        _, per_term = step((data, idx), 1.0, noise, **step_terms)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        out[name] = (per_term.double().cpu() - floor,
+                     {k: p.grad.detach().clone()
+                      for k, p in m.named_parameters()},
+                     running_stats(m))
+        with FlopCounterMode(display=False) as counter:
+            step((data, idx), 1.0, noise, **step_terms)
+            torch.cuda.synchronize()
+        want = measure.count_step(m, masks.cpu().numpy(),
+                                  lambdas.cpu().numpy(), BATCH,
+                                  recon_support=sup)
+        flops[name] = (counter.get_total_flops(), want)
+        print(f"[grouped] {family} bf16 B=100 T={t}, {name} decode: "
+              f"FlopCounterMode {flops[name][0]} FLOPs a step; from shapes "
+              f"flops_per_step {want.needed} + dead work {want.dead}; port "
+              f"kernel launches a step {launches} | {card}")
+        expect(flops[name][0] == want.needed + want.dead,
+               f"grouped {family} {name}: FlopCounterMode counts "
+               f"{flops[name][0]}, the shapes {want.needed} + {want.dead}")
+    (g_terms, g_grads, g_stats), (o_terms, o_grads, o_stats) = (
+        out["grouped"], out["one batch"])
+    held(f"grouped {family} bf16 B=100 train step loss above floor, "
+         f"grouped vs one batch", g_terms, o_terms,
+         STEP_RTOL[torch.bfloat16], 0.0)
+    grads_held(f"grouped {family} bf16 B=100 train step, grouped vs one "
+               f"batch", g_grads, o_grads, GRAD_RTOL[torch.bfloat16],
+               GRAD_NOISE_ATOL[torch.bfloat16], bn_fed_biases(model))
+    gap = 0.0
+    for k, v in o_stats.items():
+        gap = max(gap, (g_stats[k] - v).abs().max().item())
+        torch.testing.assert_close(g_stats[k], v, **EMA_TOL[torch.bfloat16])
+    print(f"[check] grouped {family} bf16 running statistics after the "
+          f"step, grouped vs one batch: {len(o_stats)} tensors, max_abs_err "
+          f"{gap} ({EMA_TOL[torch.bfloat16]})")
+    expect(flops["grouped"][0] < flops["one batch"][0],
+           f"grouped {family}: the grouped step counts more FLOPs")
+
+
+def grouped_turns(dev, card, family, data):
+    """The grouped and the one-batch bf16 step in windows of K=20 steps of
+    make_multi_train_step from the same weights, in turns after a warm-up
+    pair (G, O | G, O, O, G): host ms a step, the peak device memory of a
+    window (what was allocated before included), then a profile line of
+    each (device ms, launches and idle share a step)."""
+    model, t, support, terms = grouped_family(family, dev)
+    multis = {True: grouped_steps(family, dev, model, t, support),
+              False: grouped_steps(family, dev, copy.deepcopy(model), t,
+                                   np.ones_like(support))}
+    betas = torch.ones(TRAIN_K, device=dev)
+    windows = iter(train_windows(dev, len(GROUPED_TURNS) + 4))
+    times, peaks = {True: [], False: []}, {}
+    for i, grouped in enumerate(GROUPED_TURNS):
+        kw = terms(TRAIN_K)
+        losses, ms = timed_window(lambda *a: multis[grouped](*a, **kw),
+                                  data, next(windows), betas)
+        expect(bool(torch.isfinite(losses).all()),
+               f"grouped {family}: loss not finite {losses}")
+        if i >= 2:
+            times[grouped].append(ms)
+    for grouped in (True, False):
+        idxs, kw = next(windows)[:PROFILE_K], terms(PROFILE_K)
+        peaks[grouped] = measure.peak_memory_bytes(
+            lambda: multis[grouped](data, idxs, betas[:PROFILE_K], **kw),
+            dev)
+    print(f"[grouped] {family} bf16 B=100 T={t} step, host ms a step (window "
+          f"of {TRAIN_K} / K) grouped {times[True]}, one batch "
+          f"{times[False]}, in turns G, O, O, G; grouped against one batch: "
+          f"{pairs_won(times[True], times[False])}; peak device memory of a "
+          f"window of {PROFILE_K}, grouped {peaks[True]} bytes, one batch "
+          f"{peaks[False]} bytes | {card}")
+    for grouped in (True, False):
+        idxs, kw = next(windows)[:PROFILE_K], terms(PROFILE_K)
+        profile_breakdown(
+            f"{family} bf16 B=100 T={t} train step, "
+            f"{'grouped' if grouped else 'one-batch'} decode (window of "
+            f"{PROFILE_K})", lambda: multis[grouped](
+                data, idxs, betas[:PROFILE_K], **kw), card, reps=1,
+            wall_reps=1, per=PROFILE_K)
+
+
+def phase_grouped(dev, card, data):
+    """Phase 5b: the grouped decode against the one-batch decode on the
+    CLIs' bf16 steps: CelebA and celeba19 checked (grouped_check) and
+    timed in turns (grouped_turns); MNIST's and MultiMNIST's launches a
+    step, port kernels and all (a profile line of a window of each)."""
+    idx = train_windows(dev, 1)[0][0]
+    for family in ("celeba", "celeba19"):
+        grouped_check(dev, card, family, data, idx)
+        lap(f"grouped: {family} checked")
+        grouped_turns(dev, card, family, data)
+        lap(f"grouped: {family} in turns")
+    for family in ("mnist", "multimnist"):
+        rows = grouped_rows(family, dev)
+        model, t, support, terms = grouped_family(family, dev)
+        twin = copy.deepcopy(model)
+        step = grouped_steps(family, dev, model, t, support, one=True)
+        ones = grouped_steps(family, dev, twin, t, np.ones_like(support),
+                             one=True)
+        for name, s in (("grouped", step), ("one batch", ones)):
+            ops.reset_launch_counts()
+            s((rows, idx), 1.0)
+            torch.cuda.synchronize()
+            print(f"[grouped] {family} bf16 B=100 T={t}, {name} decode: "
+                  f"port kernel launches a step {ops.launch_counts()} | "
+                  f"{card}")
+        for multi_model, sup, name in ((model, support, "grouped"),
+                                       (twin, np.ones_like(support),
+                                        "one-batch")):
+            multi = grouped_steps(family, dev, multi_model, t, sup)
+            idxs = train_windows(dev, 1)[0][:PROFILE_K]
+            profile_breakdown(
+                f"{family} bf16 B=100 T={t} train step, {name} decode "
+                f"(window of {PROFILE_K})", lambda: multi(
+                    rows, idxs, torch.ones(PROFILE_K, device=dev)), card,
+                reps=1, wall_reps=1, per=PROFILE_K)
 
 
 # the reference's log lines (train/loop.py:log_train, log_epoch, log_test)
@@ -2641,10 +2879,13 @@ TP_WORLD = 8            # ranks that share the card (gloo): B=100 on 8 is
 # 6i's CelebA recipes: each dtype and each encoder route once on the grid
 # (6h runs all four at dp2; the CPU tests hold every family's tp step)
 TP_RECIPES = ("celeba bfloat16 unfused", "celeba float32 fused")
-TP_CALLS = {"celeba": 2, "celeba19": 5}   # tp collectives a step: the head
+TP_CALLS = {"celeba": 2, "celeba19": 7}   # tp collectives a step: the head
                         # pair's all-reduce and its input's gradient's;
-                        # celeba19 adds the experts' two gathers and the
-                        # attribute decoder's input's all-reduce
+                        # celeba19 adds the encoder experts' gather, and
+                        # on its grouped decode the gather of the terms
+                        # that decode all 18 experts and the sum of the
+                        # single-attribute terms' gathered experts, each
+                        # call with its input's gradient's all-reduce
 
 
 def dp_recipes():
@@ -2684,9 +2925,14 @@ def ranks_vs_one_process(dev, card, world, recipes, tag):
     noise: step 1's loss, every gradient after the all-reduce (gathered
     to full shape), the running statistics and the parameters (Adam's
     first step moves an element by lr whatever its gradient: at most 2 lr
-    apart), then two more steps' losses and every rank's parameters and
-    statistics equal. Prints each rank's launches and its collectives a
-    step on each group; returns the ranks' kernel launches, summed."""
+    apart; an element whose gradients on the ranks and in one process
+    have opposite signs, the one process's within the gradients'
+    tolerance of 0 (under rtol times the tensor's rms), took that step the
+    other way, and is held by that bound alone, as the BN-fed biases are:
+    the relative gap counts the other elements), then
+    two more steps' losses and every rank's parameters and statistics
+    equal. Prints each rank's launches and its collectives a step on each
+    group; returns the ranks' kernel launches, summed."""
     n_dp, n_tp = grid(world, BATCH)
     t0 = time.perf_counter()
     refs = [dp_check.replay(rc, dev) for rc in recipes]
@@ -2718,14 +2964,41 @@ def ranks_vs_one_process(dev, card, world, recipes, tag):
         stats = max((first[0]["running"][k].double() - v.double()).norm()
                     .item() / v.double().norm().item()
                     for k, v in want["running"].items())
-        gaps = [((first[0]["params"][k] - v).norm() / v.norm()).item()
-                for k, v in want["params"].items() if k not in noisy]
+
+        def settled(k):
+            """Parameter k's elements but those whose gradient changed
+            sign within rtol times its rms of 0 (a rounding's flip)."""
+            g = want["grads"][k].double()
+            flipped = torch.sign(first[0]["grads"][k].double()) != g.sign()
+            return ~(flipped & (g.abs() <= rtol * g.square().mean().sqrt()))
+
+        gaps, near = [], 0
+        for k, v in want["params"].items():
+            if k in noisy:
+                continue
+            keep = settled(k)
+            near += int(keep.numel() - keep.sum())
+            if keep.any():
+                gaps.append((((first[0]["params"][k] - v)[keep].norm()
+                              / v[keep].norm()).item(), k))
+        gaps.sort(reverse=True)
         flips = max((first[0]["params"][k] - v).abs().max().item()
                     for k, v in want["params"].items())
+        top = gaps[0][1]
+        apart = ((first[0]["params"][top] - want["params"][top]).abs()
+                 > LR).flatten().nonzero().flatten()
         print(f"[check] {tag} {name} step 1: running statistics largest "
-              f"relative gap {stats}, parameters {max(gaps)} (rtol "
-              f"{rtol}), largest element gap {flips} (2 lr = {2 * LR})")
-        expect(stats < rtol and max(gaps) < rtol
+              f"relative gap {stats}, parameters {gaps[:3]} (rtol "
+              f"{rtol}; {near} elements whose gradient changed sign within "
+              f"rtol of 0 held by the element bound alone), largest element "
+              f"gap {flips} (2 lr = {2 * LR}); {top} "
+              f"{tuple(want['params'][top].shape)}: {apart.numel()} "
+              f"elements an Adam step apart, the first gradients "
+              f"{first[0]['grads'][top].flatten()[apart][:6].tolist()} on "
+              f"rank 0, {want['grads'][top].flatten()[apart][:6].tolist()} "
+              f"in one process, of rms "
+              f"{want['grads'][top].double().square().mean().sqrt().item()}")
+        expect(stats < rtol and gaps[0][0] < rtol
                and flips <= 2 * LR * (1 + 1e-3),
                f"{tag} {name}: step 1's state differs from one process")
         rest = [r["windows"][1] for r in ranks]
@@ -2771,9 +3044,12 @@ def ranks_vs_one_process(dev, card, world, recipes, tag):
                 launches[k] = launches.get(k, 0) + v
             # the gradients': with a model axis the sharded ones' on the
             # dp group and the others' on the world, then the running
-            # statistics' on the world
+            # statistics' on the world; the grouped decode's dead terms
+            # run their decoders' BN layers once more, forward alone
             grads = 1 if n_tp == 1 else 3
-            expect(o["all_reduces"] == (2 * o["n_bn"] + grads) * steps,
+            expect(o["all_reduces"] == (2 * o["n_bn"]
+                                        + recipe_dead_bn_passes(rc)
+                                        + grads) * steps,
                    f"{tag} {name}: {o['all_reduces']} all-reduces")
             expect(o["tp_collectives"] == (
                 TP_CALLS[family] * steps if n_tp > 1 else 0),
@@ -2781,6 +3057,28 @@ def ranks_vs_one_process(dev, card, world, recipes, tag):
     print(f"[{tag}] {world} ranks on one card over gloo hold one process's "
           f"step: {[rc['name'] for rc in recipes]} | {card}")
     return launches
+
+
+def dead_bn_passes(model, support, fast=False):
+    """The BN forward passes a step of the grouped decode at recon support
+    `support` runs for the terms that never train a decoder
+    (core/engine.py:decode_plan)."""
+    plan = decode_plan(model, support, fast_skip_decode=fast)
+    return sum(isinstance(m, BatchNorm) for g in plan or ()
+               for c in g.calls if not c.grad
+               for m in getattr(model, f"{g.name}_decoder").modules())
+
+
+def recipe_dead_bn_passes(rc):
+    """dead_bn_passes of recipe rc's step (tools/dp_check.py)."""
+    cls, _, kw = rc["model"]
+    sk = rc["step_kw"]
+    support = sk.get("recon_support")
+    if support is None and sk.get("term_masks") is not None:
+        support = static_support(sk["term_masks"], sk["term_lambdas"],
+                                 sk.get("recon_masks"))
+    return dead_bn_passes(cls(8, device="cpu", **kw), support,
+                          sk.get("fast_skip_decode", False))
 
 
 def dp_two_ranks(dev, card):
@@ -2849,8 +3147,12 @@ def dp_one_rank_turns(dev, card, data, root):
             print(f"[dp] {what}: {issued * 1e3 / 200} ms of host a call "
                   f"issued, {(time.perf_counter() - t0) * 1e3 / 200} ms a "
                   f"call to the end of 200 | {card}")
+        # a pass a BN layer, the grouped decode's dead terms' forward
+        # passes, the gradients' all-reduce
         bn_layers = sum(layer[1] for layer in BN_LAYERS)
-        expect(reduces == {a[0]: 0, b[0]: 2 * bn_layers + 1},
+        dead = dead_bn_passes(CelebaMVAE(8, device="cpu"),
+                              static_support(MASKS, LAMBDAS))
+        expect(reduces == {a[0]: 0, b[0]: 2 * bn_layers + dead + 1},
                f"dp: all-reduces a step {reduces}")
     finally:
         dist.destroy_process_group()
@@ -2919,9 +3221,9 @@ def epoch_wall(timed, epoch):
 def dp_cli(dev, card, root):
     """The CelebA train CLI on two processes that share the card (gloo),
     bf16 CelebaMVAE(100), B=100 (50 a rank), on the synthetic set (phase
-    6b's settings, 20 steps an epoch): an epoch, then --resume of rank 0's
-    checkpoint by both for a second; rank 0 alone logs and writes;
-    Sampler.from_checkpoint answers from its model_best.pth.tar."""
+    6b's settings, 20 steps an epoch): an epoch; rank 0 alone logs and
+    writes; Sampler.from_checkpoint answers from its model_best.pth.tar.
+    (The resume across processes is 6i's, on eight.)"""
     tmp = os.path.join(root, "dp_cli")
     dirs = [os.path.join(tmp, f"rank{r}") for r in range(DP_WORLD)]
     argv = ["--annealing-epochs", "1", "--log-interval", "10",
@@ -2931,29 +3233,20 @@ def dp_cli(dev, card, root):
     t0 = time.perf_counter()
     first, timed1 = dp_cli_run(argv + ["--epochs", "1"], dirs, "dp cli")
     t1 = time.perf_counter()
-    second, timed2 = dp_cli_run(argv + ["--epochs", "2", "--resume",
-                                        os.path.join(dirs[0], CKPT)], dirs,
-                                "dp cli resume")
-    t2 = time.perf_counter()
-    for out, epochs in ((first[0], (1,)), (second[0], (2,))):
-        lines = out.splitlines()
-        expect(any(line.startswith("data-parallel over 2 processes "
-                                   "(backend gloo)") for line in lines),
-               f"dp cli: no data-parallel line in {lines[:4]}")
-        for epoch in epochs:
-            expect(sum(line.startswith(f"Train Epoch: {epoch} [")
-                       for line in lines) == 2, f"dp cli: epoch {epoch}")
-        tests = [float(line.split()[-1]) for line in lines
-                 if line.startswith("====> Test Loss")]
-        expect(len(tests) == len(epochs) and all(np.isfinite(tests)),
-               f"dp cli: test losses {tests}")
-        print(f"[dp cli] rank 0, epochs {epochs}: "
-              f"{[x for x in lines if not x.startswith('Train')]}")
-    expect(any(line.startswith("resumed from ") and line.endswith(
-        "at epoch 1") for line in second[0].splitlines()),
-        "dp cli: no resume line")
-    expect(all(out == "" for out in first[1:] + second[1:]),
-           f"dp cli: rank 1 printed {first[1][:200]!r} {second[1][:200]!r}")
+    lines = first[0].splitlines()
+    expect(any(line.startswith("data-parallel over 2 processes "
+                               "(backend gloo)") for line in lines),
+           f"dp cli: no data-parallel line in {lines[:4]}")
+    expect(sum(line.startswith("Train Epoch: 1 [") for line in lines) == 2,
+           "dp cli: epoch 1")
+    tests = [float(line.split()[-1]) for line in lines
+             if line.startswith("====> Test Loss")]
+    expect(len(tests) == 1 and all(np.isfinite(tests)),
+           f"dp cli: test losses {tests}")
+    print(f"[dp cli] rank 0, epoch 1: "
+          f"{[x for x in lines if not x.startswith('Train')]}")
+    expect(all(out == "" for out in first[1:]),
+           f"dp cli: rank 1 printed {first[1][:200]!r}")
     expect(sorted(os.listdir(dirs[0])) == sorted([BEST, CKPT])
            and not os.path.exists(dirs[1]), "dp cli: the files")
     sampler = Sampler.from_checkpoint(os.path.join(dirs[0], BEST),
@@ -2962,12 +3255,11 @@ def dp_cli(dev, card, root):
     images = torch.rand((8, 64, 64, 3), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(9))
     check_images(sampler.reconstruct({"image": images}), 8)
-    print(f"[dp cli] {DP_WORLD} processes, an epoch {t1 - t0} s, the "
-          f"resumed second {t2 - t1} s (process start, data and the "
-          f"build's load included); training wall from the input-pipeline "
-          f"line to the epoch line of epoch 1 {epoch_wall(timed1, 1)} s and "
-          f"of the resumed epoch 2 {epoch_wall(timed2, 2)} s (warm-up "
-          f"included); {BEST} served one reconstruct request | {card}")
+    print(f"[dp cli] {DP_WORLD} processes, an epoch {t1 - t0} s (process "
+          f"start, data and the build's load included); training wall from "
+          f"the input-pipeline line to the epoch line "
+          f"{epoch_wall(timed1, 1)} s (warm-up included); {BEST} served one "
+          f"reconstruct request | {card}")
 
 
 def phase_dp(dev, card, root, data):
@@ -2986,7 +3278,9 @@ def c19_recipe():
     CLI's bf16 BCE math (experiments/celeba19/train.py), from seed 21,
     one window of three global batches of B=100 uint8 rows with each
     step's T=21 sampled terms (--approx-m 1), the noise drawn at the
-    global shape. At tp 2 a rank holds 9 of each side's 18 experts."""
+    global shape, with the CLI's recon support (the grouped decode). At
+    tp 2 a rank holds 9 of each side's 18 experts, and decodes the
+    single-attribute terms' gathered experts that it holds."""
     k = sum(DP_WINDOWS)
     rng = np.random.default_rng(63)
     data = {"image": torch.from_numpy(rng.integers(
@@ -3003,7 +3297,8 @@ def c19_recipe():
     return dp_check.recipe(
         Celeba19MVAE, (100, torch.bfloat16), {"bf16_loss": True},
         model.state_dict(), data, torch.tensor([0.5, 1.0, 1.0]),
-        step_kw=dict(term_masks=None, term_lambdas=None, lr=LR),
+        step_kw=dict(term_masks=None, term_lambdas=None, lr=LR,
+                     recon_support=celeba19_recon_support(1)),
         noise=noise, masks=torch.from_numpy(np.stack(masks)).float(),
         lambdas=torch.from_numpy(np.stack(lambdas)).float(),
         windows=DP_WINDOWS, name="celeba19 bf16 unfused")
@@ -3495,8 +3790,9 @@ def flops_against_the_counter(dev, card):
     """FlopCounterMode's count of one shipped CelebA train step on the card
     (CelebaMVAE(100) bf16, B=100, T=3, the default route: no kernel of the
     port does a product it would count) against measure.count_step from
-    shapes: the step's FLOPs plus the dead decodes' (every term's decode
-    of a modality at a loss weight of 0, and its backward), exactly."""
+    shapes: the step's FLOPs plus the dead work the grouped decode runs
+    (the forward alone of the image decoder for the attrs-only term and
+    of the attribute decoder for the image-only term), exactly."""
     model = celeba(torch.bfloat16, dev, seed=11)
     step = make_train_step(model, MASKS, LAMBDAS, lr=LR, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(2),
@@ -3510,7 +3806,7 @@ def flops_against_the_counter(dev, card):
     want = measure.count_step(model, MASKS, LAMBDAS, BATCH)
     print(f"[bench] one CelebA bf16 train step: FlopCounterMode "
           f"{got} FLOPs; from shapes flops_per_step {want.needed} + dead "
-          f"decodes {want.dead} = {want.needed + want.dead} | {card}")
+          f"forwards {want.dead} = {want.needed + want.dead} | {card}")
     expect(got == want.needed + want.dead,
            f"FlopCounterMode counts {got}, the shapes "
            f"{want.needed} + {want.dead}")
@@ -3607,6 +3903,7 @@ def run(dev, card, peaks, root):
     must = {"serve": ("poe_fwd",), "serve_http": ("poe_fwd",),
             "eval": ("poe_fwd", "bce_rowsum_fwd"),
             "train": tuple(KERNELS), "cli": tuple(KERNELS),
+            "grouped": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd") + BN_KERNELS,
             "families": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd"),
             "multimnist": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
             + BN_KERNELS, "celeba19": tuple(KERNELS),
@@ -3622,6 +3919,7 @@ def run(dev, card, peaks, root):
             ("serve_http", lambda: phase_serving_http(dev, card)),
             ("eval", lambda: phase_eval(dev, card, models, data, idx)),
             ("train", lambda: phase_train(dev, card, data, trained)),
+            ("grouped", lambda: phase_grouped(dev, card, data)),
             ("cli", lambda: phase_cli(dev, card, root)),
             ("families", lambda: phase_families(dev, card, root,
                                                 out["cli"])),

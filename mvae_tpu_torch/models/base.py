@@ -11,10 +11,13 @@ Subclasses define:
         inputs: name -> (B, ...), all present; keep_mask: the dropout's, in
         train mode; moments: modality -> [nn.norm.Moments] of the encoder's
         train-mode BN calls (empty lists in eval mode)
-    decode(z, groups=1) -> (recons, moments)
+    decode(z, groups=1, keep_mask=None) -> (recons, moments)
         z: (N, D); recons: name -> (N, ...) logits; groups: sets of
         train-mode BN statistics over consecutive row blocks (the ELBO
-        terms); moments: [nn.norm.Moments] of the decoders' BN calls
+        terms); moments: [nn.norm.Moments] of the decoders' BN calls.
+        The one-batch decode: eval, and a train step whose terms all
+        decode everything. Default: each decoder group's decode_group on
+        all the rows
     dropout_rate: float                  the rate of encode's dropout; 0
                                          (the default) for a family
                                          without one, which trains with
@@ -24,6 +27,34 @@ Subclasses define:
     recon_loss(name, logits, target) -> (N,) per-sample loss summed over
         the event dims; target may hold fewer rows (N % Nt == 0, shared)
     input_spec() -> name -> (event_shape, dtype)
+
+and, for the train step's grouped decode (core/engine.py:decode_plan; the
+JAX package's models/base.py:30-64 and engine.py:_decode_grouped):
+    decoder_columns() -> name -> (lo, hi): the decoder groups and the
+        expert columns [lo, hi) of the (N, M) loss that each one's recons
+        feed. Default: one group a modality, named like it, its column
+    stop_grad_groups(support_row) -> frozenset: the decoder groups that
+        a term whose static recon support is support_row ((M,) 0/1)
+        never trains. Default: the groups of the columns it does not
+        support
+    exact_skip_groups: groups without BatchNorm (no statistics to keep),
+        which a term that never trains them does not decode at all.
+        Default: none
+    skip_decode_groups: groups with BatchNorm that --fast-term-decode
+        skips too (their skipped terms commit the old statistics)
+    decode_group(name, z, groups, terms, keep_mask=None, operand=None)
+        -> (recons, moments): decoder group `name` alone on the rows z
+        (N, D) of the ELBO terms `terms` ((G,) long, G = groups sets of
+        BN statistics, each naming its term in the moments); recons:
+        the group's modality -> (N, ...) logits; keep_mask: the
+        decoder dropout's for those rows; operand: decode_term_operands
+        of the terms, for a group of gathered_groups
+    group_losses(name, recons, inputs) -> (N, hi - lo): the group's loss
+        columns. Default: recon_loss of the modality
+    decode_group_key(support_row), decode_term_operands(support_rows),
+    gathered_groups: optional (celeba19): terms of one key decode the
+        groups of gathered_groups on the operand that
+        decode_term_operands gives them (its experts), as one call
 
 and, for tensor and expert parallelism (parallel/mesh.py:tp_plan), where
 the JAX package's parameter tree has them:
@@ -52,6 +83,33 @@ class MultimodalVAE(nn.Module):
     n_latents: int = 0
     dropout_rate: float = 0.0
     tp_experts: tuple = ()
+    exact_skip_groups: tuple = ()
+    skip_decode_groups: tuple = ()
+    gathered_groups: tuple = ()
+
+    def decoder_columns(self) -> dict:
+        return {m: (i, i + 1) for i, m in enumerate(self.modalities)}
+
+    def stop_grad_groups(self, support_row) -> frozenset:
+        cols = self.decoder_columns()
+        return frozenset(g for g, (lo, hi) in cols.items()
+                         if not any(support_row[lo:hi]))
+
+    def decode(self, z, groups: int = 1, keep_mask=None):
+        recons, moments = {}, []
+        for name in self.decoder_columns():
+            r, m = self.decode_group(name, z, groups, None, keep_mask)
+            recons.update(r)
+            moments += m
+        return recons, moments
+
+    def decode_group(self, name, z, groups, terms, keep_mask=None,
+                     operand=None):
+        raise NotImplementedError(
+            f"{type(self).__name__} decodes its terms as one batch only")
+
+    def group_losses(self, name, recons, inputs):
+        return self.recon_loss(name, recons[name], inputs[name])[:, None]
 
     def tp_chains(self) -> list:
         return []

@@ -154,13 +154,16 @@ class CelebaMVAE(MultimodalVAE):
         return mu, logvar, {"image": pop_moments(self.image_encoder),
                             "attrs": pop_moments(self.attrs_encoder)}
 
-    def decode(self, z, groups: int = 1):
-        decoders = (self.image_decoder, self.attrs_decoder)
-        for d in decoders:
-            set_bn_groups(d, groups)
-        img = self.image_decoder(z).permute(0, 2, 3, 1)
-        recons = {"image": img, "attrs": self.attrs_decoder(z)}
-        return recons, [m for d in decoders for m in pop_moments(d)]
+    def decode_group(self, name, z, groups, terms, keep_mask=None,
+                     operand=None):
+        """Both decoders have BN: a term that never trains one decodes it
+        forward for its statistics (the engine's no_grad call)."""
+        dec = getattr(self, f"{name}_decoder")
+        set_bn_groups(dec, groups, terms)
+        out = dec(z)
+        if name == "image":
+            out = out.permute(0, 2, 3, 1)
+        return {name: out}, pop_moments(dec)
 
     def recon_loss(self, name, logits, target):
         lo = logits.reshape(logits.shape[0], -1)

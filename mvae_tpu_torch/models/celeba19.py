@@ -36,12 +36,26 @@ computes the image BCE's elementwise math in bf16 steps when its logits
 are bf16 (the train step under bf16 compute; ops/elbo.py), the row sums
 in f32: the CLI's default under bf16 without --fast-term-decode.
 
-`decode(..., decode_terms={"image": terms})` (--fast-term-decode) decodes
-the image only on the rows of those terms, with one set of BN statistics
-each; the other terms' image recon weight is 0 (their loss column holds
-0), and their decoder BN commits are the JAX package's for a skipped
-term (core/engine.py:commit_ema_states).
+The train step's grouped decode (core/engine.py:decode_plan; the JAX
+package's models/celeba19.py:117-206): the decoder groups are the image
+(column 0) and the stacked attribute experts (columns 1-18). The 18
+single-attribute terms never train the image decoder, which has BN: they
+decode it forward for its statistics, or skip it under
+--fast-term-decode (skip_decode_groups). The image-only term never trains
+the experts, which are stateless: it skips them (exact_skip_groups). A
+term whose support holds k of the 18 experts, 0 < k < 18, decodes only
+those (decode_group_key, decode_term_operands): the terms of one k as one
+batched product a layer on the weights of their experts, gathered from
+the ModuleDict in the terms' order, the logits scattered to their
+columns with zeros elsewhere (weight 0 there). Under expert parallelism
+a rank decodes the gathered experts it holds and the ranks' logits are
+summed (reduce_from_tp: each (term, expert) is one rank's, the others add
+zeros), as exact as the stacked decode's gather.
 """
+
+from typing import NamedTuple
+
+import numpy as np
 
 import torch
 from torch import nn
@@ -55,7 +69,8 @@ from mvae_tpu_torch.nn.initializers import init_parameters_
 from mvae_tpu_torch.nn.layers import Embedding, Linear, Swish, swish
 from mvae_tpu_torch.nn.norm import pop_moments, set_bn_groups
 from mvae_tpu_torch.ops.poe import masked_poe_all_terms
-from mvae_tpu_torch.parallel.tensor_parallel import copy_to_tp, gather_from_tp
+from mvae_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp, gather_from_tp, reduce_from_tp)
 
 N_ATTRS = 18
 
@@ -90,6 +105,18 @@ def stacked(experts, index):
     return w, torch.stack([m.bias for m in layers])[:, None]
 
 
+class ExpertGather(NamedTuple):
+    """decode_term_operands of a group of G terms of k experts each:
+    `index` (G, k) their experts (the JAX package's operand); the (term,
+    expert) pairs this rank holds, P of them: `experts` (host ints),
+    `rows` (P,) long, each pair's term (None where that is 0 .. G-1),
+    `flat` (P,) long, term * 18 + expert."""
+    index: np.ndarray
+    experts: tuple
+    rows: object
+    flat: torch.Tensor
+
+
 class Celeba19MVAE(MultimodalVAE):
     # expert order: the image, then the 18 attributes
     modalities = ("image",) + tuple(f"attr_{i}" for i in range(N_ATTRS))
@@ -97,6 +124,9 @@ class Celeba19MVAE(MultimodalVAE):
     loglike_targets = ("image", "attrs")
     # decoder groups --fast-term-decode may skip (core/engine.py)
     skip_decode_groups = ("image",)
+    # the stacked experts are stateless: the image-only term skips them
+    exact_skip_groups = ("attrs",)
+    gathered_groups = ("attrs",)
 
     def __init__(self, n_latents: int = 100, compute_dtype=None, *,
                  conv_moments: bool = False, bf16_loss: bool = False,
@@ -190,23 +220,87 @@ class Celeba19MVAE(MultimodalVAE):
                 x = swish(x)
         return self._gather_experts(x[..., 0].t(), 1).contiguous()
 
-    def decode(self, z, groups: int = 1, decode_terms=None):
-        """decode_terms: {"image": (T',) long tensor} decodes the image of
-        those terms' rows only (see the module docstring); the recons then
-        carry the terms under "image_terms"."""
-        terms = None if decode_terms is None else decode_terms.get("image")
-        if terms is None:
-            set_bn_groups(self.image_decoder, groups)
-            img = self.image_decoder(z)
-        else:
-            zi = z.view(groups, -1, z.shape[-1])[terms]
-            set_bn_groups(self.image_decoder, len(terms), terms)
-            img = self.image_decoder(zi.reshape(-1, z.shape[-1]))
-        recons = {"image": img.permute(0, 2, 3, 1),
-                  "attrs": self.decode_attrs(z)}
-        if terms is not None:
-            recons["image_terms"] = terms
-        return recons, pop_moments(self.image_decoder)
+    def decode_attrs_gathered(self, z, groups, operand):
+        """(G * B, L), an ExpertGather of the G terms -> (G * B, 18) f32:
+        each term's k experts' logits at their columns, zeros at the
+        others; decode_attrs' products and roundings, a (term, expert)
+        pair a batch of one batched product a layer."""
+        cd = self.compute_dtype
+        x = z.view(groups, -1, z.shape[-1])                    # (G, B, L)
+        if self.expert_tp is not None:
+            x = copy_to_tp(x, self.expert_tp)
+        if operand.rows is not None:
+            x = x.index_select(0, operand.rows)                # (P, B, L)
+        nets = [self.attr_decoders[str(j)].net for j in operand.experts]
+        for i in (0, 2, 4, 6):
+            w = torch.stack([n[i].weight for n in nets]).transpose(1, 2)
+            b = torch.stack([n[i].bias for n in nets])[:, None]
+            if cd is None:
+                y = torch.bmm(x, w)
+            elif i == 0:
+                y = torch.bmm(x.to(cd), w.to(cd)).float()
+            else:
+                y = torch.bmm(x, w.to(cd).float())
+            x = y + b
+            if i != 6:
+                x = swish(x)
+        n_b = x.shape[1]
+        out = x.new_zeros((groups * N_ATTRS, n_b)).index_copy(
+            0, operand.flat, x[..., 0])
+        if self.expert_tp is not None:
+            out = reduce_from_tp(out, self.expert_tp)
+        return out.view(groups, N_ATTRS, n_b).transpose(1, 2).reshape(
+            groups * n_b, N_ATTRS)
+
+    def decoder_columns(self):
+        return {"image": (0, 1), "attrs": (1, 1 + N_ATTRS)}
+
+    def decode_group_key(self, support_row):
+        """k for a term whose support holds k of the 18 experts, 0 < k <
+        18 (the single-attribute terms: k = 1), else None."""
+        k = int(sum(1 for v in support_row[1:] if v))
+        return k if 0 < k < N_ATTRS else None
+
+    def decode_term_operands(self, support_rows, device=None):
+        """An ExpertGather of a group of terms of one key: their experts,
+        and the pairs this rank holds (all of them without expert
+        parallelism; build it after the model is sharded)."""
+        index = np.stack([np.nonzero(np.asarray(r[1:]))[0]
+                          for r in support_rows])
+        pairs = [(g, int(j)) for g, row in enumerate(index) for j in row
+                 if str(int(j)) in self.attr_decoders]
+        rows = [g for g, _ in pairs]
+        return ExpertGather(
+            index, tuple(j for _, j in pairs),
+            None if rows == list(range(len(index))) else torch.as_tensor(
+                rows, dtype=torch.long, device=device),
+            torch.as_tensor([g * N_ATTRS + j for g, j in pairs],
+                            dtype=torch.long, device=device))
+
+    def decode_group(self, name, z, groups, terms, keep_mask=None,
+                     operand=None):
+        if name == "attrs":
+            att = (self.decode_attrs(z) if operand is None
+                   else self.decode_attrs_gathered(z, groups, operand))
+            return {"attrs": att}, []
+        set_bn_groups(self.image_decoder, groups, terms)
+        img = self.image_decoder(z).permute(0, 2, 3, 1)
+        return {"image": img}, pop_moments(self.image_decoder)
+
+    def group_losses(self, name, recons, inputs):
+        """The image's row-summed BCE (N, 1), or the 18 attributes' scalar
+        BCEs (N, 18); row r reads input row r mod B."""
+        if name == "image":
+            img = recons["image"]
+            return bce_row_sum(img.reshape(img.shape[0], -1),
+                               inputs["image"].reshape(
+                                   inputs["image"].shape[0], -1),
+                               bf16_math=self.bf16_loss)[:, None]
+        att = recons["attrs"]
+        n, nt = att.shape[0], inputs["attrs"].shape[0]
+        return binary_cross_entropy_with_logits(
+            att.view(n // nt, nt, N_ATTRS),
+            inputs["attrs"].float()).reshape(n, N_ATTRS)
 
     def recon_loss(self, name, logits, target):
         """The loglike targets' losses: "image" or "attrs", each the
@@ -216,20 +310,9 @@ class Celeba19MVAE(MultimodalVAE):
 
     def recon_losses(self, recons, inputs):
         """(N, 19): the image's row-summed BCE, then the 18 attributes'
-        scalar BCEs; row r reads input row r mod B."""
-        att = recons["attrs"]
-        n, nt = att.shape[0], inputs["attrs"].shape[0]
-        img = bce_row_sum(recons["image"].reshape(recons["image"].shape[0],
-                                                  -1),
-                          inputs["image"].reshape(nt, -1),
-                          bf16_math=self.bf16_loss)
-        terms = recons.get("image_terms")
-        if terms is not None:
-            img = img.new_zeros((n // nt, nt)).index_copy(
-                0, terms, img.view(-1, nt)).reshape(n)
-        att = binary_cross_entropy_with_logits(
-            att.view(n // nt, nt, N_ATTRS), inputs["attrs"].float())
-        return torch.cat([img[:, None], att.reshape(n, N_ATTRS)], dim=-1)
+        scalar BCEs (group_losses)."""
+        return torch.cat([self.group_losses(g, recons, inputs)
+                          for g in ("image", "attrs")], dim=-1)
 
     def infer(self, inputs, attrs_mask=None):
         """Fuse the posterior of the image if given and of the attribute

@@ -124,9 +124,15 @@ class FashionMnistMVAE(MultimodalVAE):
         logvar = torch.stack([img[:, L:], txt[:, L:]])
         return mu, logvar, {"image": [], "text": []}
 
-    def decode(self, z, groups: int = 1):
-        img = self.image_decoder(z).permute(0, 2, 3, 1)
-        return {"image": img, "text": self.text_decoder(z)}, []
+    # both decoders are stateless: a term that never trains one skips it,
+    # exactly (mvae_tpu/models/fashionmnist.py:78)
+    exact_skip_groups = ("image", "text")
+
+    def decode_group(self, name, z, groups, terms, keep_mask=None,
+                     operand=None):
+        if name == "image":
+            return {"image": self.image_decoder(z).permute(0, 2, 3, 1)}, []
+        return {"text": self.text_decoder(z)}, []
 
     def recon_loss(self, name, logits, target):
         if name == "image":

@@ -135,10 +135,13 @@ class MnistMVAE(MultimodalVAE):
         logvar = torch.stack([img[:, L:], txt[:, L:]])
         return mu, logvar, {"image": [], "text": []}
 
-    def decode(self, z, groups: int = 1):
-        z = self._rounded(z)
-        return {"image": self.image_decoder(z),
-                "text": self.text_decoder(z)}, []
+    # both decoders are stateless MLPs: a term that never trains one
+    # skips it, exactly (mvae_tpu/models/mnist.py:71)
+    exact_skip_groups = ("image", "text")
+
+    def decode_group(self, name, z, groups, terms, keep_mask=None,
+                     operand=None):
+        return {name: getattr(self, f"{name}_decoder")(self._rounded(z))}, []
 
     def recon_loss(self, name, logits, target):
         if name == "image":

@@ -156,13 +156,21 @@ class MultiMnistMVAE(MultimodalVAE):
         return mu, logvar, {"image": pop_moments(self.image_encoder),
                             "text": []}
 
-    def decode(self, z, groups: int = 1, keep_mask=None):
-        """keep_mask: the text decoder's (4, N, H) keep-masks, in train
-        mode."""
-        set_bn_groups(self.image_decoder, groups)
+    # the GRU text decoder is stateless: a term that never trains it skips
+    # it, exactly (mvae_tpu/models/multimnist.py:101); the image decoder
+    # has BN and runs forward for its statistics
+    exact_skip_groups = ("text",)
+
+    def decode_group(self, name, z, groups, terms, keep_mask=None,
+                     operand=None):
+        """keep_mask: the text decoder's (4, N, H) keep-masks of these
+        rows, in train mode (the grouped decode slices them from the
+        whole (4, T * B, H) draw)."""
+        if name == "text":
+            return {"text": self.text_decoder(z, keep_mask)}, []
+        set_bn_groups(self.image_decoder, groups, terms)
         img = self.image_decoder(z).permute(0, 2, 3, 1)
-        recons = {"image": img, "text": self.text_decoder(z, keep_mask)}
-        return recons, pop_moments(self.image_decoder)
+        return {"image": img}, pop_moments(self.image_decoder)
 
     def recon_loss(self, name, logits, target):
         if name == "image":

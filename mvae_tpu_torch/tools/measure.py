@@ -12,12 +12,18 @@ multi-term ELBO step needs, 2 FLOPs a multiply-add as XLA's cost analysis
 counts them: each modality's encoder once; each term's decode only for
 the modalities whose loss weight in that term is non-zero; in the
 backward the gradient of every operand that needs one (every trained
-weight, and an activation wherever a layer upstream of it trains). The
-port's one-batch decode also runs every term's decode of every modality
-(core/engine.py), the dead decodes, with their backward: that work is not
-counted (dead_decode_flops counts it), so a change that removes it leaves
-flops_per_step where it is. Elementwise work, the BN and loss kernels and
-the optimizer are not counted.
+weight, and an activation wherever a layer upstream of it trains).
+Elementwise work, the BN and loss kernels and the optimizer are not
+counted.
+
+What the port's step runs beyond that is counted apart
+(dead_decode_flops): on the grouped decode (core/engine.py:decode_plan),
+the forward of a BN'd decoder for the terms that never train it (its
+batch statistics), and the decodes of terms whose static support holds a
+modality their step's weights leave at 0 (celeba19's sampled terms), with
+their backward; on the one-batch decode (a step without a plan), every
+term's decode of a modality at a loss weight of 0, with its backward.
+Stateless decoders of terms that never train them run nothing.
 
 The shapes are read off one forward of the model's encode and decode at
 the step's batch, in eval mode with autograd on (the same convolutions
@@ -34,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from mvae_tpu_torch.core.engine import decode_plan, static_support
 
 # NVIDIA's H100 SXM data sheet, dense rates at its 700 W limit: bf16 on
 # the tensor cores, float32 outside them (TF32 off, as the port's f32
@@ -245,7 +253,7 @@ _PRODUCTS = {aten.mm: _mm, aten.addmm: _addmm, aten.bmm: _bmm,
 
 
 class _ProductRecorder(TorchDispatchMode):
-    """Each product's FLOPs, forward and the backward it needs (the same
+    """Each product's FLOPs, (forward, the backward it needs: the same
     count again for every operand that needs a gradient), summed by the
     top-level module that ran it (`owner`, None outside one)."""
 
@@ -260,13 +268,14 @@ class _ProductRecorder(TorchDispatchMode):
         if rule is not None:
             n, operands = rule(args, out)
             grads = sum(bool(t.requires_grad) for t in operands)
-            self.flops[self.owner] = (self.flops.get(self.owner, 0)
-                                      + n * (1 + grads))
+            f, b = self.flops.get(self.owner, (0, 0))
+            self.flops[self.owner] = (f + n, b + n * grads)
         return out
 
 
 def _recorded(model, fn):
-    """FLOPs of fn() by the model's top-level module that ran them."""
+    """(forward, backward) FLOPs of fn() by the model's top-level module
+    that ran them."""
     rec = _ProductRecorder()
     hooks = []
     for name, child in model.named_children():
@@ -285,16 +294,23 @@ def _recorded(model, fn):
 
 class StepFlops(NamedTuple):
     needed: int         # flops_per_step
-    dead: int           # the dead decodes and their backward
+    dead: int           # what the port's step runs beyond it
     encode: int
-    decode: dict        # modality -> one term's decode at the batch
+    decode: dict        # modality -> one term's decode at the batch,
+                        # forward and backward
+    forward: dict       # modality -> its forward alone
 
 
-def count_step(model, masks, lambdas, batch: int, recon_masks=None):
+def count_step(model, masks, lambdas, batch: int, recon_masks=None,
+               recon_support=None, fast_skip_decode=False):
     """The multi-term ELBO train step's FLOPs from shapes at `batch` rows
     (the module docstring): masks, lambdas, recon_masks (T, M) as the
-    step takes them. A model whose decoders run several modalities in one
-    product (vision's --stack-modalities) is refused."""
+    step takes them; recon_support, fast_skip_decode as
+    train/loop.py:make_train_step takes them (None: the static support
+    of masks and lambdas, the step's own for static masks; a step with
+    per-call terms and no support, one-batch, passes all ones). A model
+    whose decoders run several modalities in one product (vision's
+    --stack-modalities) is refused."""
     if getattr(model, "stack_modalities", False):
         raise ValueError("flops_per_step counts a decoder a modality; "
                          "stack_modalities runs three in one product")
@@ -311,32 +327,49 @@ def count_step(model, masks, lambdas, batch: int, recon_masks=None):
     finally:
         model.train(was_training)
     mods = model.modalities
-    dec = {m: 0 for m in mods}
-    loose = 0
-    for owner, n in dec_by.items():
+    fwd, bwd = ({m: 0 for m in mods} for _ in range(2))
+    loose = (0, 0)
+    for owner, (f, b) in dec_by.items():
         m = (owner[:-len("_decoder")] if owner is not None
              and owner.endswith("_decoder") else None)
-        if m in dec:
-            dec[m] += n
+        if m in fwd:
+            fwd[m] += f
+            bwd[m] += b
         else:
-            loose += n
+            loose = (loose[0] + f, loose[1] + b)
     # decoders that are no top-level module of their own (celeba19's
     # stacked attribute experts, alike in shape) share what ran outside one
     own = [m for m in mods if not hasattr(model, f"{m}_decoder")]
-    if loose:
-        if not own or loose % len(own):
+    if any(loose):
+        if not own or loose[0] % len(own) or loose[1] % len(own):
             raise ValueError(f"{loose} decode FLOPs of no modality")
         for m in own:
-            dec[m] += loose // len(own)
+            fwd[m] += loose[0] // len(own)
+            bwd[m] += loose[1] // len(own)
+    dec = {m: fwd[m] + bwd[m] for m in mods}
     rmask = np.asarray(masks if recon_masks is None else recon_masks,
                        np.float64)
     weight = rmask * np.asarray(lambdas, np.float64)
     live = (weight != 0).sum(axis=0)
     terms = weight.shape[0]
-    needed = sum(enc.values()) + sum(int(live[i]) * dec[m]
-                                     for i, m in enumerate(mods))
-    dead = sum(int(terms - live[i]) * dec[m] for i, m in enumerate(mods))
-    return StepFlops(needed, dead, sum(enc.values()), dec)
+    encode = sum(f + b for f, b in enc.values())
+    needed = encode + sum(int(live[i]) * dec[m] for i, m in enumerate(mods))
+    runs = sum(terms * dec[m] for m in mods)
+    if recon_support is None:
+        recon_support = static_support(masks, lambdas, recon_masks)
+    plan = decode_plan(model, recon_support,
+                       fast_skip_decode=fast_skip_decode, device=dev)
+    if plan is not None:
+        runs = 0
+        for group in plan:
+            names = mods[group.columns[0]:group.columns[1]]
+            for call in group.calls:
+                one = dec if call.grad else fwd
+                if call.operand is None:
+                    runs += len(call.index) * sum(one[m] for m in names)
+                else:                       # the experts it gathers
+                    runs += len(call.operand.experts) * one[names[0]]
+    return StepFlops(needed, encode + runs - needed, encode, dec, fwd)
 
 
 def flops_per_step(model, masks, lambdas, batch: int, recon_masks=None):
@@ -344,10 +377,12 @@ def flops_per_step(model, masks, lambdas, batch: int, recon_masks=None):
     return count_step(model, masks, lambdas, batch, recon_masks).needed
 
 
-def dead_decode_flops(model, masks, lambdas, batch: int, recon_masks=None):
-    """What the one-batch decode runs beyond flops_per_step: every term's
-    decode of a modality at a loss weight of 0, with its backward."""
-    return count_step(model, masks, lambdas, batch, recon_masks).dead
+def dead_decode_flops(model, masks, lambdas, batch: int, recon_masks=None,
+                      recon_support=None, fast_skip_decode=False):
+    """What the port's train step runs beyond flops_per_step (count_step's
+    `dead`, the module docstring)."""
+    return count_step(model, masks, lambdas, batch, recon_masks,
+                      recon_support, fast_skip_decode).dead
 
 
 def peak_flops(model) -> float:

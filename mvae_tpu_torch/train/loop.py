@@ -38,7 +38,8 @@ find_unused_parameters and an extra pass over the graph.
 import torch
 import torch.distributed as dist
 
-from mvae_tpu_torch.core.engine import fast_decode_terms, multi_term_elbo
+from mvae_tpu_torch.core.engine import (
+    decode_plan, multi_term_elbo, rows_axis, static_support)
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.nn.norm import BatchNorm, set_bn_sync
 from mvae_tpu_torch.parallel.collectives import sum_in_place
@@ -139,13 +140,6 @@ def draw_noise(model, n_terms: int, batch: int, generator):
     return eps, keep, u < 1.0 - rate
 
 
-def _batch_axis(shape_of, rows: int) -> int:
-    """The axis of shape_of(rows) that counts the rows."""
-    return next(i for i, (a, b) in enumerate(zip(shape_of(rows),
-                                                 shape_of(rows + 1)))
-                if a != b)
-
-
 def local_noise(model, noise, dp):
     """This rank's rows of the train step's noise for the global batch:
     eps (T, B, D) and the encoder's keep-mask at their batch axis, the
@@ -158,7 +152,7 @@ def local_noise(model, noise, dp):
     b = rows // dp.world
     lo = dp.rank * b
     if keep is not None:
-        keep = keep.narrow(_batch_axis(model.keep_mask_shape, rows), lo, b)
+        keep = keep.narrow(rows_axis(model.keep_mask_shape, rows), lo, b)
         tp = model.dropout_tp()
         if tp is not None and tp.kind == "col":
             cols = keep.shape[-1] // dp.tp_world
@@ -166,7 +160,7 @@ def local_noise(model, noise, dp):
     out = [eps[:, lo:lo + b], keep]
     if len(noise) > 2:
         dec = noise[2]
-        ax = _batch_axis(model.decode_keep_mask_shape, t * rows)
+        ax = rows_axis(model.decode_keep_mask_shape, t * rows)
         shape = dec.shape
         dec = dec.reshape(shape[:ax] + (t, rows) + shape[ax + 1:])
         out.append(dec.narrow(ax + 1, lo, b).reshape(
@@ -228,11 +222,17 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     Adam update and the BN running-statistics commit.
 
     term_masks, term_lambdas: (T, M), or None for a step that takes each
-    step's own (celeba19's sampled terms). fast_skip_decode: decode the
-    model's skip_decode_groups only for the terms whose recon_support
-    (numpy (T, M) 0/1) holds them (--fast-term-decode,
-    core/engine.py:fast_decode_terms). recon_masks: (T, M) reconstruction
-    masks apart from the posterior's (vision), or None.
+    step's own (celeba19's sampled terms). recon_support: numpy (T, M)
+    0/1, the static support of the recon weights (each step's must lie
+    within it), from which the step's decode is grouped
+    (core/engine.py:decode_plan); None derives it from static masks
+    (static_support, train/loop.py:94-95 in the JAX package) and leaves a
+    step with per-call terms and no support the one-batch decode. An
+    all-ones support gives the one-batch decode too (the A/B of the two).
+    fast_skip_decode: the grouped decode also skips the model's
+    skip_decode_groups for the terms that never train them
+    (--fast-term-decode). recon_masks: (T, M) reconstruction masks apart
+    from the posterior's (vision), or None.
 
     Adam is torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8), the same
     update as optax.adam (m_hat / (sqrt(v_hat) + eps)), its state in f32;
@@ -259,16 +259,19 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     masks = _masks(term_masks, device)
     lambdas = _masks(term_lambdas, device)
     rmasks = _masks(recon_masks, device)
-    decode_terms = (fast_decode_terms(model, recon_support, device)
-                    if fast_skip_decode else None)
+    if recon_support is None and term_masks is not None:
+        recon_support = static_support(term_masks, term_lambdas,
+                                       recon_masks)
+    plan = decode_plan(model, recon_support,
+                       fast_skip_decode=fast_skip_decode, device=device)
     decode_dt = resolve_decode_dtype(model)
     optimizer = torch.optim.Adam(model.parameters(), lr=lr,
                                  betas=(0.9, 0.999), eps=1e-8)
 
     params = list(model.parameters())
-    plan = getattr(getattr(model, "tp_layout", None), "plan", {})
+    tp_plan = getattr(getattr(model, "tp_layout", None), "plan", {})
     sharded = [p for n, p in model.named_parameters()
-               if plan.get(n) is not None]
+               if tp_plan.get(n) is not None]
     bn_group = dp.group if dp is not None and sync_bn else None
 
     def train_step(batch, beta, noise=None, masks=masks, lambdas=lambdas):
@@ -285,7 +288,7 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
         optimizer.zero_grad(set_to_none=True)
         total, aux = multi_term_elbo(model, batch, masks, lambdas, beta,
                                      train=True, noise=noise,
-                                     decode_terms=decode_terms,
+                                     plan=plan,
                                      recon_masks=rmasks)
         total.backward()
         if dp is not None:
@@ -298,6 +301,7 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
         return total.detach(), aux["per_term"].detach()
 
     train_step.optimizer = optimizer
+    train_step.plan = plan
     return train_step
 
 
@@ -340,6 +344,7 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
         return torch.stack(losses)
 
     multi_step.optimizer = step.optimizer
+    multi_step.plan = step.plan
     return multi_step
 
 

@@ -3,8 +3,9 @@ bench_families.py, roofline_family.py, serve_latency.py over
 tools/measure.py) against the JAX package's scripts: each family's
 benchmarked step is scripts/bench_families.py's, the CelebA bench is
 bench.py's but for its term weights, the FLOPs a step from shapes equal
-FlopCounterMode's count of a port step (less the dead decodes, which the
-count leaves out) and stay under XLA's cost analysis of the JAX step; the
+FlopCounterMode's count of a port step (less the dead work, which the
+count leaves out: the forwards of the BN'd decoders for the terms that
+never train them) and stay under XLA's cost analysis of the JAX step; the
 tools run on the card unless --device cpu, where every device metric is
 null; the reference flow runs three forwards a step.
 
@@ -27,7 +28,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from mvae_tpu.models.mnist import MnistMVAE as JaxMnistMVAE
 from mvae_tpu.train.loop import make_multi_train_step as jax_multi_step
-from mvae_tpu_torch.core.subsets import celeba19_step_terms
+from mvae_tpu_torch.core.subsets import (
+    celeba19_recon_support, celeba19_step_terms)
 from mvae_tpu_torch.experiments.celeba import train as celeba_cli
 from mvae_tpu_torch.experiments.vision import train as vision_cli
 from mvae_tpu_torch.models import (
@@ -158,13 +160,14 @@ def poe_plain_flops(t, m, b, d):
     return 6 * 2 * t * m * b * d
 
 
-def counted(model, masks, lambdas, b, recon_masks=None, dynamic=False):
+def counted(model, masks, lambdas, b, recon_masks=None, dynamic=False,
+            recon_support=None):
     """FlopCounterMode's count of one port train step at b rows on the
     CPU, and the count from shapes."""
     step = make_train_step(
         model, None if dynamic else masks, None if dynamic else lambdas,
         lr=1e-4, device="cpu", generator=torch.Generator().manual_seed(0),
-        recon_masks=recon_masks)
+        recon_masks=recon_masks, recon_support=recon_support)
     kw = {} if not dynamic else {
         "masks": torch.as_tensor(masks, dtype=torch.float32),
         "lambdas": torch.as_tensor(lambdas, dtype=torch.float32)}
@@ -174,7 +177,8 @@ def counted(model, masks, lambdas, b, recon_masks=None, dynamic=False):
     poe = poe_plain_flops(np.shape(masks)[0], len(model.modalities), b,
                           model.n_latents)
     return (counter.get_total_flops() - poe,
-            measure.count_step(model, masks, lambdas, b, recon_masks))
+            measure.count_step(model, masks, lambdas, b, recon_masks,
+                               recon_support))
 
 
 @pytest.mark.parametrize("cls", [CelebaMVAE, MnistMVAE])
@@ -190,36 +194,43 @@ def test_flops_per_step_is_the_counters_without_dead_work(cls):
 
 
 def shipped(family):
-    """(model, masks, lambdas, recon_masks, dynamic) of the family's CLI
-    step at width 8."""
+    """(model, masks, lambdas, recon_masks, dynamic, recon_support) of the
+    family's CLI step at width 8."""
     if family == "celeba19":
         masks, lambdas = celeba19_step_terms(np.random.default_rng(1), 1,
                                              18, 1.0, 10.0)
-        return Celeba19MVAE(8, device="cpu"), masks, lambdas, None, True
+        return (Celeba19MVAE(8, device="cpu"), masks, lambdas, None, True,
+                celeba19_recon_support(1))
     if family == "vision":
         return (VisionMVAE(8, device="cpu"), vision_cli.TERM_MASKS,
-                vision_cli.TERM_LAMBDAS, vision_cli.RECON_MASKS, False)
+                vision_cli.TERM_LAMBDAS, vision_cli.RECON_MASKS, False,
+                None)
     cls = {"celeba": CelebaMVAE, "mnist": MnistMVAE,
            "fashionmnist": FashionMnistMVAE,
            "multimnist": MultiMnistMVAE}[family]
-    return cls(8, device="cpu"), MASKS, LAMBDAS, None, False
+    return cls(8, device="cpu"), MASKS, LAMBDAS, None, False, None
 
 
 @pytest.mark.parametrize("family", bench_families.FAMILY_NAMES)
 def test_counter_exceeds_flops_per_step_by_the_dead_decodes(family):
     """On each family's CLI step (CelebA's shipped three terms, celeba19's
-    21, vision's seven with their recon masks) FlopCounterMode's count
-    less flops_per_step is exactly the dead decodes' FLOPs from shapes:
-    each term's decode of a modality at a loss weight of 0, with its
-    backward; on CelebA one image decode (the attrs-only term) and one
-    attribute decode (the image-only term)."""
-    model, masks, lambdas, recon, dynamic = shipped(family)
-    got, want = counted(model, masks, lambdas, 4, recon, dynamic)
+    21 with the CLI's recon support, vision's seven with their recon
+    masks) FlopCounterMode's count less flops_per_step is exactly the
+    dead work's FLOPs from shapes: what the grouped decode runs beyond
+    the need, the forward alone of a BN'd decoder for each term that
+    never trains it (and celeba19's sampled term's decodes at a weight of
+    0, which its support holds); on CelebA one image decode's forward
+    (the attrs-only term) and one attribute decode's (the image-only
+    term), no backward; none on the MNIST families, whose dead decoders
+    are stateless and skipped."""
+    model, masks, lambdas, recon, dynamic, support = shipped(family)
+    got, want = counted(model, masks, lambdas, 4, recon, dynamic, support)
     assert got - want.needed == want.dead == measure.dead_decode_flops(
-        model, masks, lambdas, 4, recon)
+        model, masks, lambdas, 4, recon, support)
     if family == "celeba":
-        assert want.dead == want.decode["image"] + want.decode["attrs"] > 0
-    if family == "vision":
+        assert want.dead == want.forward["image"] + want.forward["attrs"]
+        assert 0 < want.dead < want.decode["image"] + want.decode["attrs"]
+    if family in ("vision", "mnist", "fashionmnist"):
         assert want.dead == 0
     assert want.needed > want.encode > 0
 

@@ -43,7 +43,7 @@ import mvae_tpu_torch.experiments.celeba19.train as c19_train
 import mvae_tpu_torch.train.driver as driver
 import mvae_tpu_torch.train.loop as loop
 from mvae_tpu_torch.core import subsets
-from mvae_tpu_torch.core.engine import fast_decode_terms, multi_term_elbo
+from mvae_tpu_torch.core.engine import decode_plan, multi_term_elbo
 from mvae_tpu_torch.core.losses import bce_row_sum
 from mvae_tpu_torch.data.celeba import synthetic_celeba
 from mvae_tpu_torch.models import Celeba19MVAE
@@ -329,7 +329,8 @@ def jax_noise(key, t, b):
 def step(request):
     """One train-mode ELBO at T = 21 in f32 on both sides, from the same
     weights, batch, masks and JAX noise: reference-exact (JAX's ungrouped
-    form) or --fast-term-decode (JAX's grouped form with its skip)."""
+    form; the port's one-batch decode) or --fast-term-decode (JAX's
+    grouped form with its skip; the port's decode_plan with it)."""
     fast = request.param == "fast"
     jm, params, state = jax_model(seed=1)
     masks, lambdas = step_terms(9)
@@ -348,12 +349,13 @@ def step(request):
         loss, has_aux=True))(params)
     pm = port_model(params, state)
     pm.train()
-    terms = fast_decode_terms(pm, SUPPORT, "cpu") if fast else None
+    plan = (decode_plan(pm, SUPPORT, fast_skip_decode=True) if fast
+            else None)
     p_total, aux = multi_term_elbo(
         pm, decode_batch(_torch(batch_u8)), torch.tensor(masks),
         torch.tensor(lambdas), 0.7, train=True,
         noise=tuple(torch.from_numpy(a) for a in jax_noise(key, 21, B)),
-        decode_terms=terms)
+        plan=plan)
     p_total.backward()
     want_sd = state_dict_from_jax(
         "celeba19", params, jax.tree_util.tree_map(np.asarray, new_state))
@@ -368,13 +370,20 @@ def test_train_elbo_matches_jax(step):
     """Total and the 21 per-term values at rtol 1e-4; every gradient
     within 5e-5 of JAX's in relative Frobenius norm (the largest read
     1.4e-5, an attribute decoder's bias); in fast mode the same values,
-    as the skipped decodes carry no loss weight."""
+    as the skipped decodes carry no loss weight, and the gradients within
+    5e-4, JAX's own bound for the gathered experts (tests/test_celeba19.py
+    :181-210): the single-attribute terms decode their one expert apart
+    from the terms that decode all 18, so an expert's gradient adds the
+    two calls' sums, where the one batch and JAX sum the rows in one
+    reduction; expert 3's last bias, whose rows' terms of size 1 cancel
+    to 6.5e-4, then reads 3.7e-4 (2.4e-7 absolute)."""
     np.testing.assert_allclose(step["p_total"], step["total"], rtol=1e-4)
     np.testing.assert_allclose(step["p_terms"], step["per_term"], rtol=1e-4)
+    rtol = 5e-4 if step["fast"] else 5e-5
     for k, p in step["pm"].named_parameters():
         want = step["grads"][k]
         gap = np.linalg.norm(p.grad.numpy() - want)
-        assert gap < 5e-5 * np.linalg.norm(want), (k, gap)
+        assert gap < rtol * np.linalg.norm(want), (k, gap)
 
 
 def test_commit_ema_states_matches_jax(step):
@@ -390,12 +399,13 @@ def test_commit_ema_states_matches_jax(step):
 
 
 def test_fast_term_decode_moves_only_the_image_decoder_statistics():
-    """fast_decode_terms keeps the terms whose support holds the image
-    (the complete, image-only and sampled terms), and one step in each
-    mode from the same start differs in the image decoder's running
+    """The fast plan decodes the image of the terms whose support holds
+    it alone (the complete, image-only and sampled terms), and one step in
+    each mode from the same start differs in the image decoder's running
     statistics only."""
-    terms = fast_decode_terms(Celeba19MVAE(L, device="cpu"), SUPPORT, "cpu")
-    assert terms["image"].tolist() == [0, 1, 20]
+    plan = decode_plan(Celeba19MVAE(L, device="cpu"), SUPPORT,
+                       fast_skip_decode=True)
+    assert [c.index for c in plan[0].calls] == [(0, 1, 20)]
     _, params, state = jax_model(seed=2)
     masks, lambdas = (torch.tensor(a) for a in step_terms(3))
     batch = decode_batch(_torch(celeba_batch(B, 5, uint8=True)))
@@ -406,7 +416,7 @@ def test_fast_term_decode_moves_only_the_image_decoder_statistics():
         pm = port_model(params, state)
         pm.train()
         multi_term_elbo(pm, batch, masks, lambdas, 1.0, train=True,
-                        noise=noise, decode_terms=terms if fast else None)
+                        noise=noise, plan=plan if fast else None)
         stats.append({k: v for k, v in pm.state_dict().items()
                       if "running" in k})
     for k in stats[0]:

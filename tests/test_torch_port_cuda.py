@@ -14,7 +14,7 @@ import torch
 
 from mvae_tpu_torch import ops
 from mvae_tpu_torch.core.engine import multi_term_elbo
-from mvae_tpu_torch.core.engine import fast_decode_terms
+from mvae_tpu_torch.core.engine import decode_plan
 from mvae_tpu_torch.core.subsets import (
     celeba19_recon_support, celeba19_step_terms)
 from mvae_tpu_torch.models.celeba import CelebaMVAE
@@ -812,8 +812,8 @@ def test_celeba19_step_goes_through_the_kernels(cuda, fast):
                                          1.0, 10.0)
     kw = {}
     if fast:
-        kw["decode_terms"] = fast_decode_terms(
-            model, celeba19_recon_support(1), cuda)
+        kw["plan"] = decode_plan(model, celeba19_recon_support(1),
+                                 fast_skip_decode=True, device=cuda)
     noise = draw_noise(model, 21, 4,
                        torch.Generator(device=cuda).manual_seed(1))
     ops.reset_launch_counts()

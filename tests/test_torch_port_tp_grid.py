@@ -55,14 +55,15 @@ def test_tp_ranks_of_a_dp_index_see_its_rows(runs):
 
 def test_bn_statistics_are_the_dp_groups(runs):
     """Trap (e): CelebA's 11 BN layers reduce over the dp group, one
-    all-reduce a pass (and two for the gradients, the sharded ones' on the
-    dp group and the others' on the world, and one on the world for the
-    running statistics), and the running statistics every rank commits
-    are one process's on the whole batch (their unbiased variance counts
-    the 6 rows once)."""
+    all-reduce a pass (the decoders' 6 run one more forward pass, for the
+    terms that never train them; and two for the gradients, the sharded
+    ones' on the dp group and the others' on the world, and one on the
+    world for the running statistics), and the running statistics every
+    rank commits are one process's on the whole batch (their unbiased
+    variance counts the 6 rows once)."""
     outs, single, _ = runs["celeba"]
     for o in outs:
-        assert o["all_reduces"] == (2 * 11 + 3) * C.K
+        assert o["all_reduces"] == (2 * 11 + 6 + 3) * C.K
         assert o["tp_collectives"] == 2 * C.K
         for k, v in single["windows"][0]["running"].items():
             got = o["windows"][0]["running"][k]
