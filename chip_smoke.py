@@ -13,7 +13,8 @@ the card, one NCCL rank, the CLI on two processes) and on a dp4 x tp2
 grid of eight ranks (the CLI too), serves over a group of two, runs the
 native host ingest (the MultiMNIST compositor, the JPEG decode and the
 CelebA CLI on a JPEG tree) and the port's measuring tools, and shows
-that those paths went through the kernels.
+that those paths went through the kernels. Each phase's `[time]` line
+gives its seconds.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -84,7 +85,8 @@ error status, which phase 3b reads as the status it checks):
   6b. the training CLI: `experiments/celeba/train.py:main` on the
      synthetic CelebA set, CelebaMVAE(100) bf16, 2 epochs on the fused
      route (--conv-moments) into a temporary directory, --resume for a
-     third on the default route, then Sampler.from_checkpoint on
+     third on the default route with --profile-dir (its second window's
+     trace, which phase 6l reads), then Sampler.from_checkpoint on
      model_best.pth.tar answers one request
   6c. the MNIST families: an IDX set of the synthetic digits (2000 train,
      500 test rows) each; the train CLI with its defaults (bf16, L=64,
@@ -134,7 +136,9 @@ error status, which phase 3b reads as the status it checks):
      every gradient after the all-reduce, the running statistics and the
      parameters, then the losses of steps 2-3 and both ranks' state
      equal, each rank's launches of the BN reductions, the PoE, the BCE
-     and conv2d_moments; then the dp step under a process group of one
+     and conv2d_moments; then the same two ranks serve 6b's
+     model_best.pth.tar through Sampler(dp=2), every endpoint against one
+     device; then the dp step under a process group of one
      NCCL rank against the step with no group, bf16 B=100, in turns, with
      launches and all-reduces a step, one all-reduce's host cost and
      profile lines; then the CelebA train CLI as two processes
@@ -151,12 +155,11 @@ error status, which phase 3b reads as the status it checks):
      every gradient gathered to full shape, the running statistics and
      the parameters, then the losses of steps 2-3 and every rank's state
      equal, each rank's launches and its collectives a step on the dp and
-     the tp group; the CelebA CLI as eight processes (JAX's mesh line),
-     an epoch and a --resume, its model_best.pth.tar loaded on one
-     device; Sampler(dp=2) on two spawned ranks against one device at
-     every endpoint, then serve_http at --dp 2 and --dp 1 side by side,
-     the same request to each and serve_http_bench's burst in turns
-     (requests/s, p50)
+     the tp group; then on the same eight ranks the CelebA CLI's main
+     (JAX's mesh line), an epoch and a --resume, its model_best.pth.tar
+     loaded on one device; then serve_http at --dp 2 and --dp 1 side by
+     side (started together), the same request to each and
+     serve_http_bench's burst in turns (requests/s, p50)
   6j. the native host ingest (data/native.py) on the card's host: the CPU,
      g++ and the image headers' versions, each part's probe; make_dataset
      at MultiMNIST's canonical 60000 / 10000 rows on the native
@@ -178,6 +181,15 @@ error status, which phase 3b reads as the status it checks):
      JSON line parses, every mfu in (0, 1.05], every idle share in [0, 1];
      then FlopCounterMode's count of one shipped CelebA step equal to the
      FLOPs from shapes plus the grouped decode's dead forwards
+  6l. tools/roofline_celeba.py on 6b's traced window (CelebaMVAE(100)
+     bf16, B=100, T=3, the default route): device ms, launches and kernel
+     families a step, the FLOPs, bytes_ops and bytes_floor of the step
+     from shapes and its bound, whose share of the device ms must lie in
+     (0, 1.05]; each distinct kernel of the window printed once with the
+     op that launched it and its family, and every kernel a convolution
+     op launched in the conv family (by the op and by its name); then
+     tools/profile_celeba19.py at K=20, f32 and bf16: celeba19's seven
+     stages, each with positive wall ms, device ms and launches
   7. train checks: one step on the fused route, kernel path vs plain
      versions (loss, parameter gradients: all eight kernels), bf16 and
      f32; fused vs unfused encoder route
@@ -197,7 +209,7 @@ error status, which phase 3b reads as the status it checks):
   in turns, and one window of each runs under
   torch.use_deterministic_algorithms(warn_only=True), whose warnings name
   the ops with no deterministic form.
-  8. the kernels line: launches on phases 3-5b and 6b-6k (6h's and 6i's
+  8. the kernels line: launches on phases 3-5b and 6b-6l (6h's and 6i's
      spawned ranks' own included), error, times,
      bounds, and each timed case of the PoE, the BCE and the families'
      BN layers
@@ -216,7 +228,6 @@ import contextlib
 import copy
 import ctypes
 import datetime
-import io
 import json
 import math
 import os
@@ -287,10 +298,11 @@ from mvae_tpu_torch.serve import Sampler
 from mvae_tpu_torch.serve_http import (
     ServeApp, decode_array, encode_array, make_server, warmup_buckets)
 from mvae_tpu_torch.tools import dp_check
+from mvae_tpu_torch.tools.dp_check import TimedLines
 from mvae_tpu_torch.tools import bench as bench_tool
 from mvae_tpu_torch.tools import (
-    bench_families, measure, roofline_family, serve_http_bench,
-    serve_latency)
+    bench_families, measure, profile_celeba19, roofline_celeba,
+    roofline_family, serve_http_bench, serve_latency)
 from mvae_tpu_torch.tools import parity_convergence as parity
 from mvae_tpu_torch.tools.measure import host_ms, profile_breakdown
 from mvae_tpu_torch.train.checkpoint import BEST, CKPT
@@ -1556,24 +1568,6 @@ LOG_LINE = re.compile(
     r"steps/sec)$")
 
 
-class TimedLines(io.TextIOBase):
-    """A stdout that passes the text on and keeps each finished line with
-    the host time it was finished at."""
-
-    def __init__(self, sink):
-        self.sink, self.part, self.lines = sink, "", []
-
-    def write(self, text):
-        self.sink.write(text)
-        *done, self.part = (self.part + text).split("\n")
-        now = time.perf_counter()
-        self.lines += [(now, line) for line in done]
-        return len(text)
-
-    def flush(self):
-        self.sink.flush()
-
-
 def run_train_cli(main, argv, first_extra, out_dir, what, real_data=False,
                   resume_extra=()):
     """A train CLI's main for CLI_EPOCHS epochs (with first_extra), then
@@ -1646,7 +1640,8 @@ def phase_cli(dev, card, root):
     argv = ["--annealing-epochs", "1", "--log-interval", "10",
             "--out-dir", out_dir, "--data-dir", os.path.join(tmp, "data")]
     tests, throughput, train_s, _ = run_train_cli(
-        celeba_cli.main, argv, ["--conv-moments"], out_dir, "cli")
+        celeba_cli.main, argv, ["--conv-moments"], out_dir, "cli",
+        resume_extra=["--profile-dir", os.path.join(tmp, "trace")])
     epochs = list(range(1, CLI_EPOCHS + 2))
     print(f"[cli] CelebaMVAE(100) bf16 B=100, 20 steps an epoch: "
           f"{throughput} ; epoch training wall s {train_s} (epochs "
@@ -2917,7 +2912,7 @@ def dp_recipes():
     return recipes
 
 
-def ranks_vs_one_process(dev, card, world, recipes, tag):
+def ranks_vs_one_process(dev, card, world, recipes, tag, more=()):
     """`world` spawned ranks share the card over gloo, on the grid of
     parallel/mesh.py over the recipes' global batches of B=100 (world 2:
     dp2; world 8: dp4 x tp2), each dp index stepping its rows of every
@@ -2932,17 +2927,23 @@ def ranks_vs_one_process(dev, card, world, recipes, tag):
     the relative gap counts the other elements), then
     two more steps' losses and every rank's parameters and statistics
     equal. Prints each rank's launches and its collectives a step on each
-    group; returns the ranks' kernel launches, summed."""
+    group. more: further (rank function, payload) jobs the same ranks run
+    after the recipes (tools/dp_check.py:jobs), so that they start once.
+    Returns the ranks' kernel launches, summed, and each rank's results
+    of `more`."""
     n_dp, n_tp = grid(world, BATCH)
     t0 = time.perf_counter()
     refs = [dp_check.replay(rc, dev) for rc in recipes]
     t1 = time.perf_counter()
-    outs = dp_check.spawn_ranks(
-        world, dp_check.replay_all, recipes,
-        device=None if dev.type == "cuda" else "cpu", timeout_s=DP_TIMEOUT_S)
+    results = dp_check.spawn_ranks(
+        world, dp_check.jobs, [(dp_check.replay_all, recipes), *more],
+        device=None if dev.type == "cuda" else "cpu",
+        timeout_s=DP_TIMEOUT_S * (1 + len(more)))
+    outs = [r[0] for r in results]
     print(f"[{tag}] one process {t1 - t0} s, {world} spawned ranks "
           f"({n_dp}-way data x {n_tp}-way tensor/expert) "
-          f"{time.perf_counter() - t1} s for {len(recipes)} recipes")
+          f"{time.perf_counter() - t1} s for {len(recipes)} recipes and "
+          f"{len(more)} more jobs")
     launches = {}
     steps = sum(DP_WINDOWS)
     for i, (rc, ref) in enumerate(zip(recipes, refs)):
@@ -3056,7 +3057,7 @@ def ranks_vs_one_process(dev, card, world, recipes, tag):
                 f"{tag} {name}: {o['tp_collectives']} tp collectives")
     print(f"[{tag}] {world} ranks on one card over gloo hold one process's "
           f"step: {[rc['name'] for rc in recipes]} | {card}")
-    return launches
+    return launches, [r[1:] for r in results]
 
 
 def dead_bn_passes(model, support, fast=False):
@@ -3081,9 +3082,18 @@ def recipe_dead_bn_passes(rc):
                           sk.get("fast_skip_decode", False))
 
 
-def dp_two_ranks(dev, card):
-    """Phase 6h's check: two ranks, dp2, on dp_recipes."""
-    return ranks_vs_one_process(dev, card, DP_WORLD, dp_recipes(), "dp")
+def dp_two_ranks(dev, card, best):
+    """Phase 6h's check: two ranks, dp2, on dp_recipes; then the same
+    ranks serve `best` over a group of two (serve_payload), held against
+    one device (group_endpoints_held). Returns the ranks' launches."""
+    inputs = serve_inputs()
+    launches, more = ranks_vs_one_process(
+        dev, card, DP_WORLD, dp_recipes(), "dp",
+        [(dp_check.serve_endpoints, dict(
+            path=best, dtype=None, inputs=inputs,
+            conditions=HTTP_CONDITIONS))])
+    group_endpoints_held(dev, card, best, inputs, [m[0] for m in more])
+    return launches
 
 
 def dp_one_rank_turns(dev, card, data, root):
@@ -3262,10 +3272,11 @@ def dp_cli(dev, card, root):
           f"reconstruct request | {card}")
 
 
-def phase_dp(dev, card, root, data):
-    """Phase 6h: the two-rank check, the one-rank NCCL turns and the
-    two-process CLI; returns the ranks' kernel launches."""
-    launches = dp_two_ranks(dev, card)
+def phase_dp(dev, card, root, data, best):
+    """Phase 6h: the two-rank check and Sampler(dp=2) on those ranks
+    (serving `best`, 6b's model_best.pth.tar), the one-rank NCCL turns
+    and the two-process CLI; returns the ranks' kernel launches."""
+    launches = dp_two_ranks(dev, card, best)
     lap("dp: two ranks")
     dp_one_rank_turns(dev, card, data, root)
     lap("dp: one NCCL rank in turns")
@@ -3304,35 +3315,42 @@ def c19_recipe():
         windows=DP_WINDOWS, name="celeba19 bf16 unfused")
 
 
-def tp_cli(dev, card, root):
-    """The CelebA train CLI on TP_WORLD processes that share the card
-    (gloo), bf16 CelebaMVAE(100), B=100: dp4 x tp2 on the synthetic set
-    (20 steps an epoch), one epoch, then --resume of rank 0's checkpoint
-    by all for a second; rank 0 alone logs (JAX's mesh line) and writes;
-    Sampler.from_checkpoint answers from its model_best.pth.tar on one
-    device. Returns that file."""
+CLI_MODULE = "mvae_tpu_torch.experiments.celeba.train"
+
+
+def tp_cli_jobs(dev, root):
+    """The CelebA train CLI's two runs on the TP_WORLD spawned ranks of
+    the grid check (tools/dp_check.py:train_cli), bf16 CelebaMVAE(100),
+    B=100: dp4 x tp2 on the synthetic set (20 steps an epoch), one epoch,
+    then --resume of rank 0's checkpoint by all for a second; each rank
+    its own --out-dir. Returns (the jobs, the ranks' directories)."""
     tmp = os.path.join(root, "tp_cli")
     dirs = [os.path.join(tmp, f"rank{r}") for r in range(TP_WORLD)]
     argv = ["--annealing-epochs", "1", "--log-interval", "10",
             "--batch-size", str(BATCH),
-            "--data-dir", os.path.join(root, "celeba", "data")]
+            "--data-dir", os.path.join(root, "celeba", "data"),
+            "--out-dir", os.path.join(tmp, "rank{rank}")]
     if dev.type != "cuda":
         argv += ["--device", str(dev)]
-    t0 = time.perf_counter()
-    first, timed1 = dp_cli_run(argv + ["--epochs", "1"], dirs, "tp cli",
-                               TP_WORLD)
-    t1 = time.perf_counter()
-    second, timed2 = dp_cli_run(argv + ["--epochs", "2", "--resume",
-                                        os.path.join(dirs[0], CKPT)], dirs,
-                                "tp cli resume", TP_WORLD)
-    t2 = time.perf_counter()
+    runs = (argv + ["--epochs", "1"],
+            argv + ["--epochs", "2", "--resume", os.path.join(dirs[0], CKPT)])
+    return [(dp_check.train_cli, (CLI_MODULE, a)) for a in runs], dirs
+
+
+def tp_cli(dev, card, outs, dirs):
+    """The checks of the CLI's two runs on TP_WORLD ranks (tp_cli_jobs):
+    rank 0 alone logs (JAX's mesh line) and writes, each run one epoch
+    with a finite test loss, the second resumed from the first;
+    Sampler.from_checkpoint answers from its model_best.pth.tar on one
+    device. outs: each rank's [(host time, line)] of each run. Returns
+    that file."""
     n_dp, n_tp = grid(TP_WORLD, BATCH)
     mesh = (f"mesh over all {TP_WORLD} devices: {n_dp}-way data x "
             f"{n_tp}-way tensor/expert parallel (batch {BATCH} is not "
             f"divisible by {TP_WORLD}; the leftover factor shards "
             f"parameters, not nothing)")
-    for out, epoch in ((first[0], 1), (second[0], 2)):
-        lines = out.splitlines()
+    for run, epoch in ((0, 1), (1, 2)):
+        lines = [line for _, line in outs[0][run]]
         expect(mesh in lines, f"tp cli: no mesh line in {lines[:4]}")
         expect(sum(line.startswith(f"Train Epoch: {epoch} [")
                    for line in lines) == 2, f"tp cli: epoch {epoch}")
@@ -3342,11 +3360,10 @@ def tp_cli(dev, card, root):
                f"tp cli: test losses {tests}")
         print(f"[tp cli] rank 0, epoch {epoch}: "
               f"{[x for x in lines if not x.startswith('Train')]}")
+        expect(all(not o[run] for o in outs[1:]),
+               f"tp cli: a rank but 0 printed {outs[1][run][:3]!r}")
     expect(any(line.startswith("resumed from ") and line.endswith(
-        "at epoch 1") for line in second[0].splitlines()),
-        "tp cli: no resume line")
-    expect(all(out == "" for out in first[1:] + second[1:]),
-           f"tp cli: a rank but 0 printed {first[1][:200]!r}")
+        "at epoch 1") for _, line in outs[0][1]), "tp cli: no resume line")
     expect(sorted(os.listdir(dirs[0])) == sorted([BEST, CKPT])
            and not any(os.path.exists(d) for d in dirs[1:]),
            "tp cli: the files")
@@ -3356,12 +3373,14 @@ def tp_cli(dev, card, root):
     images = torch.rand((8, 64, 64, 3), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(9))
     check_images(sampler.reconstruct({"image": images}), 8)
-    print(f"[tp cli] {TP_WORLD} processes, epoch 1 {t1 - t0} s, the "
-          f"resumed epoch 2 {t2 - t1} s (process start, data and the "
-          f"build's load included); training wall from the input-pipeline "
-          f"line to the epoch line {epoch_wall(timed1, 1)} s (warm-up "
-          f"included) and {epoch_wall(timed2, 2)} s; {BEST} loaded on one "
-          f"device and served one reconstruct request | {card}")
+    runs = [o[-1][0] - o[0][0] for o in outs[0]]
+    print(f"[tp cli] {TP_WORLD} spawned ranks, epoch 1 {runs[0]} s, the "
+          f"resumed epoch 2 {runs[1]} s (rank 0's first to last line: data "
+          f"and model set-up included, the ranks' start not); training wall "
+          f"from the input-pipeline line to the epoch line "
+          f"{epoch_wall(outs[0][0], 1)} s (warm-up included) and "
+          f"{epoch_wall(outs[0][1], 2)} s; {BEST} loaded on one device and "
+          f"served one reconstruct request | {card}")
     return best
 
 
@@ -3369,10 +3388,10 @@ SERVE_DP = 2            # ranks of the serving group (gloo on one card)
 SERVE_CLIENTS, SERVE_REQUESTS = 16, 8
 
 
-def start_server(dev, best, dp):
+def launch_server(dev, best, dp):
     """serve_http's main on a process of its own, --dp dp, f32, on a free
-    port; returns (the process, the port, its output's lines) once it
-    serves."""
+    port; returns (the process, the port, its output's lines) at once
+    (wait_serving waits for it)."""
     port = free_port()
     where = [] if dev.type == "cuda" else ["--device", str(dev)]
     proc = subprocess.Popen(
@@ -3387,49 +3406,59 @@ def start_server(dev, best, dp):
             lines.append(line.rstrip("\n"))
 
     threading.Thread(target=read, daemon=True).start()
+    return proc, port, lines
+
+
+def wait_serving(server, dp):
+    proc, _, lines = server
     deadline = time.monotonic() + DP_TIMEOUT_S
     while not any(x.startswith("serving celeba on") for x in lines):
         expect(proc.poll() is None and time.monotonic() < deadline,
                f"serve_http --dp {dp} did not start: {lines[-20:]}")
         time.sleep(0.2)
-    return proc, port, lines
 
 
-def tp_serving(dev, card, best):
-    """Sampler(dp=2) on two spawned ranks against one device at every
-    endpoint (tools/dp_check.py:serve_endpoints, f32 from best); then
-    serve_http at --dp 2 and --dp 1 side by side, the same /embed
-    request to each, and serve_http_bench's burst (16 clients x 8 one-row
-    /embed requests, 2 ms window) in turns, dp1, dp2, dp2, dp1."""
+def serve_inputs():
+    """The rows every endpoint of the serving group's check takes."""
     rng = np.random.default_rng(66)
-    inputs = {"image": torch.from_numpy(rng.random((5, 64, 64, 3),
-                                                   dtype=np.float32)),
-              "attrs": torch.from_numpy((rng.random((5, 18)) < 0.3)
-                                        .astype(np.float32))}
-    t0 = time.perf_counter()
-    outs = dp_check.spawn_ranks(
-        SERVE_DP, dp_check.serve_endpoints, dict(
-            path=best, dtype=None, inputs=inputs,
-            conditions=HTTP_CONDITIONS),
-        device=None if dev.type == "cuda" else "cpu",
-        timeout_s=DP_TIMEOUT_S)
+    return {"image": torch.from_numpy(rng.random((5, 64, 64, 3),
+                                                 dtype=np.float32)),
+            "attrs": torch.from_numpy((rng.random((5, 18)) < 0.3)
+                                      .astype(np.float32))}
+
+
+def group_endpoints_held(dev, card, best, inputs, outs):
+    """Sampler(dp=2)'s endpoint outputs on the spawned ranks
+    (tools/dp_check.py:serve_endpoints, f32 from best) against one
+    device at every endpoint."""
     want = dp_check.endpoint_outputs(
         Sampler.from_checkpoint(best, device=dev),
         {k: v.to(dev) for k, v in inputs.items()}, HTTP_CONDITIONS)
     for r, o in enumerate(outs):
-        expect(set(o) == set(want), f"tp serving: rank {r}'s endpoints")
+        expect(set(o) == set(want), f"dp serving: rank {r}'s endpoints")
         err = max((o[k] - v).abs().max().item() for k, v in want.items())
-        print(f"[tp serve] Sampler(dp={SERVE_DP}) rank {r}: {len(want)} "
+        print(f"[dp serve] Sampler(dp={SERVE_DP}) rank {r}: {len(want)} "
               f"endpoint outputs, max_abs_err {err} against one device "
               f"(CARD_TOL {CARD_TOL}) | {card}")
         for k, v in want.items():
             torch.testing.assert_close(o[k], v, **CARD_TOL)
-    print(f"[tp serve] the two ranks' spawn and endpoints "
-          f"{time.perf_counter() - t0} s")
+
+
+def tp_serving(dev, card, best):
+    """serve_http at --dp 2 and --dp 1 side by side (started together),
+    the same /embed request to each, and serve_http_bench's burst (16
+    clients x 8 one-row /embed requests, 2 ms window) in turns, dp1, dp2,
+    dp2, dp1."""
+    inputs = serve_inputs()
     servers = {}
     try:
+        t0 = time.perf_counter()
         for dp in (1, SERVE_DP):
-            servers[dp] = start_server(dev, best, dp)
+            servers[dp] = launch_server(dev, best, dp)
+        for dp, server in servers.items():
+            wait_serving(server, dp)
+        print(f"[tp serve] serve_http --dp 1 and --dp {SERVE_DP} serving "
+              f"{time.perf_counter() - t0} s after their start")
         expect(any(x.startswith(f"serving over a {SERVE_DP}-device data-"
                                 f"parallel mesh") for x in
                    servers[SERVE_DP][2]), "tp serve: no mesh line")
@@ -3475,16 +3504,16 @@ def tp_serving(dev, card, best):
 
 def phase_tp(dev, card, root):
     """Phase 6i: the dp4 x tp2 steps of CelebA (bf16 on the unfused
-    route, f32 on the fused one) and celeba19 on eight ranks against one
-    process, the CelebA
-    CLI on eight processes and a resume, and serving over a group of two;
-    returns the ranks' kernel launches."""
+    route, f32 on the fused one) and celeba19 on eight spawned ranks
+    against one process, then on the same ranks the CelebA CLI for an
+    epoch and a resume, then serve_http over a group of two beside one
+    device; returns the ranks' kernel launches."""
     recipes = [rc for rc in dp_recipes() if rc["name"] in TP_RECIPES]
-    launches = ranks_vs_one_process(dev, card, TP_WORLD,
-                                    recipes + [c19_recipe()], "tp")
-    lap("tp: eight ranks against one process")
-    best = tp_cli(dev, card, root)
-    lap("tp: the CLI on eight processes")
+    cli_jobs, dirs = tp_cli_jobs(dev, root)
+    launches, outs = ranks_vs_one_process(
+        dev, card, TP_WORLD, recipes + [c19_recipe()], "tp", cli_jobs)
+    lap("tp: eight ranks against one process, the CLI on them")
+    best = tp_cli(dev, card, outs, dirs)
     tp_serving(dev, card, best)
     return launches
 
@@ -3865,17 +3894,130 @@ def phase_bench(dev, card, celeba_dir):
     flops_against_the_counter(dev, card)
 
 
+# phase 6l: the CelebA window by kernel category with the step's FLOP and
+# byte bound (tools/roofline_celeba.py, on phase 6b's traced resumed
+# window), and celeba19's step by stage (tools/profile_celeba19.py)
+STAGE_RUNS = ["--k", "20"]
+BOUND_SHARE_MAX = 1.05      # the bound's share of the device ms a step
+
+
+def phase_tools(dev, card, celeba_dir):
+    """Phase 6l: tools/roofline_celeba.py on the trace of 6b's resumed
+    epoch (its second window of 10 steps, the default route: CelebaMVAE(100)
+    bf16, B=100, T=3; where that trace lost more than measure.LOST_MAX
+    kernel records, on a window of 20 that the tool's --capture traces)
+    and tools/profile_celeba19.py at K=20 in f32 and bf16. Every JSON line
+    parses, is what the tool returned and names this card; the bound's share of the device ms a step lies in (0,
+    BOUND_SHARE_MAX]; every stage's wall ms, device ms and launches are
+    positive. Prints each distinct kernel of the window once with the op
+    that launched it and its family, and fails unless the profiler linked
+    kernels to convolution ops and every one of them is in the conv family,
+    by its op and (memsets aside) by its name alone."""
+    trace_dir = os.path.join(os.path.dirname(celeba_dir), "trace")
+    roof_argv, steps = ["--trace-dir", trace_dir, "--k", "10"], 10
+    lost = roofline_celeba.analyze(os.path.join(trace_dir, "trace.json"),
+                                   10)["records_lost"]
+    if lost > measure.LOST_MAX:
+        print(f"[tools] the trace of 6b's resumed run lost {lost} kernel "
+              f"records: roofline_celeba --capture traces its own window of "
+              f"20")
+        roof_argv = ["--capture", "--trace-dir", os.path.join(
+            os.path.dirname(celeba_dir), "roofline_trace")]
+        steps = 20
+    name = torch.cuda.get_device_name(0)
+    printed = TimedLines(sys.stdout)
+    with contextlib.redirect_stdout(printed):
+        roof = roofline_celeba.main(roof_argv)
+        lap("tools: roofline_celeba")
+        stages = profile_celeba19.main(STAGE_RUNS)
+        lap("tools: profile_celeba19 " + " ".join(STAGE_RUNS))
+    parsed = [json.loads(line) for _, line in printed.lines
+              if line.startswith("{")]
+    expect(parsed == [roof] + stages, "tools: the printed lines are not the "
+           "tools' records")
+    for rec in parsed:
+        expect(isinstance(rec["device"], dict)
+               and rec["device"]["name"] == name
+               and rec["device"]["power_limit"],
+               f"tools: device {rec['device']}")
+    share = roof["bound_share_of_device"]
+    expect(share is not None and 0 < share <= BOUND_SHARE_MAX,
+           f"roofline_celeba: the bound's share of the device ms {share}")
+    expect(roof["steps"] == steps, f"roofline_celeba: {roof['steps']} "
+           f"steps")
+    print(f"[tools] CelebA bf16 B=100 window of {roof['steps']}: device "
+          f"{roof['device_ms_per_step']} ms, wall {roof['wall_ms_per_step']} "
+          f"ms ({roof['traced_wall_ms_per_step']} traced), idle share "
+          f"{roof['idle_share']}, {roof['launches_per_step']} launches a "
+          f"step; "
+          f"{roof['flops_per_step']} FLOPs, bytes_ops {roof['bytes_ops']}, "
+          f"bytes_floor {roof['bytes_floor']}; bound {roof['bound_ms']} ms "
+          f"by {roof['bound_by']}, {share} of the device ms, "
+          f"{roof['bound_share_of_wall']} of the wall | {card}")
+    for rec in stages:
+        for row in rec["stages"]:
+            expect(all(row[k] is not None and row[k] > 0 for k in
+                       ("wall_ms", "device_ms", "launches")),
+                   f"profile_celeba19 {rec['precision']}: {row}")
+    window = roofline_celeba.analyze(roof["trace"], steps)
+    seen = {}
+    for r in window["launchers"]:
+        seen.setdefault(r["kernel"], []).append(r)
+    for kernel, rows in seen.items():
+        print(f"[families] {' / '.join(sorted({r['family'] for r in rows}))}"
+              f" | by name {rows[0]['by_name']} | launched by "
+              f"{sorted({str(r['op']) for r in rows})} | {kernel[:160]}")
+    # a convolution op's kernels; its memsets are no kernels and have no
+    # family by their name
+    conv = [r for r in window["launchers"] if r["op"] is not None
+            and measure.family_of("", r["op"]) == measure.CONV]
+    wrong = [r for r in conv if r["family"] != measure.CONV
+             or (r["by_name"] != measure.CONV
+                 and not r["kernel"].startswith(("Memset", "Memcpy")))]
+    expect(conv and not wrong, f"tools: kernels launched by convolution "
+           f"ops outside the conv family: {wrong}")
+    print(f"[tools] {len(conv)} (kernel, convolution op) pairs, all conv by "
+          f"op and by name; kernels linked to an op "
+          f"{window['kernels_linked_to_an_op']} | {card}")
+    # the live profiler's links (measure.profile_records): a float32
+    # convolution's forward and backward (TF32 off: cuDNN may take its
+    # GEMM-based algorithms) and a product, each kernel by its op; 20
+    # calls, since a profile of a millisecond or two came back without
+    # its device events in two of three runs on the card
+    x = torch.randn((100, 64, 32, 32), device=dev, requires_grad=True)
+    w = torch.randn((128, 64, 4, 4), device=dev, requires_grad=True)
+    a = torch.randn((1024, 1024), device=dev)
+    prof = profile_breakdown(
+        "a float32 conv forward and backward and a product",
+        lambda: (F.conv2d(x, w, stride=2, padding=1).sum().backward(),
+                 a @ a), card, reps=20, wall_reps=5)
+    linked = [r for r in prof["launchers"] if r["op"] is not None]
+    expect(any(r["family"] == measure.CONV for r in linked)
+           and any(r["family"] == measure.GEMM for r in linked)
+           and all(r["family"] == measure.CONV for r in linked
+                   if measure.family_of("", r["op"]) == measure.CONV),
+           f"tools: the profiler's links {prof['launchers']}")
+    for r in prof["launchers"]:
+        print(f"[families] profiler: {r['family']} | by name "
+              f"{r['by_name']} | launched by {r['op']} | {r['kernel'][:120]}")
+
+
 _START = time.perf_counter()
+_LAPS = [_START]
 
 
 def lap(what):
-    """Where the run's time goes: seconds since the script started."""
-    print(f"[time] {what}: {time.perf_counter() - _START} s since the start")
+    """Where the run's time goes: seconds since the script started, and
+    since the last lap."""
+    now = time.perf_counter()
+    print(f"[time] {what}: {now - _START} s since the start, "
+          f"{now - _LAPS[-1]} s since the last lap")
+    _LAPS.append(now)
 
 
 def run(dev, card, peaks, root):
     """Phases 2-7 with their files under root; returns the kernel rows of
-    phase 2 and the launches of phases 3-5 and 6b-6j."""
+    phase 2 and the launches of phases 3-5 and 6b-6l."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     # what device_ms reads for a launch with next to no work: every kernel
     # time below carries about this much; back_to_back_ms takes most of it
@@ -3912,6 +4054,7 @@ def run(dev, card, peaks, root):
             + BN_KERNELS, "dp": tuple(KERNELS), "tp": tuple(KERNELS),
             "ingest": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
             + BN_KERNELS, "bench": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
+            + BN_KERNELS, "tools": ("poe_fwd", "poe_bwd", "bce_rowsum_fwd")
             + BN_KERNELS}
     launches, out = {}, {}
     for phase, fn in (
@@ -3929,10 +4072,12 @@ def run(dev, card, peaks, root):
             ("vision", lambda: phase_vision(
                 dev, card, root, out["families"]["celeba"])),
             ("convergence", lambda: phase_convergence(dev, card, root)),
-            ("dp", lambda: phase_dp(dev, card, root, data)),
+            ("dp", lambda: phase_dp(dev, card, root, data,
+                                    os.path.join(out["cli"], BEST))),
             ("tp", lambda: phase_tp(dev, card, root)),
             ("ingest", lambda: phase_ingest(dev, card, root)),
-            ("bench", lambda: phase_bench(dev, card, out["cli"]))):
+            ("bench", lambda: phase_bench(dev, card, out["cli"])),
+            ("tools", lambda: phase_tools(dev, card, out["cli"]))):
         ops.reset_launch_counts()
         out[phase] = fn()
         torch.cuda.synchronize()

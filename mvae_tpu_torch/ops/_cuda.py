@@ -18,6 +18,12 @@ Each wrapper counts its launches on its own attribute (`launched`, under
 a lock: the HTTP front calls the ops from several threads at once), and
 the first `library()` call of the process builds and loads the library
 under a lock too.
+
+Each kernel's wrapper and its plain version are one op of a step to
+tools/measure.py:count_step_bytes (`one_op`): while it counts, a call
+reports its tensor inputs and outputs, and the ops inside it (the plain
+version's steps, the wrapper's allocations) go uncounted, so a kernel
+counts alike on the card and on the CPU.
 """
 
 import contextlib
@@ -44,6 +50,7 @@ SM_COUNT = 132      # SMs of an H100 SXM, which the launch geometries fill
 MAX_CLUSTER = 8     # blocks of one thread block cluster (csrc/reduce.cuh)
 
 _force_plain = False
+_one_op_counter = None      # set by counting()
 _LAUNCH_LOCK = threading.Lock()
 _LIBRARY_LOCK = threading.Lock()
 
@@ -57,6 +64,34 @@ def plain_versions():
         yield
     finally:
         _force_plain = old
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """Report every one_op call inside the block to `counter`
+    (tools/measure.py:count_step_bytes)."""
+    global _one_op_counter
+    old, _one_op_counter = _one_op_counter, counter
+    try:
+        yield
+    finally:
+        _one_op_counter = old
+
+
+def one_op(name: str):
+    """Mark a kernel's wrapper or its plain version as the one op `name`
+    (the module docstring); without a counter the call is the function's
+    own."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            counter = _one_op_counter
+            if counter is None:
+                return fn(*args, **kwargs)
+            with counter.one_op(name, args) as done:
+                return done(fn(*args, **kwargs))
+        return call
+    return wrap
 
 
 def use_kernel(*tensors) -> bool:

@@ -81,12 +81,14 @@ def _dz(x4, g4, a, b):
     return g4.float() * (s * (1.0 + z * (1.0 - s)))
 
 
+@_cuda.one_op("bn_moments")
 def bn_moments_plain(x4):
     """(G, N, C, S) -> (sum x, sum x^2), each (G, C) f32."""
     xf = x4.float()
     return xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3))
 
 
+@_cuda.one_op("bn_normalize")
 def bn_normalize_plain(x4, s, q, n, scale, bias):
     """The forward from the moments' sums (s, q) over n elements a (g, c):
     (y, mean, var, a, b, invstd); y = swish(x * a + b) in f32, rounded
@@ -97,12 +99,14 @@ def bn_normalize_plain(x4, s, q, n, scale, bias):
     return y, mean, var, a, b, invstd
 
 
+@_cuda.one_op("bn_bwd_partials")
 def bn_bwd_partials_plain(x4, g4, a, b):
     """(sum dz, sum dz * x), each (G, C) f32."""
     dz = _dz(x4, g4, a, b)
     return dz.sum(dim=(1, 3)), (dz * x4.float()).sum(dim=(1, 3))
 
 
+@_cuda.one_op("bn_dx")
 def bn_dx_plain(x4, g4, sdz, sdzx, n, a, b, mean, invstd):
     """The backward from bn_bwd_partials' sums (sdz, sdzx) and the
     forward's (G, C) vectors: (dx, dscale, dbias), dx = P * dz + Q + R * x
@@ -222,6 +226,7 @@ def _reduce_geometry(*tensors):
                      len(tensors))
 
 
+@_cuda.one_op("bn_moments")
 def bn_moments(x4):
     """Launch the moments kernel: x4 (G, N, C, S) f32 or bf16, contiguous,
     on a CUDA device -> (sum x, sum x^2), each (G, C) f32."""
@@ -240,6 +245,7 @@ def bn_moments(x4):
     return s, q
 
 
+@_cuda.one_op("bn_bwd_partials")
 def bn_bwd_partials(x4, g4, a, b):
     """Launch the backward partials kernel -> (sum dz, sum dz * x), each
     (G, C) f32; g4 matches x4."""
@@ -341,6 +347,7 @@ def _empty_as(x4):
     return flat[off:].view(x4.shape)
 
 
+@_cuda.one_op("bn_normalize")
 def bn_normalize(x4, s, q, n, scale, bias):
     """Launch the normalize kernel: from the moments' sums s, q (G, C) over
     n elements and the affine scale, bias (C,) f32 -> (y in x's dtype,
@@ -363,6 +370,7 @@ def bn_normalize(x4, s, q, n, scale, bias):
     return (y, *vecs.unbind(0))
 
 
+@_cuda.one_op("bn_dx")
 def bn_dx(x4, g4, sdz, sdzx, n, a, b, mean, invstd):
     """Launch the dx kernel: from bn_bwd_partials' sums sdz, sdzx (G, C)
     over n elements and the forward's a, b, mean, invstd (G, C) f32 ->

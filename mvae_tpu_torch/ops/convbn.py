@@ -125,6 +125,7 @@ def launch_geometry(b: int, c_in: int, h: int, w: int, c_out: int,
                 part=(2, tiles, c_out))
 
 
+@_cuda.one_op("conv2d_moments")
 def conv2d_moments_plain(x, w, stride: int, padding: int):
     """F.conv2d in x's dtype, then the sums in f32 over the rounded y."""
     y = F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
@@ -158,6 +159,7 @@ def _check(name, x, w, stride, padding):
     return geo
 
 
+@_cuda.one_op("conv2d_moments")
 def conv2d_moments_fwd(x, w, stride: int, padding: int):
     """Launch the kernel: x (B, C_in, H, W), w (C_out, C_in, 4, 4), one
     dtype (f32 or bf16), contiguous, on a CUDA device -> (y NCHW in x's

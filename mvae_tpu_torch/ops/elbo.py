@@ -47,6 +47,7 @@ def bf16_steps(logits, bf16_math: bool) -> bool:
     return bool(bf16_math) and logits.dtype == torch.bfloat16
 
 
+@_cuda.one_op("bce_rowsum_fwd")
 def bce_rowsum_plain(logits, targets, bf16_math=False):
     """Plain version, mirroring elbo_pallas.py:bce_sum_ref; with bf16_math
     and bf16 logits, in the bf16 steps of the module docstring (PyTorch's
@@ -108,6 +109,7 @@ def _c_launch(n, k, x_itemsize, t_itemsize, aligned):
         "vec", "lanes", "threads", "splits", "span")))
 
 
+@_cuda.one_op("bce_rowsum_fwd")
 def bce_rowsum_fwd(logits, targets, bf16_math=False):
     """Launch the kernel. logits: (N, K), targets: (Nt, K), each float32
     or bfloat16, contiguous, on one CUDA device, N % Nt == 0; bf16_math:

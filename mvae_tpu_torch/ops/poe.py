@@ -21,6 +21,7 @@ EXPERT_CAPS = (2, 8, 32)  # csrc/poe.cu's instantiations: experts a column
 MAX_EXPERTS = EXPERT_CAPS[-1]
 
 
+@_cuda.one_op("poe_fwd")
 def poe_plain(mu, logvar, masks):
     """Plain version of the kernel, mirroring poe_pallas.py:_kernel.
 
@@ -68,6 +69,7 @@ def _check(name, mu, logvar, masks, grads=()):
     req(n_terms >= 1 and b * d >= 1, name, "empty input")
 
 
+@_cuda.one_op("poe_fwd")
 def poe_fwd(mu, logvar, masks):
     """Launch the forward kernel. mu, logvar: (M, B, D) f32 contiguous CUDA
     tensors; masks: (T, M) f32 contiguous on the same device."""
@@ -92,6 +94,7 @@ def poe_fwd(mu, logvar, masks):
 poe_fwd.launches = 0
 
 
+@_cuda.one_op("poe_bwd")
 def poe_bwd_plain(mu, logvar, masks, g_mu, g_lv):
     """Closed-form gradients (d_mu, d_logvar), each (M, B, D) f32, of the
     fused posteriors' upstream gradients g_mu, g_lv (T, B, D); mirrors
@@ -115,6 +118,7 @@ def poe_bwd_plain(mu, logvar, masks, g_mu, g_lv):
     return d_mu.reshape(m, b, d), d_lv.reshape(m, b, d)
 
 
+@_cuda.one_op("poe_bwd")
 def poe_bwd(mu, logvar, masks, g_mu, g_lv):
     """Launch the backward kernel: poe_bwd_plain's (d_mu, d_logvar), each
     (M, B, D) f32. mu, logvar, masks as poe_fwd takes them; g_mu, g_lv:

@@ -28,9 +28,20 @@ Serving over a group: `spawn_ranks(world, serve_endpoints, payload)` has
 each rank serve a checkpoint through Sampler(dp=) of the default group and
 call every endpoint (`endpoint_outputs`), whose answers the caller holds
 against one device's.
+
+A train CLI on the spawned ranks: `train_cli((module, argv), device)`
+runs the CLI's main in each rank on the group the ranks already hold (the
+CLI's parallel/distributed.py:maybe_initialize keeps it), "{rank}" in
+argv replaced by the rank, and returns the rank's printed lines with the
+host clock at each. `spawn_ranks(world, jobs, [(fn, payload), ...])` runs
+several rank functions in turn on one set of ranks, so that they pay for
+one start.
 """
 
+import contextlib
 import datetime
+import importlib
+import io
 import multiprocessing
 import os
 import tempfile
@@ -308,3 +319,43 @@ def serve_endpoints(payload, device) -> dict:
     return endpoint_outputs(sampler, {k: v.to(device) for k, v in
                                       payload["inputs"].items()},
                             payload["conditions"])
+
+
+class TimedLines(io.TextIOBase):
+    """A stdout that keeps each finished line with the host time it was
+    finished at, and passes the text on to `sink` where one is given."""
+
+    def __init__(self, sink=None):
+        self.sink, self.part, self.lines = sink, "", []
+
+    def write(self, text):
+        if self.sink is not None:
+            self.sink.write(text)
+        *done, self.part = (self.part + text).split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        if self.sink is not None:
+            self.sink.flush()
+
+
+def train_cli(payload, device) -> list:
+    """The rank function of a train CLI on the spawned ranks (the module
+    docstring): payload (module, argv); returns [(host time, line)] of
+    what this rank printed."""
+    module, argv = payload
+    rank = str(dist.get_rank())
+    out = TimedLines()
+    with contextlib.redirect_stdout(out):
+        importlib.import_module(module).main(
+            [a.replace("{rank}", rank) for a in argv])
+    return out.lines + ([(time.perf_counter(), out.part)] if out.part
+                        else [])
+
+
+def jobs(payload, device) -> list:
+    """Several rank functions in turn on this rank: payload [(fn, its
+    payload), ...]; returns their results in order."""
+    return [fn(arg, device) for fn, arg in payload]
