@@ -28,7 +28,10 @@
   6. Train mode: commit the BN running statistics (commit_ema_states).
 
 The engine draws no random numbers: train mode takes `noise = (eps,
-keep_mask[, decode_keep_mask])` from the caller.
+keep_mask[, decode_keep_mask])` from the caller. Steps 1, 2-3, each
+decode call (decode.train with autograd, decode.stats forward alone), 5
+and 6 run under the profiler spans mvae.engine.* (utils/profiling.py),
+the whole under mvae.engine.elbo.
 """
 
 import contextlib
@@ -41,6 +44,7 @@ from mvae_tpu_torch.core.losses import kl_divergence
 from mvae_tpu_torch.core.sampling import reparametrize
 from mvae_tpu_torch.nn.norm import BN_MOMENTUM
 from mvae_tpu_torch.ops.poe import masked_poe_all_terms
+from mvae_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
@@ -227,15 +231,17 @@ def _decode_grouped(model, z, plan, inputs, keep_mask):
             if call.operand is not None:
                 kw["operand"] = call.operand
             rows = _term_rows(z, 0, t, call)
-            with (contextlib.nullcontext() if call.grad
-                  else torch.no_grad()):
-                recons, ms = model.decode_group(
-                    group.name, rows if call.grad else rows.detach(),
-                    len(call.index), call.terms, **kw)
-            moments += ms
-            if call.grad:
-                loss = model.group_losses(group.name, recons, inputs)
-                parts.append(loss.reshape(len(call.index), b, width))
+            with span("mvae.engine.decode.train" if call.grad
+                      else "mvae.engine.decode.stats"):
+                with (contextlib.nullcontext() if call.grad
+                      else torch.no_grad()):
+                    recons, ms = model.decode_group(
+                        group.name, rows if call.grad else rows.detach(),
+                        len(call.index), call.terms, **kw)
+                moments += ms
+                if call.grad:
+                    loss = model.group_losses(group.name, recons, inputs)
+                    parts.append(loss.reshape(len(call.index), b, width))
         if group.n_zero:
             parts.append(z.new_zeros((group.n_zero, b, width)))
         block = parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -288,25 +294,33 @@ def multi_term_elbo(model, inputs, term_masks, term_lambdas, beta=1.0, *,
                          "without that dropout")
     eps, keep_mask = noise[:2] if train else (None, None)
     dec_keep = noise[2] if train and dec_dropout else None
-    mu, logvar, enc_moments = model.encode(inputs, keep_mask)   # (M, B, D)
-    pd_mu, pd_logvar = masked_poe_all_terms(mu, logvar, term_masks)
-    z = reparametrize(pd_mu, pd_logvar, eps)                     # (T, B, D)
-    t, b, d = z.shape
-    if train and plan is not None:
-        recon_stack, dec_moments = _decode_grouped(model, z, plan, inputs,
-                                                   dec_keep)
-    else:
-        kw = {} if dec_keep is None else {"keep_mask": dec_keep}
-        recons, dec_moments = model.decode(z.reshape(t * b, d), groups=t,
-                                           **kw)
-        recon_stack = model.recon_losses(recons, inputs).reshape(t, b, -1)
-    rmask = term_masks if recon_masks is None else recon_masks
-    w = (rmask * term_lambdas)[:, None, :]                     # (T, 1, M)
-    recon = torch.sum(recon_stack * w, dim=-1)                 # (T, B)
-    kld = kl_divergence(pd_mu, pd_logvar)                      # (T, B)
-    per_term = torch.mean(recon + beta * kld, dim=1)           # (T,)
-    total = torch.sum(per_term)
-    if train:
-        commit_ema_states(model, enc_moments, dec_moments, term_masks)
+    with span("mvae.engine.elbo"):
+        with span("mvae.engine.encode"):
+            mu, logvar, enc_moments = model.encode(inputs, keep_mask)
+        with span("mvae.engine.fuse"):
+            pd_mu, pd_logvar = masked_poe_all_terms(mu, logvar, term_masks)
+            z = reparametrize(pd_mu, pd_logvar, eps)             # (T, B, D)
+        t, b, d = z.shape
+        if train and plan is not None:
+            recon_stack, dec_moments = _decode_grouped(model, z, plan,
+                                                       inputs, dec_keep)
+        else:
+            kw = {} if dec_keep is None else {"keep_mask": dec_keep}
+            with span("mvae.engine.decode.train"):
+                recons, dec_moments = model.decode(z.reshape(t * b, d),
+                                                   groups=t, **kw)
+                recon_stack = model.recon_losses(recons, inputs).reshape(
+                    t, b, -1)
+        with span("mvae.engine.loss"):
+            rmask = term_masks if recon_masks is None else recon_masks
+            w = (rmask * term_lambdas)[:, None, :]             # (T, 1, M)
+            recon = torch.sum(recon_stack * w, dim=-1)         # (T, B)
+            kld = kl_divergence(pd_mu, pd_logvar)              # (T, B)
+            per_term = torch.mean(recon + beta * kld, dim=1)   # (T,)
+            total = torch.sum(per_term)
+        if train:
+            with span("mvae.engine.commit"):
+                commit_ema_states(model, enc_moments, dec_moments,
+                                  term_masks)
     return total, {"per_term": per_term, "mu": pd_mu[0],
                    "logvar": pd_logvar[0]}

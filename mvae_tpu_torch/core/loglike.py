@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from mvae_tpu_torch.ops.poe import masked_poe_all_terms
+from mvae_tpu_torch.utils.profiling import span
 
 DECODE_ELEMENTS = 2 ** 28       # logit elements one decode may hold (1 GiB
                                 # in f32): CelebA's K = 100 at B = 100 is one
@@ -62,24 +63,34 @@ def iwae_log_marginal(model, inputs, proposal_mask, target_names, k: int, *,
     """
     model.eval()
     dev = model.device
-    mu, logvar, _ = model.encode(inputs)
-    mask = torch.as_tensor(proposal_mask, dtype=torch.float32,
-                           device=dev).reshape(1, -1)
-    q_mu, q_lv = (t[0] for t in masked_poe_all_terms(mu, logvar, mask))
-    b, d = q_mu.shape
-    if eps is None:
-        if generator is None:
-            raise ValueError("iwae_log_marginal takes eps or a generator")
-        eps = torch.randn((k, b, d), generator=generator, device=dev)
-    z = q_mu + eps * torch.exp(0.5 * q_lv)                   # (K, B, D)
-    kc = k // decode_chunks(k, b, _row_elements(model))
-    log_px_z = []
-    for lo in range(0, k, kc):
-        recons, _ = model.decode(z[lo:lo + kc].reshape(kc * b, d))
-        lp = 0.0
-        for name in target_names:
-            lp = lp - model.recon_loss(name, recons[name], inputs[name])
-        log_px_z.append(lp.reshape(kc, b))
-    log_pz = -0.5 * torch.sum(math.log(2.0 * math.pi) + z.square(), dim=-1)
-    log_w = torch.cat(log_px_z) + log_pz - _log_normal(z, q_mu, q_lv)
-    return torch.logsumexp(log_w, dim=0) - math.log(k)
+    with span("mvae.score.batch"):
+        with span("mvae.score.encode"):
+            mu, logvar, _ = model.encode(inputs)
+        with span("mvae.score.fuse"):
+            mask = torch.as_tensor(proposal_mask, dtype=torch.float32,
+                                   device=dev).reshape(1, -1)
+            q_mu, q_lv = (t[0] for t in masked_poe_all_terms(mu, logvar,
+                                                             mask))
+            b, d = q_mu.shape
+            if eps is None:
+                if generator is None:
+                    raise ValueError("iwae_log_marginal takes eps or a "
+                                     "generator")
+                eps = torch.randn((k, b, d), generator=generator, device=dev)
+            z = q_mu + eps * torch.exp(0.5 * q_lv)           # (K, B, D)
+        kc = k // decode_chunks(k, b, _row_elements(model))
+        log_px_z = []
+        for lo in range(0, k, kc):
+            with span("mvae.score.decode"):
+                recons, _ = model.decode(z[lo:lo + kc].reshape(kc * b, d))
+            with span("mvae.score.weights"):
+                lp = 0.0
+                for name in target_names:
+                    lp = lp - model.recon_loss(name, recons[name],
+                                               inputs[name])
+                log_px_z.append(lp.reshape(kc, b))
+        with span("mvae.score.weights"):
+            log_pz = -0.5 * torch.sum(math.log(2.0 * math.pi) + z.square(),
+                                      dim=-1)
+            log_w = torch.cat(log_px_z) + log_pz - _log_normal(z, q_mu, q_lv)
+            return torch.logsumexp(log_w, dim=0) - math.log(k)

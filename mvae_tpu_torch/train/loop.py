@@ -43,6 +43,7 @@ from mvae_tpu_torch.core.engine import (
 from mvae_tpu_torch.device import resolve_device
 from mvae_tpu_torch.nn.norm import BatchNorm, set_bn_sync
 from mvae_tpu_torch.parallel.collectives import sum_in_place
+from mvae_tpu_torch.utils.profiling import span
 
 
 def decode_batch(batch, dtype=torch.float32):
@@ -275,27 +276,37 @@ def make_train_step(model, term_masks, term_lambdas, *, lr: float,
     bn_group = dp.group if dp is not None and sync_bn else None
 
     def train_step(batch, beta, noise=None, masks=masks, lambdas=lambdas):
+        with span("mvae.train.step"):
+            return _step(batch, beta, noise, masks, lambdas)
+
+    def _step(batch, beta, noise, masks, lambdas):
         model.train()
         set_bn_sync(model, bn_group)
-        batch = decode_batch(_gather(batch, device_data), decode_dt)
-        if noise is None:
-            b = next(iter(batch.values())).shape[0]
-            noise = draw_noise(model, masks.shape[0],
-                               b * (1 if dp is None else dp.world),
-                               generator)
-        if dp is not None:
-            noise = local_noise(model, noise, dp)
-        optimizer.zero_grad(set_to_none=True)
+        with span("mvae.train.gather"):
+            batch = decode_batch(_gather(batch, device_data), decode_dt)
+        with span("mvae.train.noise"):
+            if noise is None:
+                b = next(iter(batch.values())).shape[0]
+                noise = draw_noise(model, masks.shape[0],
+                                   b * (1 if dp is None else dp.world),
+                                   generator)
+            if dp is not None:
+                noise = local_noise(model, noise, dp)
+        with span("mvae.train.adam"):
+            optimizer.zero_grad(set_to_none=True)
         total, aux = multi_term_elbo(model, batch, masks, lambdas, beta,
                                      train=True, noise=noise,
                                      plan=plan,
                                      recon_masks=rmasks)
-        total.backward()
+        with span("mvae.train.backward"):
+            total.backward()
         if dp is not None:
-            average_gradients(params, dp, sharded)
-        optimizer.step()
+            with span("mvae.train.allreduce"):
+                average_gradients(params, dp, sharded)
+        with span("mvae.train.adam"):
+            optimizer.step()
         if dp is not None and dp.tp_world > 1:
-            with torch.no_grad():
+            with span("mvae.train.allreduce"), torch.no_grad():
                 average_running_stats(model, dist.group.WORLD,
                                       dp.world * dp.tp_world)
         return total.detach(), aux["per_term"].detach()
@@ -334,14 +345,16 @@ def make_multi_train_step(model, term_masks, term_lambdas, *, lr: float,
                            recon_masks=recon_masks, dp=dp, sync_bn=sync_bn)
 
     def multi_step(data, idxs, betas, noise=None, masks=None, lambdas=None):
-        losses = []
-        for k in range(idxs.shape[0]):
-            nk = None if noise is None else tuple(
-                None if n is None else n[k] for n in noise)
-            terms = {} if masks is None else dict(masks=masks[k],
-                                                  lambdas=lambdas[k])
-            losses.append(step((data, idxs[k]), betas[k], nk, **terms)[0])
-        return torch.stack(losses)
+        with span("mvae.train.window"):
+            losses = []
+            for k in range(idxs.shape[0]):
+                nk = None if noise is None else tuple(
+                    None if n is None else n[k] for n in noise)
+                terms = {} if masks is None else dict(masks=masks[k],
+                                                      lambdas=lambdas[k])
+                losses.append(step((data, idxs[k]), betas[k], nk,
+                                   **terms)[0])
+            return torch.stack(losses)
 
     multi_step.optimizer = step.optimizer
     multi_step.plan = step.plan

@@ -1,10 +1,31 @@
-"""Profiler hook (counterpart of mvae_tpu/utils/profiling.py, which writes a
-jax.profiler trace).
+"""The port's profiler spans and its trace hook (counterpart of
+mvae_tpu/utils/profiling.py, which writes a jax.profiler trace).
 
-Pass --profile-dir to the train CLI: the driver traces the second logging
-window of the first epoch (the first pays the cuDNN algorithm search and
-the kernel build) with torch.profiler and writes a Chrome trace,
-`trace.json`, into that directory.
+Spans. `span(name)` marks a stage of the train step or of the IWAE
+scorer (train/loop.py, core/engine.py, core/loglike.py) as a
+torch.profiler range on the profiler's own clock, the clock of the
+card's records. It records only while a torch.profiler capture is
+running, as torch's own flag says: the train CLI's --profile-dir
+(below), the benchmark's traced runs and any `torch.profiler.profile`
+see the spans, with no option, flag or variable of the port's. With no
+capture running a span costs one flag check and enters a shared no-op
+context (an ungated record_function enters the dispatcher each time).
+
+Rules for a span, so that readers of a capture can sort by them:
+  - its name starts with SPAN_PREFIX ("mvae.");
+  - no name starts with "cu" or "bench." (the benchmark's readers take
+    such host events for runtime calls or its own spans) and none holds
+    "conv" (a kernel linked to the span would read as a library kernel);
+  - a span marks a stage: none sits inside a kernel wrapper, an autograd
+    Function or a per-layer module call.
+SPANS lists every name the port opens; PERF.md section 3 says which
+metric reads each.
+
+Trace hook. Pass --profile-dir to the train CLI: the driver traces the
+second logging window of the first epoch (the first pays the cuDNN
+algorithm search and the kernel build) with torch.profiler and writes a
+Chrome trace, `trace.json`, into that directory; the trace carries the
+mvae.* spans.
 
 On the card a capture opens with a warm-up (`warm_up`): the profiler drops
 the device records of the first kernels a capture launches, none to a few
@@ -19,10 +40,32 @@ import os
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 WARM_UP = "capture warm-up"
 WARM_UP_KERNELS = 1024
 WARM_UP_PAD_S = 0.05     # host time between the warm-up and the window
+
+SPAN_PREFIX = "mvae."
+SPANS = (
+    "mvae.train.window", "mvae.train.step", "mvae.train.gather",
+    "mvae.train.noise", "mvae.train.backward", "mvae.train.allreduce",
+    "mvae.train.adam",
+    "mvae.engine.elbo", "mvae.engine.encode", "mvae.engine.fuse",
+    "mvae.engine.decode.train", "mvae.engine.decode.stats",
+    "mvae.engine.loss", "mvae.engine.commit",
+    "mvae.score.batch", "mvae.score.encode", "mvae.score.fuse",
+    "mvae.score.decode", "mvae.score.weights",
+)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A torch.profiler range named `name` while a capture is running, else
+    a shared no-op context (module docstring)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def warm_up(device):
