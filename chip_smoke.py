@@ -74,7 +74,8 @@ error status, which phase 3b reads as the status it checks):
      celeba19 bf16 at B=100 from the same weights and noise, one step of
      each (loss above its floor, every gradient, the running statistics
      after; FlopCounterMode's count of each equal to flops_per_step plus
-     its dead work from shapes; the port kernels' launches a step), then
+     its dead work and its channel padding from shapes; the port kernels'
+     launches a step), then
      windows of K=20 in turns G, O, O, G after a warm-up pair (host ms a
      step), the peak device memory of a window and a profile line of
      each (device ms, launches, idle share a step); MNIST's and
@@ -180,7 +181,8 @@ error status, which phase 3b reads as the status it checks):
      tools/serve_latency.py for celeba (6b's checkpoint) and mnist: every
      JSON line parses, every mfu in (0, 1.05], every idle share in [0, 1];
      then FlopCounterMode's count of one shipped CelebA step equal to the
-     FLOPs from shapes plus the grouped decode's dead forwards
+     FLOPs from shapes plus the grouped decode's dead forwards and the
+     images' channel padding
   6l. tools/roofline_celeba.py on 6b's traced window (CelebaMVAE(100)
      bf16, B=100, T=3, the default route): device ms, launches and kernel
      families a step, the FLOPs, bytes_ops and bytes_floor of the step
@@ -457,6 +459,23 @@ VISION_BN_LAYERS = (
     ("vision stacked dec convT2", 2, 7, 50, 192, 256, torch.bfloat16),
     ("vision stacked dec convT3", 2, 7, 50, 96, 1024, torch.bfloat16),
 )
+# the cells' channels-last BN planes (the conv stacks' layout under bf16):
+# the BN op views an NHWC map as (G, N*H*W, C, 1), which the four passes'
+# lanes forms take (csrc/bn_swish.cu); CelebA's at B = 4096 (the
+# decoder's convT3 for the live terms and the dead one, the encoder's
+# conv2 and conv4) and celeba19's dead terms at B = 2048
+NHWC_BN_LAYERS = (
+    ("nhwc celeba dec convT3 live", 1, 2, 4096 * 1024, 32, 1,
+     torch.bfloat16),
+    ("nhwc celeba dec convT3 dead", 1, 1, 4096 * 1024, 32, 1,
+     torch.bfloat16),
+    ("nhwc celeba enc conv2", 1, 1, 4096 * 256, 64, 1, torch.bfloat16),
+    ("nhwc celeba enc conv4", 1, 1, 4096 * 25, 256, 1, torch.bfloat16),
+    ("nhwc celeba19 dec convT3 dead", 1, 18, 2048 * 1024, 32, 1,
+     torch.bfloat16),
+)
+B2B_MAX_BYTES = 2 ** 30     # back_to_back_ms copies its inputs 8 times at
+                            # least: above this, device_ms alone
 BN_MAIN_LAYER = "image dec convT3"      # the largest launch
 ENC_CONV_BN = ("image enc conv2", "image enc conv3", "image enc conv4")
 # the encoder's BN'd convs at B=100: (layer, B, C_in, H, C_out, stride,
@@ -555,7 +574,8 @@ def reduction_at(op, geo):
     """bn_moments (op "moments") or bn_bwd_partials ("partials") launched
     through its C entry point at the 6-int geometry geo (csrc/bn_swish.cu:
     reduce_of) in place of the wrapper's: a reading, not the main path (no
-    launch count)."""
+    launch count). The lanes mapping (geo[0] = 2) over more than one
+    cluster a group takes a scratch and the wrapper's counters."""
     lib = ops._cuda.library()
     arr = (ctypes.c_int * 6)(*geo)
 
@@ -565,14 +585,22 @@ def reduction_at(op, geo):
         q = torch.empty_like(s)
         st = ops._cuda.stream(x4.device)
         bf16 = int(x4.dtype == torch.bfloat16)
+        scratch = counters = 0
+        if geo[0] == 2 and geo[2] > bn_ops.MAX_CLUSTER:
+            buf = torch.empty(gsz * geo[2] // bn_ops.MAX_CLUSTER * 2 * c,
+                              device=x4.device)
+            scratch = buf.data_ptr()
+            counters = bn_ops._counters(x4.device, gsz).data_ptr()
         if op == "moments":
             rc = lib.mvae_bn_moments(x4.data_ptr(), bf16, s.data_ptr(),
-                                     q.data_ptr(), *x4.shape, arr, st)
+                                     q.data_ptr(), *x4.shape, arr, scratch,
+                                     counters, st)
         else:
             g4, a, b = rest
             rc = lib.mvae_bn_bwd_partials(
                 x4.data_ptr(), g4.data_ptr(), bf16, a.data_ptr(),
-                b.data_ptr(), s.data_ptr(), q.data_ptr(), *x4.shape, arr, st)
+                b.data_ptr(), s.data_ptr(), q.data_ptr(), *x4.shape, arr,
+                scratch, counters, st)
         ops._cuda.check(f"bn {op} at {geo}", rc)
         return s, q
     return fn
@@ -762,7 +790,10 @@ def phase_bn_kernels(dev, card, peaks, flush):
     the bf16
     conv layers again in f32 (the --f32 step), checked, not timed. y and
     dx at BN_OUT_TOL, every (G, C) or (C,) output at BN_SUM_TOL (the sums
-    as means); each pass launched twice gives bit-identical outputs."""
+    as means); each pass launched twice gives bit-identical outputs. The
+    cells' channels-last planes (NHWC_BN_LAYERS, the lanes forms) are
+    checked and timed as the families' cases, back to back only where x
+    stays under B2B_MAX_BYTES."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {k: {"max_abs_err": 0.0} for k in BN_KERNELS}
     keys = ("ms", "back_to_back_ms", "plain_ms", "library_ms", "bound_ms")
@@ -771,7 +802,8 @@ def phase_bn_kernels(dev, card, peaks, flush):
     cases = [layer + (True,) for layer in BN_LAYERS] + [
         (name + " (f32)", n, gg, nn, c, sp, torch.float32, False)
         for name, n, gg, nn, c, sp, dt in BN_LAYERS if dt == torch.bfloat16
-    ] + [layer + ("family",) for layer in FAMILY_BN_LAYERS + VISION_BN_LAYERS]
+    ] + [layer + ("family",) for layer in FAMILY_BN_LAYERS + VISION_BN_LAYERS
+         + NHWC_BN_LAYERS]
     for layer, count, gsz, n, c, sp, dt, timed in cases:
         x4 = (0.5 + 1.5 * torch.randn((gsz, n, c, sp), generator=g,
                                       device=dev)).to(dt)
@@ -838,7 +870,8 @@ def phase_bn_kernels(dev, card, peaks, flush):
                       f"(checked, not timed)")
                 continue
             t_k = device_ms(lambda: kern(*args), flush)
-            t_b2b = back_to_back_ms(kern, args, flush)
+            t_b2b = (back_to_back_ms(kern, args, flush)
+                     if numel * isz <= B2B_MAX_BYTES else None)
             t_p = device_ms(lambda: plain(*args), flush)
             t_lib = device_ms(lib[name], flush)
             b_ms, b_by = bound(nbytes, nops, peaks)
@@ -1420,7 +1453,8 @@ def grouped_check(dev, card, family, data, idx):
     the count from shapes, flops_per_step plus the dead work
     (tools/measure.py:count_step: on the grouped step the forward of the
     BN'd decoders' dead terms, on the one batch every dead decode with
-    its backward), exactly; the port kernels' launches a step."""
+    its backward) plus the images' channel padding, exactly; the port
+    kernels' launches a step."""
     model, t, support, terms = grouped_family(family, dev)
     twin = copy.deepcopy(model)
     ones = np.ones_like(support)
@@ -1456,11 +1490,13 @@ def grouped_check(dev, card, family, data, idx):
         flops[name] = (counter.get_total_flops(), want)
         print(f"[grouped] {family} bf16 B=100 T={t}, {name} decode: "
               f"FlopCounterMode {flops[name][0]} FLOPs a step; from shapes "
-              f"flops_per_step {want.needed} + dead work {want.dead}; port "
-              f"kernel launches a step {launches} | {card}")
-        expect(flops[name][0] == want.needed + want.dead,
+              f"flops_per_step {want.needed} + dead work {want.dead} + "
+              f"channel padding {want.padding}; port kernel launches a "
+              f"step {launches} | {card}")
+        expect(flops[name][0] == want.needed + want.dead + want.padding,
                f"grouped {family} {name}: FlopCounterMode counts "
-               f"{flops[name][0]}, the shapes {want.needed} + {want.dead}")
+               f"{flops[name][0]}, the shapes {want.needed} + {want.dead} "
+               f"+ {want.padding}")
     (g_terms, g_grads, g_stats), (o_terms, o_grads, o_stats) = (
         out["grouped"], out["one batch"])
     held(f"grouped {family} bf16 B=100 train step loss above floor, "
@@ -3821,7 +3857,8 @@ def flops_against_the_counter(dev, card):
     port does a product it would count) against measure.count_step from
     shapes: the step's FLOPs plus the dead work the grouped decode runs
     (the forward alone of the image decoder for the attrs-only term and
-    of the attribute decoder for the image-only term), exactly."""
+    of the attribute decoder for the image-only term) plus the products
+    on the images' padded channels (count_step's `padding`), exactly."""
     model = celeba(torch.bfloat16, dev, seed=11)
     step = make_train_step(model, MASKS, LAMBDAS, lr=LR, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(2),
@@ -3835,10 +3872,11 @@ def flops_against_the_counter(dev, card):
     want = measure.count_step(model, MASKS, LAMBDAS, BATCH)
     print(f"[bench] one CelebA bf16 train step: FlopCounterMode "
           f"{got} FLOPs; from shapes flops_per_step {want.needed} + dead "
-          f"forwards {want.dead} = {want.needed + want.dead} | {card}")
-    expect(got == want.needed + want.dead,
+          f"forwards {want.dead} + channel padding {want.padding} = "
+          f"{want.needed + want.dead + want.padding} | {card}")
+    expect(got == want.needed + want.dead + want.padding,
            f"FlopCounterMode counts {got}, the shapes "
-           f"{want.needed} + {want.dead}")
+           f"{want.needed} + {want.dead} + {want.padding}")
 
 
 def phase_bench(dev, card, celeba_dir):

@@ -51,6 +51,38 @@
 // a group by many row lanes (the columns mapping), so that a warp reads a
 // few whole sectors of each of its rows; the same rule splits its rows.
 //
+// Channels innermost (the lanes mapping and the lanes streams). A
+// channels-last conv map, NHWC in memory, is the view (G, N*H*W, C, 1)
+// without a copy (ops/bn.py:bn_swish_train), as an (N, C) activation is:
+// S = 1, each row C contiguous elements. Where C holds whole 16-byte
+// chunks (cpr = C / V of them a row) and the tensors are aligned, a thread
+// keeps one chunk position k of every row it reads, so the same V channels
+// throughout: the JAX kernel's "lane j is channel j" (bn_pallas.py:20-24).
+// What bounds it is still bytes. At the cells' planes (CelebA's last
+// decoder map at B = 4096 is 537 MB) the columns mapping's grid of G *
+// ceil(C / 8) blocks by at most one cluster of 8 leaves most SMs idle and
+// loads one element at a time; so the lanes reductions load 16-byte chunks
+// and spread the groups' rows over clusters of 8 blocks of 512 threads, 2
+// rows in flight a thread, as many clusters as an H100 holds at once at 2
+// blocks an SM (30: grid (splits, G), ops/bn.py:LANES_CLUSTERS; 33 or 34
+// left some a second wave, 25-30% slower). A block's row lanes meet in a fixed tree in shared memory;
+// clusters of up to 8 consecutive blocks meet in their first block, out of
+// the others' shared memory, in rank order; that block writes the
+// cluster's 2C sums into a row of a scratch that the wrapper allocates;
+// the group's last cluster to finish, found by an integer counter a group
+// (__threadfence, then atomicAdd), adds the group's rows in order (each
+// output by a few threads over runs of consecutive rows, whose sums then
+// meet in order) and sets the counter back to 0 for the next launch. (A
+// row a block, with no cluster, left one block a read of up to 540 kB of
+// partial sums at the encoder's last plane.) The sums are bit-identical
+// from run to run, with no float atomics and in one launch. Below ops/bn.py:LANES_MIN_ROWS rows the
+// columns mapping stays (BatchNorm1d at the paper's B = 100, where its
+// exactness note below holds). The streams: the grid's stride in chunks is
+// a multiple of cpr, so a thread's chunks all sit at one position k; it
+// forms its V channels' coefficients where its chunks enter a group (one
+// division a group) and keeps them in registers, with no division per chunk
+// or element (the flat stream's S = 1 path forms them per element).
+//
 // The two elementwise passes (bn_normalize, bn_dx) hold nothing across
 // elements, so each is one flat stream over the whole tensor, whatever S:
 // 16-byte chunks (one element where the tensors' offsets from a 16-byte
@@ -96,6 +128,11 @@ constexpr int kColumnsMaxWide = 32;     // ... columns mapping: channels a
 constexpr int kStreamThreads = 256;     // bn_normalize, bn_dx: a block
 constexpr int kStreamBlocksPerSm = 4;   // ... resident an SM (one wave)
 constexpr int kStreamUnroll = 2;        // ... chunks of x (and g) in flight
+constexpr int kLanesThreads = 512;      // lanes mapping (reductions): a block
+constexpr int kLanesBlocksPerSm = 2;    // ... resident an SM
+constexpr int kLanesUnroll = 2;         // ... rows a thread has in flight
+constexpr int kLanesDxBlocksPerSm = 2;  // bn_dx's lanes stream: resident an
+                                        // SM (4V coefficients in registers)
 constexpr float kEps = 1e-5f;           // ops/bn.py:EPS
 
 __device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
@@ -314,6 +351,153 @@ bn_reduce_kernel(Op op, const T* __restrict__ x, const T* __restrict__ g,
     reduce_rows<Op, T, V>(op, x, g, N, C, S, rows, tpr_log2);
 }
 
+// The lanes mapping's cluster: all of a group's blocks up to kMaxCluster,
+// else kMaxCluster (ops/bn.py:reduce_launch makes splits a multiple).
+__host__ __device__ __forceinline__ int lanes_cluster(int splits) {
+  return splits < kMaxCluster ? splits : kMaxCluster;
+}
+
+// The lanes mapping (the note at the head of the file): block (b, grp) of a
+// grid (splits, G), thread t on chunk k = t % cpr of rows n0 = b * lanes +
+// t / cpr, n0 + splits * lanes, ... of group grp, lanes = blockDim.x / cpr
+// (threads past lanes * cpr idle). Past N, x (and g) read as 0. The blocks
+// of a cluster (lanes_cluster of them along grid.x) meet in its first
+// block; a group of one cluster writes its sums there, else `scratch`
+// holds a row of 2C sums a cluster (G * splits / cluster * 2C floats) and
+// `counters` one integer a group, 0 at the launch and left 0.
+template <typename Op, typename T, int V>
+__global__ void __launch_bounds__(kLanesThreads, kLanesBlocksPerSm)
+bn_reduce_kernel_lanes(Op op, const T* __restrict__ x,
+                       const T* __restrict__ g, int N, int C,
+                       float* __restrict__ scratch,
+                       unsigned* __restrict__ counters) {
+  constexpr int U = kLanesUnroll;
+  __shared__ float part[2 * V][kLanesThreads];
+  __shared__ bool last;
+  const int cpr = C / V;
+  const int lanes = blockDim.x / cpr;
+  const int t = threadIdx.x;
+  const int lane = t / cpr;
+  const int k = t - lane * cpr;
+  const int grp = blockIdx.y;
+  const int splits = gridDim.x;
+  float sv[V], qv[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) sv[e] = qv[e] = 0.0f;
+  if (lane < lanes) {
+    const int down = splits * lanes;         // rows to the thread's next row
+    const size_t step = (size_t)down * C;
+    const int n0 = blockIdx.x * lanes + lane;
+    const size_t first = ((size_t)grp * N + n0) * C + (size_t)k * V;
+    const T* px = x + first;
+    const T* pg = Op::kReadsG ? g + first : nullptr;
+    typename Op::Coef kc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) kc[e] = op.coef(grp * C + k * V + e);
+    for (int n = n0; n < N; n += down * U) {
+      Chunk<T, V> xc[U], gk[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (n + u * down < N) {
+          xc[u].load(px + u * step);
+          if constexpr (Op::kReadsG) gk[u].load(pg + u * step);
+        } else {
+          xc[u].zero();
+          if constexpr (Op::kReadsG) gk[u].zero();   // dz = 0
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          op.add(kc[e], xc[u].at(e), Op::kReadsG ? gk[u].at(e) : 0.0f, sv[e],
+                 qv[e]);
+      px += U * step;
+      if constexpr (Op::kReadsG) pg += U * step;
+    }
+  }
+  // the block's row lanes in a fixed tree: lane l adds lane l + half
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    part[e][t] = sv[e];
+    part[V + e][t] = qv[e];
+  }
+  __syncthreads();
+  for (int live = lanes; live > 1;) {
+    const int half = (live + 1) >> 1;
+    if (lane < live - half)
+#pragma unroll
+      for (int w = 0; w < 2 * V; ++w) part[w][t] += part[w][t + half * cpr];
+    live = half;
+    __syncthreads();
+  }
+  // The cluster's blocks (consecutive blocks of the group, grid.x) in rank
+  // order, by its first block out of the others' shared memory; output
+  // o < 2C is the first sum (o < C) or the second of channel o % C.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank(), ranks = cluster.num_blocks();
+  const int outs = 2 * C;
+  const int clusters = splits / (int)ranks;     // a group's
+  cluster.sync();                               // every block's tree is done
+  float* rows = scratch + (size_t)grp * clusters * outs;
+  if (rank == 0)
+    for (int o = t; o < outs; o += blockDim.x) {
+      const int c = o % C;
+      float* own = &part[(o / C) * V + c % V][c / V];
+      float v = *own;
+      for (unsigned r = 1; r < ranks; ++r) v += *cluster.map_shared_rank(own, r);
+      if (clusters == 1)
+        (o < C ? op.s : op.q)[grp * C + c] = v;
+      else
+        rows[(size_t)(blockIdx.x / ranks) * outs + o] = v;
+    }
+  cluster.sync();                   // the others' memory is read: they may end
+  if (rank != 0 || clusters == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (t == 0)
+    last = atomicAdd(counters + grp, 1u) == (unsigned)clusters - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the group's last cluster: the clusters' rows in order, `per` threads an
+  // output, each a run of `span` consecutive rows; the runs then in order
+  auto put = [&](int o, float v) {
+    (o < C ? op.s : op.q)[grp * C + o % C] = v;
+  };
+  const int per = outs >= (int)blockDim.x ? 1 : (int)blockDim.x / outs;
+  if (per == 1) {
+    for (int o = t; o < outs; o += blockDim.x) {
+      float v = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < clusters; ++r)
+        v += __ldcg(rows + (size_t)r * outs + o);
+      put(o, v);
+    }
+  } else {
+    const int span = (clusters + per - 1) / per;
+    const int o = t % outs;
+    const int p = t / outs;
+    float v = 0.0f;
+    if (p < per) {
+      const int end = min(clusters, (p + 1) * span);
+#pragma unroll 8
+      for (int r = p * span; r < end; ++r)
+        v += __ldcg(rows + (size_t)r * outs + o);
+    }
+    float* runs = &part[0][0];
+    runs[t] = v;
+    __syncthreads();
+    if (t < outs) {
+      float total = runs[t];
+      for (int q = 1; q < per; ++q) total += runs[q * outs + t];
+      put(t, total);
+    }
+  }
+  if (t == 0) counters[grp] = 0;
+}
+
 // ---------------------------------------------------------------------------
 // The two elementwise passes as flat streams.
 
@@ -336,6 +520,7 @@ struct Stream {
   int tail;     // elements after the last chunk
   int whole;    // each chunk lies in one channel: S % vec == 0, head == 0
   int blocks;   // of kStreamThreads threads
+  int lanes;    // the lanes streams: chunks a row (C / vec, S = 1), else 0
   FastDiv by_s, by_c, by_group;   // S, C, N * C * S
 };
 
@@ -550,6 +735,78 @@ __device__ __forceinline__ void stream(const Op& op, const T* __restrict__ x,
   }
 }
 
+// The lanes streams (the note at the head of the file): S = 1, C a multiple
+// of V, no head and no tail, a stride a multiple of cpr = st.lanes. Thread
+// t's chunks all hold channels (t % cpr) * V onward; it forms their
+// coefficients where its chunks enter a group.
+template <typename Op, typename T, int V>
+__device__ __forceinline__ void stream_lanes(const Op& op,
+                                             const T* __restrict__ x,
+                                             const T* __restrict__ g,
+                                             T* __restrict__ out, int G,
+                                             int N, int C, const Stream& st) {
+  using Coef = typename Op::Coef;
+  const int stride = gridDim.x * blockDim.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c0 = (t % st.lanes) * V;
+  const int per_group = N * st.lanes;       // chunks a group
+  int next = 0;                             // the next group's first chunk
+  Coef kc[V];
+  auto enter = [&](int j) {                 // chunk j: its group's coefficients
+    if (j < next) return;
+    const int grp = j / per_group;
+    next = (grp + 1) * per_group;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      kc[e] = op.coef(Chan{grp * C + c0 + e, c0 + e});
+  };
+  Chunk<T, V> xc[kStreamUnroll], gk[kStreamUnroll];
+  auto load = [&](int k) {
+#pragma unroll
+    for (int u = 0; u < kStreamUnroll; ++u) {
+      const int j = k + u * stride;
+      if (j < st.chunks) {
+        xc[u].load(x + (size_t)j * V);
+        if constexpr (Op::kReadsG) gk[u].load(g + (size_t)j * V);
+      }
+    }
+  };
+  load(t);
+  if (blockIdx.x == 0) op.write_vectors(G, C);
+  for (int k = t; k < st.chunks;) {
+#pragma unroll
+    for (int u = 0; u < kStreamUnroll; ++u) {
+      const int j = k + u * stride;
+      if (j < st.chunks) {
+        enter(j);
+        Packed<T, V> o;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          o.set(i, op.apply(xc[u].at(i), Op::kReadsG ? gk[u].at(i) : 0.0f,
+                            kc[i]));
+        o.store(out + (size_t)j * V);
+      }
+    }
+    k += kStreamUnroll * stride;
+    load(k);
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocksPerSm)
+bn_normalize_kernel_lanes(const T* __restrict__ x, T* __restrict__ y,
+                          NormalizeOp op, int G, int N, int C, Stream st) {
+  stream_lanes<NormalizeOp, T, V>(op, x, nullptr, y, G, N, C, st);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kStreamThreads, kLanesDxBlocksPerSm)
+bn_dx_kernel_lanes(const T* __restrict__ x, const T* __restrict__ g,
+                   T* __restrict__ dx, DxOp op, int G, int N, int C,
+                   Stream st) {
+  stream_lanes<DxOp, T, V>(op, x, g, dx, G, N, C, st);
+}
+
 template <typename T, int V, bool kWhole>
 __global__ void __launch_bounds__(kStreamThreads, kStreamBlocksPerSm)
 bn_normalize_kernel(const T* __restrict__ x, T* __restrict__ y,
@@ -570,10 +827,12 @@ bool bad_shape(int G, int N, int C, int S) {
          (long long)G * C > 0x7fffffffLL || (long long)N * S > 0x7fffffffLL;
 }
 
-// The launch the wrapper computed (ops/bn.py:reduce_launch): the columns or
-// the rows mapping, the vector width, the blocks that share a plane (one
-// cluster), the rows a block, the threads a block and, of them, the threads
-// along a row (rows mapping) or the channels a block (columns mapping).
+// The launch the wrapper computed (ops/bn.py:reduce_launch): the mapping
+// (0 rows, 1 columns, 2 lanes), the vector width, the blocks that share a
+// plane (one cluster; the lanes mapping: a group's blocks), the rows a block
+// (the lanes mapping: its row lanes), the threads a block and, of them, the
+// threads along a row (rows mapping), the channels a block (columns
+// mapping) or the chunks a row (lanes mapping).
 struct ReduceLaunch {
   int columns, vec, splits, rows, threads, tpr;
 };
@@ -586,8 +845,39 @@ ReduceLaunch reduce_of(const int* geo) {
 // tensors, then the kernel of its mapping and vector width.
 template <typename Op, typename T>
 int reduce(const Op& op, const void* x, const void* g, int G, int N, int C,
-           int S, const ReduceLaunch& l, cudaStream_t st) {
+           int S, const ReduceLaunch& l, void* scratch, void* counters,
+           cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
+  const T* xt = (const T*)x;
+  const T* gt = (const T*)g;
+  if (l.columns == 2) {
+    // whole chunks a row, every row lane's chunks in one block, aligned
+    // tensors, a scratch row a block and a counter a group where split
+    if (S != 1 || l.vec != V || C % V || l.tpr != C / V ||
+        l.threads != kLanesThreads || l.tpr > l.threads ||
+        l.rows != l.threads / l.tpr || l.splits < 1 || G > 65535 ||
+        l.splits % lanes_cluster(l.splits) || !aligned16(x) ||
+        (Op::kReadsG && !aligned16(g)) ||
+        (l.splits > kMaxCluster &&
+         (scratch == nullptr || counters == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    const int cl = lanes_cluster(l.splits);
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = (unsigned)cl;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)l.splits, (unsigned)G);
+    cfg.blockDim = dim3((unsigned)kLanesThreads);
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = cl > 1 ? 1 : 0;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, bn_reduce_kernel_lanes<Op, T, V>, op, xt, gt, N, C,
+        (float*)scratch, (unsigned*)counters);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  }
   const int tpr_log2 = log2_exact(l.tpr);
   // every row in exactly one block, no block without rows, one cluster
   if (l.rows < 1 || l.splits < 1 || l.splits > kMaxCluster ||
@@ -596,8 +886,6 @@ int reduce(const Op& op, const void* x, const void* g, int G, int N, int C,
       l.threads % 32 || l.threads < 32 || l.threads > kReduceThreads ||
       l.threads % l.tpr)
     return (int)cudaErrorInvalidValue;
-  const T* xt = (const T*)x;
-  const T* gt = (const T*)g;
   if (l.columns) {
     if (l.vec != 1 || l.tpr > kColumnsMaxWide)
       return (int)cudaErrorInvalidValue;
@@ -648,6 +936,11 @@ bool stream_ok(const Stream& st, int V, int G, int N, int C, int S,
       if (!aligned16((const char*)ptrs[i] + st.head * itemsize)) return false;
   if (st.whole && (S % st.vec || st.head)) return false;
   if (st.blocks < 1 || st.head + st.tail > kStreamThreads) return false;
+  if (st.lanes &&
+      (S != 1 || st.vec != V || C % V || st.lanes != C / V || st.head ||
+       st.tail || st.whole ||
+       (long long)st.blocks * kStreamThreads % st.lanes))
+    return false;
   return exact(st.by_s, S) && exact(st.by_c, C) &&
          exact(st.by_group, (long long)N * C * S);
 }
@@ -659,7 +952,9 @@ template <template <typename, int, bool> class K, typename T,
 int launch_stream(const Stream& st, cudaStream_t s, Args... args) {
   constexpr int V = 16 / sizeof(T);
   const dim3 grid((unsigned)st.blocks), block((unsigned)kStreamThreads);
-  if (st.vec == 1)
+  if (st.lanes)
+    K<T, V, true>::lanes(grid, block, s, args...);
+  else if (st.vec == 1)
     K<T, 1, true>::launch(grid, block, s, args...);
   else if (st.whole)
     K<T, V, true>::launch(grid, block, s, args...);
@@ -671,19 +966,30 @@ int launch_stream(const Stream& st, cudaStream_t s, Args... args) {
 template <typename T, int V, bool kWhole>
 struct NormalizeLaunch {
   static void launch(dim3 grid, dim3 block, cudaStream_t s, const void* x,
-                     void* y, NormalizeOp op, int G, int C, Stream st) {
+                     void* y, NormalizeOp op, int G, int, int C, Stream st) {
     bn_normalize_kernel<T, V, kWhole><<<grid, block, 0, s>>>(
         (const T*)x, (T*)y, op, G, C, st);
+  }
+  static void lanes(dim3 grid, dim3 block, cudaStream_t s, const void* x,
+                    void* y, NormalizeOp op, int G, int N, int C, Stream st) {
+    bn_normalize_kernel_lanes<T, V><<<grid, block, 0, s>>>(
+        (const T*)x, (T*)y, op, G, N, C, st);
   }
 };
 
 template <typename T, int V, bool kWhole>
 struct DxLaunch {
   static void launch(dim3 grid, dim3 block, cudaStream_t s, const void* x,
-                     const void* g, void* dx, DxOp op, int G, int C,
+                     const void* g, void* dx, DxOp op, int G, int, int C,
                      Stream st) {
     bn_dx_kernel<T, V, kWhole><<<grid, block, 0, s>>>(
         (const T*)x, (const T*)g, (T*)dx, op, G, C, st);
+  }
+  static void lanes(dim3 grid, dim3 block, cudaStream_t s, const void* x,
+                    const void* g, void* dx, DxOp op, int G, int N, int C,
+                    Stream st) {
+    bn_dx_kernel_lanes<T, V><<<grid, block, 0, s>>>(
+        (const T*)x, (const T*)g, (T*)dx, op, G, N, C, st);
   }
 };
 
@@ -693,7 +999,7 @@ int normalize_pass(const void* x, void* y, const NormalizeOp& op, int G,
   const void* ptrs[] = {x, y};
   if (!stream_ok(st, 16 / sizeof(T), G, N, C, S, sizeof(T), ptrs, 2))
     return (int)cudaErrorInvalidValue;
-  return launch_stream<NormalizeLaunch, T>(st, s, x, y, op, G, C, st);
+  return launch_stream<NormalizeLaunch, T>(st, s, x, y, op, G, N, C, st);
 }
 
 template <typename T>
@@ -702,7 +1008,7 @@ int dx_pass(const void* x, const void* g, void* out, const DxOp& op, int G,
   const void* ptrs[] = {x, g, out};
   if (!stream_ok(st, 16 / sizeof(T), G, N, C, S, sizeof(T), ptrs, 3))
     return (int)cudaErrorInvalidValue;
-  return launch_stream<DxLaunch, T>(st, s, x, g, out, op, G, C, st);
+  return launch_stream<DxLaunch, T>(st, s, x, g, out, op, G, N, C, st);
 }
 
 Stream stream_of(const int* geo, const unsigned* div) {
@@ -713,6 +1019,7 @@ Stream stream_of(const int* geo, const unsigned* div) {
   st.tail = geo[3];
   st.whole = geo[4];
   st.blocks = geo[5];
+  st.lanes = geo[6];
   st.by_s = {div[0], div[1]};
   st.by_c = {div[2], div[3]};
   st.by_group = {div[4], div[5]};
@@ -726,22 +1033,26 @@ Stream stream_of(const int* geo, const unsigned* div) {
 // vectors as contiguous (G, C) f32. It returns the cudaError_t of the launch.
 
 // geo (6 ints) is ops/bn.py:reduce_launch's result: columns, vec, splits,
-// rows, threads, tpr.
+// rows, threads, tpr. scratch and counters: the lanes mapping's, where it
+// splits a group's rows (G * splits * 2C floats; G unsigned, all 0), else
+// null.
 extern "C" int mvae_bn_moments(const void* x, int bf16, void* sum,
                                void* sumsq, int G, int N, int C, int S,
-                               const int* geo, void* stream) {
+                               const int* geo, void* scratch, void* counters,
+                               void* stream) {
   if (bad_shape(G, N, C, S)) return (int)cudaErrorInvalidValue;
   const MomentsOp op{(float*)sum, (float*)sumsq};
   cudaStream_t st = (cudaStream_t)stream;
   const ReduceLaunch l = reduce_of(geo);
   return bf16 ? reduce<MomentsOp, __nv_bfloat16>(op, x, nullptr, G, N, C, S,
-                                                 l, st)
-              : reduce<MomentsOp, float>(op, x, nullptr, G, N, C, S, l, st);
+                                                 l, scratch, counters, st)
+              : reduce<MomentsOp, float>(op, x, nullptr, G, N, C, S, l,
+                                         scratch, counters, st);
 }
 
-// geo (6 ints) and div (6) are ops/bn.py:normalize_launch's (dx_launch's)
-// result: vec, head, chunks, tail, whole, blocks; the multiplier and shift
-// of S, C and N * C * S. n: the elements
+// geo (7 ints) and div (6) are ops/bn.py:normalize_launch's (dx_launch's)
+// result: vec, head, chunks, tail, whole, blocks, lanes; the multiplier and
+// shift of S, C and N * C * S. n: the elements
 // each sum was over.
 extern "C" int mvae_bn_normalize(const void* x, int bf16, const void* s,
                                  const void* q, const void* scale,
@@ -758,19 +1069,21 @@ extern "C" int mvae_bn_normalize(const void* x, int bf16, const void* s,
               : normalize_pass<float>(x, y, op, G, N, C, S, st, cs);
 }
 
-// geo: as mvae_bn_moments'.
+// geo, scratch, counters: as mvae_bn_moments'.
 extern "C" int mvae_bn_bwd_partials(const void* x, const void* g, int bf16,
                                     const void* a, const void* b, void* sdz,
                                     void* sdzx, int G, int N, int C, int S,
-                                    const int* geo, void* stream) {
+                                    const int* geo, void* scratch,
+                                    void* counters, void* stream) {
   if (bad_shape(G, N, C, S)) return (int)cudaErrorInvalidValue;
   const PartialsOp op{(const float*)a, (const float*)b, (float*)sdz,
                       (float*)sdzx};
   cudaStream_t st = (cudaStream_t)stream;
   const ReduceLaunch l = reduce_of(geo);
   return bf16 ? reduce<PartialsOp, __nv_bfloat16>(op, x, g, G, N, C, S, l,
-                                                  st)
-              : reduce<PartialsOp, float>(op, x, g, G, N, C, S, l, st);
+                                                  scratch, counters, st)
+              : reduce<PartialsOp, float>(op, x, g, G, N, C, S, l, scratch,
+                                          counters, st);
 }
 
 // dscale, dbias: (C,), the gradients of scale and bias.

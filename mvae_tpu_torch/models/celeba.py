@@ -11,9 +11,12 @@ reference's module names (celeba/model.py:66-190), so a reference-layout
     attrs_encoder.net        18 -> 512 -> 512 (BN1d + swish) -> 2L
     attrs_decoder.net        L -> 512 x3 (BN1d + swish) -> 18 logits
 
-Images enter and leave NHWC; inside they run NCHW, so the reference's
-(c, h, w) flatten order needs no permutation. With a compute dtype
-(bfloat16) the conv stacks and the image posterior head run in it; the
+Images enter and leave NHWC. Inside, the conv stacks hold NCHW shapes,
+stored channels-last under a bf16 compute dtype (nn/dcgan.py), so the
+image input's NHWC tensor, permuted, is the first conv's input as it is
+and the decoder's logits, permuted back, are NHWC-contiguous; the
+reference's (c, h, w) flatten order holds in either layout. With a compute
+dtype (bfloat16) the conv stacks and the image posterior head run in it; the
 attribute MLPs and the decoder's upsample fc run in f32, as in the JAX
 package (models/celeba.py:100-117).
 

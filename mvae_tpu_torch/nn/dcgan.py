@@ -11,6 +11,15 @@ compute dtype, conv/linear weights are cast at use (nn/dcgan.py:43-50),
 BN math runs in f32 and swish in the compute dtype, the posterior head
 emits f32 (:150-156) and the eval-mode decoder logits are f32 (:124-126).
 
+Layout: a stack whose compute dtype is bf16 or fp16 casts its input
+straight to channels-last (nn/conv.py:activation_format), and its convs
+(the images' channels padded to whole 16-byte runs, nn/conv.py), BNs and
+swishes keep it so, as the JAX package's stacks are NHWC end to end; f32
+stacks run NCHW, and so do the encoder's fused route, whose
+conv2d_moments reads NCHW, and `stacked`, whose convs are grouped. The reference's (c, h, w) order where a stack
+meets a fully connected layer holds in either layout: the encoder's
+flatten and the decoder's reshape are copies into it where they must be.
+
 Train mode (the JAX package's Pallas BN path, nn/norm.py:145-157): each
 BN runs fused with the swish after it, in f32 and rounded once to the
 compute dtype (nn/norm.py:BNSwishSequential); the head's dropout takes a
@@ -48,7 +57,7 @@ import torch
 from torch import nn
 
 from mvae_tpu_torch.nn.conv import (
-    Conv2d, ConvTranspose2d, conv2d, conv_transpose2d)
+    Conv2d, ConvTranspose2d, activation_format, conv2d, conv_transpose2d)
 from mvae_tpu_torch.nn.layers import Dropout, Linear, Swish, linear, swish
 from mvae_tpu_torch.nn.norm import (
     BatchNorm, BNSwishSequential, bn_swish_from_moments, bn_swish_walk,
@@ -74,7 +83,13 @@ class ConvStack(BNSwishSequential):
         self.conv_moments = conv_moments
 
     def cast_in(self, x):
-        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+        """x in the compute dtype and the stack's layout (the module
+        docstring: NCHW on the encoder's fused route), in one copy at
+        most."""
+        fused = self.training and getattr(self, "conv_moments", False)
+        fmt = (torch.contiguous_format if fused
+               else activation_format(self.compute_dtype))
+        return x.to(self.compute_dtype or x.dtype, memory_format=fmt)
 
     def cast_out(self, x):
         return x
@@ -164,7 +179,11 @@ def stacked(seqs, x):
             return stacked_bn(group, x)
         return layer(x)                     # a Swish
 
-    return first.cast_out(bn_swish_walk(first, first.cast_in(x), apply))
+    # NCHW in the compute dtype, in one copy: grouped convs run NCHW
+    # (nn/conv.py)
+    x = x.to(first.compute_dtype or x.dtype,
+             memory_format=torch.contiguous_format)
+    return first.cast_out(bn_swish_walk(first, x, apply))
 
 
 def stacked_head(heads, h, keep_mask=None):

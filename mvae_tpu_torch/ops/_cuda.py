@@ -172,11 +172,11 @@ def _library():
     lib.mvae_poe_bwd.argtypes = [p] * 7 + [i, i, ll, i, p]
     lib.mvae_bce_rowsum_fwd.argtypes = [p, i, p, i, i, p, i, i, i, p, p]
     lib.mvae_bce_rowsum_fwd.restype = i
-    lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p, p]
+    lib.mvae_bn_moments.argtypes = [p, i, p, p, i, i, i, i, p, p, p, p]
     lib.mvae_bn_normalize.argtypes = [p, i, p, p, p, p, f, p, p] + [i] * 4 + [
         p, p, p]
     lib.mvae_bn_bwd_partials.argtypes = [p, p, i, p, p, p, p] + [i] * 4 + [
-        p, p]
+        p, p, p, p]
     lib.mvae_bn_dx.argtypes = [p, p, i, p, p, p, p, p, p, f, p, p, p] + [
         i] * 4 + [p, p, p]
     lib.mvae_conv_moments.argtypes = [p, p, i, p, p] + [i] * 20 + [p]

@@ -7,6 +7,7 @@ so each term's BatchNorm sees its own batch statistics; here the T terms'
 rows run as one batch and the op keeps statistics per group.
 
     x (G*N, C, *spatial) or (G*N, C)  is viewed as  (G, N, C, S)
+    a channels-last x (G*N, C, H, W)  is viewed as  (G, N*H*W, C, 1)
     mean, var (G, C):  biased one-pass moments over (N, S), var >= 0
     y = swish(x * a + b)  in f32, rounded once to x's dtype,
         a = scale * rsqrt(var + eps),  b = bias - mean * a
@@ -39,6 +40,15 @@ so that the train step's gradient average (train/loop.py) gives the
 gradient of the mean loss, as for every other parameter. dx needs the
 global sums as they are. The kernels do not change: the collectives run
 between their launches.
+
+Layout: an NCHW map's (g, c) plane is N runs of S = H*W elements; a
+channels-last map (NHWC memory, the conv stacks' layout under bf16, nn/
+conv.py) is the same statistics over (G, N*H*W, C, 1), channels innermost,
+which the kernels take with no copy, y and dx returned in x's layout. At
+S = 1 with C of whole 16-byte chunks the kernels take their lanes forms
+(csrc/bn_swish.cu): a thread keeps the same channels throughout. The
+plain versions take a channels-last map's NCHW copy instead, so they sum
+in an NCHW map's order whatever the layout.
 """
 
 import ctypes
@@ -60,6 +70,15 @@ PLANE_THREADS = 512         # ... that block
 SPLIT_THREADS = 256         # else its rows are split over a cluster of
 REDUCE_TARGET_BLOCKS = 4 * SM_COUNT  # blocks this size, up to 4 an SM
 COLUMNS_WIDE = 8            # the columns mapping: channels a block
+LANES_THREADS = 512         # the lanes mapping: a block (csrc: kLanesThreads)
+LANES_CLUSTERS = 30         # ... clusters of MAX_CLUSTER such blocks an H100
+                            # SXM holds at once (2 blocks an SM; 240 blocks
+                            # read faster than 256-272, which leave some
+                            # clusters a second wave)
+LANES_MIN_ROWS = 8192       # ... rows a group at least, else columns
+LANES_ROWS_A_THREAD = 4     # ... rows a thread at least, where that
+                            # leaves the grid short of its target
+LANES_DX_BLOCKS_PER_SM = 2  # bn_dx's lanes stream (kLanesDxBlocksPerSm)
 STREAM_THREADS = 256                # bn_normalize, bn_dx: a block
 STREAM_BLOCKS_PER_SM = 4            # ... resident an SM: one wave at most
 STREAM_UNROLL = 2                   # ... chunks of x (and g) a thread loads
@@ -172,13 +191,34 @@ def reduce_launch(g: int, n: int, c: int, s: int, itemsize: int,
     split over blocks of SPLIT_THREADS, as many as bring the grid to
     REDUCE_TARGET_BLOCKS. Where the planes alone reach that many blocks
     (celeba19's decoder at G = 21), the rows stay one block of
-    PLANE_THREADS."""
+    PLANE_THREADS.
+    columns = 2, the lanes mapping (S = 1, C whole 16-byte chunks, the
+    tensors `aligned`, at least LANES_MIN_ROWS rows: a channels-last map's
+    view): a block of LANES_THREADS is `rows` = threads / tpr row lanes by
+    `tpr` chunks of a row (vec elements each); a group's rows spread over
+    `splits` blocks, in clusters of MAX_CLUSTER: LANES_CLUSTERS of them
+    over the groups, at least one a group, fewer where a thread would read
+    under LANES_ROWS_A_THREAD rows (up to MAX_CLUSTER blocks, a power of
+    2: one cluster); each cluster's sums take a scratch row; grid
+    (splits, G)."""
+    v = 16 // itemsize
+    if (s == 1 and aligned and c % v == 0 and n >= LANES_MIN_ROWS
+            and c // v <= LANES_THREADS):
+        cpr = c // v
+        lanes = LANES_THREADS // cpr
+        splits = min(MAX_CLUSTER * max(1, LANES_CLUSTERS // g),
+                     -(-n // (lanes * LANES_ROWS_A_THREAD)))
+        if splits <= MAX_CLUSTER:
+            splits = pow2_at_least(splits, MAX_CLUSTER)
+        else:
+            splits = splits // MAX_CLUSTER * MAX_CLUSTER
+        return dict(columns=2, vec=v, splits=splits, rows=lanes,
+                    threads=LANES_THREADS, tpr=cpr, grid=(splits, g))
     columns = int(s * itemsize < 16)
     if columns:
         vec, per_row = 1, s
         across = g * -(-c // COLUMNS_WIDE)
     else:
-        v = 16 // itemsize
         vec = v if (s % v == 0 and aligned) else 1
         per_row = s // vec
         across = g * c
@@ -218,12 +258,34 @@ def _c_reduce(dims, itemsize, aligned, inputs):
         "columns", "vec", "splits", "rows", "threads", "tpr")))
 
 
+_COUNTERS = {}
+
+
+def _counters(device, groups):
+    """The lanes mapping's integer a group (csrc/bn_swish.cu: the last
+    block's count), on `device`'s current stream: zeroed once, and every
+    launch leaves them 0."""
+    key = (device, _cuda.stream(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < groups:
+        buf = torch.zeros(max(groups, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def _reduce_geometry(*tensors):
-    """The C geometry of a reduction over tensors (x, or x and g)."""
+    """The C geometry of a reduction over tensors (x, or x and g), and the
+    scratch and counters' addresses (0 where it takes none)."""
     x4 = tensors[0]
-    return _c_reduce(_dims(x4), x4.element_size(),
-                     all(t.data_ptr() % 16 == 0 for t in tensors),
-                     len(tensors))
+    dims, aligned = _dims(x4), all(t.data_ptr() % 16 == 0 for t in tensors)
+    geo = _c_reduce(dims, x4.element_size(), aligned, len(tensors))
+    if geo[0] != 2 or geo[2] <= MAX_CLUSTER:
+        return geo, None, 0, 0
+    gsz, c = dims[0], dims[2]
+    scratch = torch.empty(gsz * geo[2] // MAX_CLUSTER * 2 * c,
+                          device=x4.device, dtype=torch.float32)
+    return (geo, scratch, scratch.data_ptr(),
+            _counters(x4.device, gsz).data_ptr())
 
 
 @_cuda.one_op("bn_moments")
@@ -236,9 +298,10 @@ def bn_moments(x4):
     s = torch.empty((gsz, c), device=x4.device, dtype=torch.float32)
     q = torch.empty_like(s)
     with torch.cuda.device(x4.device):
+        geo, _scratch, scratch, counters = _reduce_geometry(x4)
         rc = _cuda.library().mvae_bn_moments(
             x4.data_ptr(), int(x4.dtype == torch.bfloat16), s.data_ptr(),
-            q.data_ptr(), *_dims(x4), _reduce_geometry(x4),
+            q.data_ptr(), *_dims(x4), geo, scratch, counters,
             _cuda.stream(x4.device))
     _cuda.check(name, rc)
     _cuda.launched(bn_moments)
@@ -255,10 +318,11 @@ def bn_bwd_partials(x4, g4, a, b):
     sdz = torch.empty((gsz, c), device=x4.device, dtype=torch.float32)
     sdzx = torch.empty_like(sdz)
     with torch.cuda.device(x4.device):
+        geo, _scratch, scratch, counters = _reduce_geometry(x4, g4)
         rc = _cuda.library().mvae_bn_bwd_partials(
             x4.data_ptr(), g4.data_ptr(), int(x4.dtype == torch.bfloat16),
             a.data_ptr(), b.data_ptr(), sdz.data_ptr(), sdzx.data_ptr(),
-            *_dims(x4), _reduce_geometry(x4, g4), _cuda.stream(x4.device))
+            *_dims(x4), geo, scratch, counters, _cuda.stream(x4.device))
     _cuda.check(name, rc)
     _cuda.launched(bn_bwd_partials)
     return sdz, sdzx
@@ -274,7 +338,7 @@ def fast_div(d: int) -> tuple:
     return -(-(1 << (31 + lg)) // d), lg - 1
 
 
-def _stream_launch(g, n, c, s, itemsize, offsets):
+def _stream_launch(g, n, c, s, itemsize, offsets, lanes_per_sm):
     numel = g * n * c * s
     v = 16 // itemsize
     off = offsets[0]
@@ -282,12 +346,19 @@ def _stream_launch(g, n, c, s, itemsize, offsets):
     head = min(numel, (16 - off) % 16 // itemsize) if vec > 1 else 0
     chunks = (numel - head) // vec
     tail = numel - head - chunks * vec
+    # the lanes stream: rows of whole aligned chunks, a grid stride (a
+    # multiple of SM_COUNT * STREAM_THREADS) that is a multiple of a row's
+    # chunks
+    lanes = (c // v if s == 1 and vec == v and head == 0 and c % v == 0
+             and SM_COUNT * STREAM_THREADS % (c // v) == 0 else 0)
+    cap = lanes_per_sm if lanes else STREAM_BLOCKS_PER_SM
     per_sm = -(-chunks // (SM_COUNT * STREAM_THREADS))
-    per_sm = min(STREAM_BLOCKS_PER_SM, max(1, per_sm))
+    per_sm = min(cap, max(1, per_sm))
     whole = s % vec == 0 and head == 0
     return dict(vec=vec, head=head, chunks=chunks, tail=tail,
                 whole=int(whole), unroll=STREAM_UNROLL,
                 threads=STREAM_THREADS, blocks=SM_COUNT * per_sm,
+                lanes=lanes,
                 divs=fast_div(s) + fast_div(c) + fast_div(n * c * s))
 
 
@@ -308,10 +379,14 @@ def normalize_launch(g: int, n: int, c: int, s: int, itemsize: int,
     (each element, where chunks cross channels) forms its coefficients
     (a, b) from the (G, C) sums in the shadow of its loads. `divs`:
     fast_div of S, C and N * C * S, the divisions that give an element's
-    (g, c). `unroll` and `threads` are the kernel's own constants
-    (kStreamUnroll, kStreamThreads), by which the grid is sized; the C
-    entry point takes the rest."""
-    return _stream_launch(g, n, c, s, itemsize, offsets)
+    (g, c). `lanes`: at S = 1 with C whole chunks, aligned, the chunks a
+    row where the grid's stride is a multiple of them (the lanes stream:
+    thread t's chunks all hold channels (t % lanes) * vec onward, whose
+    coefficients it forms once a group), else 0. `unroll` and `threads`
+    are the kernel's own constants (kStreamUnroll, kStreamThreads), by
+    which the grid is sized; the C entry point takes the rest."""
+    return _stream_launch(g, n, c, s, itemsize, offsets,
+                          STREAM_BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,17 +394,19 @@ def dx_launch(g: int, n: int, c: int, s: int, itemsize: int,
               offsets: tuple = (0, 0, 0)) -> dict:
     """How bn_dx streams a (G, N, C, S) view: normalize_launch's geometry
     over x, g and dx (`offsets`: their addresses modulo 16); a chunk forms
-    (a, b, Q, R)."""
-    return _stream_launch(g, n, c, s, itemsize, offsets)
+    (a, b, Q, R). Its lanes stream holds 4 * vec coefficients in registers
+    and takes up to LANES_DX_BLOCKS_PER_SM blocks an SM."""
+    return _stream_launch(g, n, c, s, itemsize, offsets,
+                          LANES_DX_BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
 def _c_launch(launch, dims, itemsize, offsets):
-    """launch(...)'s geometry as the C entry points take it: 6 ints and
+    """launch(...)'s geometry as the C entry points take it: 7 ints and
     6 unsigned (csrc/bn_swish.cu: stream_of)."""
     lay = launch(*dims, itemsize, offsets)
-    geo = (ctypes.c_int * 6)(*(lay[k] for k in (
-        "vec", "head", "chunks", "tail", "whole", "blocks")))
+    geo = (ctypes.c_int * 7)(*(lay[k] for k in (
+        "vec", "head", "chunks", "tail", "whole", "blocks", "lanes")))
     return geo, (ctypes.c_uint * 6)(*lay["divs"])
 
 
@@ -467,31 +544,70 @@ def bn_swish_bwd_plain(x4, g4, scale, bias):
     return _bwd(_PASSES[False], x4, g4, a, b, mean, invstd)
 
 
+def is_channels_last(x) -> bool:
+    """x a 4-d map stored channels-last (NHWC memory) and not also NCHW
+    (C = 1 or H = W = 1, which are both, take the NCHW view)."""
+    return (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
+def _view4(t, groups, cl):
+    """A map or activation (G*N, C, ...) as the ops' (G, N, C, S) view, or,
+    channels-last (cl), as (G, N*H*W, C, 1); contiguous in that view."""
+    rows, c = t.shape[0], t.shape[1]
+    if cl:
+        _, _, h, w = t.shape
+        return t.contiguous(memory_format=torch.channels_last).permute(
+            0, 2, 3, 1).view(groups, rows // groups * h * w, c, 1)
+    return t.contiguous().view(groups, rows // groups, c, -1)
+
+
+def _unview(t4, shape, cl, fmt):
+    """_view4's inverse: (G, ...) back to `shape` (channels-last where cl),
+    in memory format fmt."""
+    if cl:
+        n, c, h, w = shape
+        return t4.view(n, h, w, c).permute(0, 3, 1, 2)
+    return t4.view(shape).contiguous(memory_format=fmt)
+
+
 class _BNSwishTrain(torch.autograd.Function):
     """The route (kernels or plain versions) is chosen once, in the
     forward, and the backward takes the same one. On the kernels a layer
     is four launches: bn_moments, bn_normalize; bn_bwd_partials, bn_dx
     (and under a process group one all-reduce after each reduction).
     The gradients of mean and var, which are not differentiable, are not
-    materialized (autograd would fill two (G, C) tensors with zeros)."""
+    materialized (autograd would fill two (G, C) tensors with zeros). x
+    takes its view (_view4) inside, so the views add no autograd nodes:
+    on the kernels a channels-last x its own (G, N*H*W, C, 1) view and the
+    upstream gradient made contiguous in it; on the plain versions their
+    NCHW copies, summed in the order of an NCHW map. y and dx come back in
+    x's memory format either way."""
 
     @staticmethod
-    def forward(ctx, x4, scale, bias, group):
-        kernel = _cuda.use_kernel(x4, scale, bias)
+    def forward(ctx, x, scale, bias, groups, group):
+        kernel = _cuda.use_kernel(x, scale, bias)
+        fmt = (torch.channels_last if is_channels_last(x)
+               else torch.contiguous_format)
+        cl = kernel and fmt == torch.channels_last
+        x4 = _view4(x, groups, cl)
         y, mean, var, a, b, invstd = _fwd(_PASSES[kernel], x4, scale, bias,
                                           group)
-        ctx.kernel, ctx.group = kernel, group
+        ctx.kernel, ctx.group, ctx.cl = kernel, group, cl
+        ctx.shape, ctx.fmt = x.shape, fmt
         ctx.save_for_backward(x4, a, b, mean, invstd)
         ctx.mark_non_differentiable(mean, var)
         ctx.set_materialize_grads(False)
-        return y, mean, var
+        return _unview(y, x.shape, cl, fmt), mean, var
 
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x4, a, b, mean, invstd = ctx.saved_tensors
-        dx, dscale, dbias = _bwd(_PASSES[ctx.kernel], x4, g.contiguous(), a,
-                                 b, mean, invstd, ctx.group)
-        return dx, dscale, dbias, None
+        g4 = _view4(g, x4.shape[0], ctx.cl)
+        dx, dscale, dbias = _bwd(_PASSES[ctx.kernel], x4, g4, a, b, mean,
+                                 invstd, ctx.group)
+        return (_unview(dx, ctx.shape, ctx.cl, ctx.fmt), dscale, dbias, None,
+                None)
 
 
 def bn_swish_train(x, scale, bias, groups: int = 1, group=None):
@@ -503,11 +619,13 @@ def bn_swish_train(x, scale, bias, groups: int = 1, group=None):
     (non-differentiable). CPU tensors take the plain versions, CUDA
     tensors the kernels. group: a torch.distributed process group whose
     ranks hold the other rows of the batch, each as many as this one
-    (the statistics are then the whole batch's), or None.
+    (the statistics are then the whole batch's), or None. On the kernels
+    a channels-last x is viewed as (G, N*H*W, C, 1) without a copy, rows
+    term-major still, and the backward makes the upstream gradient
+    contiguous in that view; the plain versions take x's NCHW copy. y and
+    its gradient come back in x's memory format.
     """
-    rows, c = x.shape[0], x.shape[1]
+    rows = x.shape[0]
     if rows % groups:
         raise ValueError(f"{rows} rows do not split into {groups} groups")
-    x4 = x.contiguous().view(groups, rows // groups, c, -1)
-    y, mean, var = _BNSwishTrain.apply(x4, scale, bias, group)
-    return y.view(x.shape), mean, var
+    return _BNSwishTrain.apply(x, scale, bias, groups, group)

@@ -23,7 +23,11 @@ batch statistics), and the decodes of terms whose static support holds a
 modality their step's weights leave at 0 (celeba19's sampled terms), with
 their backward; on the one-batch decode (a step without a plan), every
 term's decode of a modality at a loss weight of 0, with its backward.
-Stateless decoders of terms that never train them run nothing.
+Stateless decoders of terms that never train them run nothing. Beyond
+both, a bf16 or fp16 step runs the products on the zero channels that pad
+the images' 3 or 1 channels to a whole 16-byte run (nn/conv.py), counted
+apart as well (count_step's `padding`: the same count with the model's
+compute dtypes as they are, less the count in float32).
 
 The shapes are read off one forward of the model's encode and decode at
 the step's batch, in eval mode with autograd on (the same convolutions
@@ -73,12 +77,15 @@ HBM_BYTES_PER_S = 3.35e12
 HBM_SOURCE = "NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3"
 
 # kernel families of the profile lines, first match wins: the port's
-# eight kernels (under their names in PERF.md), NCCL and Adam by the
-# kernel's name; then a library kernel by the aten op that launched it,
+# eight kernels (under their names in PERF.md), NCCL, Adam and cuDNN's
+# layout transforms (which run inside aten convolutions: an NCHW tensor
+# transposed for its NHWC kernels and back) by the kernel's name; then a
+# library kernel by the aten op that launched it,
 # where the profiler links the launch to an op (OP_FAMILIES), else by its
 # name (NAME_FAMILIES). cuDNN's forward kernels are named
 # sm90_xmma_fprop_implicit_gemm_...: their name holds "gemm_" but
 # neither "conv" nor "cudnn"
+LAYOUT = "layout transform (cuDNN)"
 KERNEL_FAMILIES = (
     ("all-reduce (NCCL)", lambda k: "nccl" in k.lower()),
     ("poe_fwd", lambda k: "poe_fwd_kernel" in k),
@@ -91,6 +98,7 @@ KERNEL_FAMILIES = (
     ("bn_dx", lambda k: "bn_dx_kernel" in k),
     ("conv2d_moments", lambda k: "conv_moments" in k),
     ("adam (foreach)", lambda k: "multi_tensor_apply" in k),
+    (LAYOUT, lambda k: "nchwToNhwc" in k or "nhwcToNchw" in k),
 )
 CONV = "conv (cuDNN)"
 GEMM = "gemm (cuBLAS)"
@@ -506,6 +514,8 @@ def _recorded(model, fn):
 class StepFlops(NamedTuple):
     needed: int         # flops_per_step
     dead: int           # what the port's step runs beyond it
+    padding: int        # ... and beyond both: the products on the zero
+                        # channels of bf16 and fp16 convs (nn/conv.py)
     encode: int
     decode: dict        # modality -> one term's decode at the batch,
                         # forward and backward
@@ -532,11 +542,38 @@ def count_step(model, masks, lambdas, batch: int, recon_masks=None,
     inputs = {k: torch.zeros((batch,) + tuple(shape), dtype=dtype,
                              device=dev) for k, (shape, dtype) in spec.items()}
     z = torch.zeros((batch, model.n_latents), device=dev, requires_grad=True)
-    try:
+    if recon_support is None:
+        recon_support = static_support(masks, lambdas, recon_masks)
+    plan = decode_plan(model, recon_support,
+                       fast_skip_decode=fast_skip_decode, device=dev)
+
+    def counted():
         enc = _recorded(model, lambda: model.encode(inputs))
-        dec_by = _recorded(model, lambda: model.decode(z))
+        return _composed(model, enc, _recorded(model, lambda: model.decode(z)),
+                         masks, lambdas, recon_masks, plan)
+
+    # as the step runs, then in float32: the same products at the same
+    # shapes, but the conv stacks at the images' own channels (in bf16
+    # they pad them to whole 16-byte runs, nn/conv.py: work the step
+    # runs, not work it needs)
+    dtypes = [(m, m.compute_dtype) for m in model.modules()
+              if getattr(m, "compute_dtype", None) is not None]
+    try:
+        ran = counted()
+        for m, _ in dtypes:
+            m.compute_dtype = None
+        needed, runs, encode, dec, fwd = counted()
     finally:
+        for m, dtype in dtypes:
+            m.compute_dtype = dtype
         model.train(was_training)
+    return StepFlops(needed, runs - needed, ran[1] - runs, encode, dec, fwd)
+
+
+def _composed(model, enc, dec_by, masks, lambdas, recon_masks, plan):
+    """(needed, run, encode, decode, forward) of a step from the recorded
+    FLOPs of the encode (enc) and the decode (dec_by) at the batch, by
+    top-level module: `run` all that the step runs, the dead work too."""
     mods = model.modalities
     fwd, bwd = ({m: 0 for m in mods} for _ in range(2))
     loose = (0, 0)
@@ -566,10 +603,6 @@ def count_step(model, masks, lambdas, batch: int, recon_masks=None,
     encode = sum(f + b for f, b in enc.values())
     needed = encode + sum(int(live[i]) * dec[m] for i, m in enumerate(mods))
     runs = sum(terms * dec[m] for m in mods)
-    if recon_support is None:
-        recon_support = static_support(masks, lambdas, recon_masks)
-    plan = decode_plan(model, recon_support,
-                       fast_skip_decode=fast_skip_decode, device=dev)
     if plan is not None:
         runs = 0
         for group in plan:
@@ -580,7 +613,7 @@ def count_step(model, masks, lambdas, batch: int, recon_masks=None,
                     runs += len(call.index) * sum(one[m] for m in names)
                 else:                       # the experts it gathers
                     runs += len(call.operand.experts) * one[names[0]]
-    return StepFlops(needed, encode + runs - needed, encode, dec, fwd)
+    return needed, encode + runs, encode, dec, fwd
 
 
 def flops_per_step(model, masks, lambdas, batch: int, recon_masks=None):

@@ -34,8 +34,9 @@ call takes in (the JAX script's scan carry), and is timed as the JAX
 script times it: K calls, then the host reads the carry (a hard fence);
 wall ms a call over REPS repetitions after one warm-up. On the card a
 profiled window of K more calls gives each stage's device ms, launches
-and idle share a call, and the kernel records the profiler lost
-(tools/measure.py:profile_breakdown).
+and idle share a call, cuDNN's layout transforms' us and launches a call
+(the family "layout transform (cuDNN)"), and the kernel records the
+profiler lost (tools/measure.py:profile_breakdown).
 
 Prints one JSON line a precision. Runs on the CUDA card unless --device
 says otherwise; on the CPU every device metric is null.
@@ -219,15 +220,20 @@ def profile(setup, k, tag, card):
     for name, window in windows:
         ms = wall_ms(window, k)
         row = {"stage": name, "wall_ms": ms, "device_ms": None,
-               "launches": None, "idle_share": None, "records_lost": None}
+               "launches": None, "idle_share": None, "records_lost": None,
+               "layout_transform_us": None,
+               "layout_transform_launches": None}
         if measure.on_card(device):
             prof = measure.profile_breakdown(
                 f"profile_celeba19 {tag} {name}, a window of {k}", window,
                 card, reps=1, per=k, wall_ms=ms)
+            moved = [r for r in prof["kernels"] if r[3] == measure.LAYOUT]
             row.update(device_ms=prof["device_ms"],
                        launches=prof["launches"],
                        idle_share=prof["idle_share"],
-                       records_lost=prof["records_lost"])
+                       records_lost=prof["records_lost"],
+                       layout_transform_us=1e3 * sum(r[1] for r in moved),
+                       layout_transform_launches=sum(r[2] for r in moved))
         rows.append(row)
     return rows
 

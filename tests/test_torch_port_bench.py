@@ -370,7 +370,7 @@ def test_kernel_families_name_the_port_kernels_as_perf_md():
         "sm90_xmma_wgrad_implicit_gemm_indexed_bf16bf16_bf16f32_f32_nhwckrsc"
         "_nhwc": "conv (cuDNN)",
         "void cudnn::engines_precompiled::nchwToNhwcKernel<float>":
-            "conv (cuDNN)",
+            "layout transform (cuDNN)",
         "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64":
             "gemm (cuBLAS)",
         "void at::native::(anonymous namespace)::multi_tensor_apply_kernel"

@@ -583,6 +583,129 @@ def test_bn_stream_kernels_are_the_same_from_run_to_run(cuda, shape, dtype):
             assert torch.equal(got, want)
 
 
+# the cells' channels-last planes as the BN op views them, (G, N*H*W, C,
+# 1) bf16: CelebA's decoder convT3 at B = 4096 for the live terms and the
+# dead one, its encoder's conv2 and conv4, celeba19's dead terms at
+# B = 2048 (2.4 GB); then an f32 plane of 512 channels (BatchNorm1d's
+# width) at 16384 rows
+NHWC_PLANES = [(2, 4096 * 1024, 32, 1), (1, 4096 * 1024, 32, 1),
+               (1, 4096 * 256, 64, 1), (1, 4096 * 25, 256, 1),
+               (18, 2048 * 1024, 32, 1)]
+
+
+@pytest.mark.parametrize("shape", NHWC_PLANES + [(1, 16384, 512, 1)])
+def test_bn_lanes_kernels_match_plain_at_the_cells_planes(cuda, shape):
+    """The four passes' lanes forms (a channels-innermost plane: the lanes
+    reductions over many blocks in clusters, the lanes streams) against
+    their plain versions at the cells' planes, one launch each."""
+    dtype = torch.float32 if shape[2] == 512 else torch.bfloat16
+    isz = 4 if dtype == torch.float32 else 2
+    assert bn_ops.reduce_launch(*shape, isz, True, 2)["columns"] == 2
+    assert bn_ops.normalize_launch(*shape, isz)["lanes"]
+    assert bn_ops.dx_launch(*shape, isz)["lanes"]
+    _bn_passes_match_plain(*_bn_inputs(cuda, shape, dtype, 21))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [NHWC_PLANES[0], NHWC_PLANES[3],
+                                   (18, 64 * 1024, 32, 1),
+                                   (3, 8192, 96, 1), (1, 8192, 64, 1)])
+def test_bn_lanes_kernels_are_the_same_from_run_to_run(cuda, shape, dtype):
+    """The lanes forms launched again on the same inputs give bit-identical
+    outputs: the reductions add their blocks, clusters and runs in a fixed
+    order; the counters each launch leaves at 0 let the next one count."""
+    x4, g4, scale, bias = _bn_inputs(cuda, shape, dtype, 22)
+    m = shape[1]
+    first = [bn_ops.bn_moments(x4)]
+    s, q = first[0]
+    first.append(bn_ops.bn_normalize(x4, s, q, m, scale, bias))
+    _, mean, _, a, b, invstd = first[1]
+    first.append(bn_ops.bn_bwd_partials(x4, g4, a, b))
+    sdz, sdzx = first[2]
+    first.append(bn_ops.bn_dx(x4, g4, sdz, sdzx, m, a, b, mean, invstd))
+    for _ in range(2):
+        again = (bn_ops.bn_moments(x4),
+                 bn_ops.bn_normalize(x4, s, q, m, scale, bias),
+                 bn_ops.bn_bwd_partials(x4, g4, a, b),
+                 bn_ops.bn_dx(x4, g4, sdz, sdzx, m, a, b, mean, invstd))
+        for got, want in zip(again, first):
+            for one, two in zip(got, want):
+                assert torch.equal(one, two)
+    torch.cuda.empty_cache()
+
+
+def test_bn_channels_last_layer_is_four_launches_on_the_card(cuda):
+    """A channels-last train-mode BN layer (G = 3, bf16, 16384 rows a group:
+    the lanes forms) with a channels-last upstream gradient, as a conv's
+    dgrad gives it: the four BN kernels once each and no other kernel on
+    the card, no copy on either side; y and dx channels-last."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda).manual_seed(14)
+    cl = torch.channels_last
+    x = torch.randn((3 * 64, 32, 16, 16), generator=g, device=cuda
+                    ).bfloat16().contiguous(memory_format=cl)
+    ct = torch.randn(x.shape, generator=g, device=cuda
+                     ).bfloat16().contiguous(memory_format=cl)
+
+    def layer():
+        xi = x.clone().requires_grad_(True)
+        w = torch.ones(32, device=cuda, requires_grad=True)
+        b = torch.zeros(32, device=cuda, requires_grad=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y, _, _ = ops.bn_swish_train(xi, w, b, groups=3)
+            y.backward(ct)
+            torch.cuda.synchronize()
+        assert y.is_contiguous(memory_format=cl) and not y.is_contiguous()
+        assert xi.grad.is_contiguous(memory_format=cl)
+        return [e.key for e in prof.key_averages()
+                for _ in range(e.count)
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    layer()
+    before = ops.launch_counts()
+    kernels = layer()
+    after = ops.launch_counts()
+    for k in ("bn_moments", "bn_normalize", "bn_bwd_partials", "bn_dx"):
+        assert after[k] == before[k] + 1, k
+    stems = ("MomentsOp", "bn_normalize_kernel_lanes", "PartialsOp",
+             "bn_dx_kernel_lanes")
+    for stem in stems:
+        assert sum(stem in k for k in kernels) == 1, (stem, kernels)
+    assert sum("bn_reduce_kernel_lanes" in k for k in kernels) == 2
+    others = [k for k in kernels if not any(s in k for s in stems)]
+    assert not others, others
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_op_autograd_on_channels_last_card_tensors(cuda, dtype):
+    """bn_swish_train on a channels-last map through the kernels' lanes
+    forms: y, the moments and the gradients of x, scale and bias against
+    the same call on the plain versions, G = 3 (the decoder's grouping),
+    8192 rows a group."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cl = torch.channels_last
+    x = torch.randn((3 * 32, 32, 16, 16), generator=g, device=cuda
+                    ).to(dtype).contiguous(memory_format=cl)
+    ct = torch.randn(x.shape, generator=g, device=cuda
+                     ).to(dtype).contiguous(memory_format=cl)
+    outs = []
+    for plain in (False, True):
+        xi = x.clone().requires_grad_(True)
+        w = torch.ones(32, device=cuda, requires_grad=True)
+        b = torch.zeros(32, device=cuda, requires_grad=True)
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            y, mean, var = ops.bn_swish_train(xi, w, b, groups=3)
+            y.backward(ct)
+        assert y.is_contiguous(memory_format=cl)
+        outs.append((y, mean, var, xi.grad, w.grad, b.grad))
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-4))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 def test_bn_layer_is_four_launches_on_the_card(cuda):
     """One train-mode BN layer's forward and backward (G = 3, bf16) run
     the port's four BN kernels once each and no other kernel on the card:

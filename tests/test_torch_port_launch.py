@@ -544,7 +544,7 @@ def test_bn_stream_reads_and_writes_every_element_once(shape, dtype, kind,
     if lay["blocks"] > SM_COUNT:        # no block of a second wave idles
         assert lay["chunks"] > (lay["blocks"] - SM_COUNT) * lay["threads"]
     assert set(lay) == {"vec", "head", "chunks", "tail", "whole", "unroll",
-                        "threads", "blocks", "divs"}
+                        "threads", "blocks", "lanes", "divs"}
 
 
 @pytest.mark.parametrize("offsets", STREAM_OFFSETS)

@@ -72,10 +72,10 @@ SEEN = [
      "kernel__5x_cudnn", "aten::convolution_backward", CONV),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, "
      "__nv_bfloat16, float, false, true, (cudnnKernelDataType_t)0>()",
-     "aten::cudnn_convolution_transpose", CONV),
+     "aten::cudnn_convolution_transpose", measure.LAYOUT),
     ("void cudnn::engines_precompiled::nhwcToNchwKernel<__nv_bfloat16, "
      "__nv_bfloat16, float, true, false, (cudnnKernelDataType_t)0>()",
-     "aten::convolution_backward", CONV),
+     "aten::convolution_backward", measure.LAYOUT),
     ("void nhwcAddPaddingKernel<__nv_bfloat16, __nv_bfloat16, float, true, "
      "(cudnnKernelDataType_t)0>(int, int, int, int)",
      "aten::convolution_backward", CONV),
