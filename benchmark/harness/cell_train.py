@@ -61,7 +61,7 @@ class Feed:
         self.terms = inputs.Terms(cfg, seed)
         self.device = device
         self.step = 0
-        self.weights = []           # each step's masks x lambdas (host)
+        self.weights = []           # each step's recon weights (host)
 
     def take(self, k):
         """(idxs (k, B) on the device, masks and lambdas (k, T, M) host
@@ -75,7 +75,7 @@ class Feed:
         else:
             ms, ls = (np.broadcast_to(a, (k,) + a.shape)
                       for a in (self.terms.masks, self.terms.lambdas))
-        self.weights += list(ms * ls)
+        self.weights += list(self.terms.recon_weights(ms, ls))
         return idxs.view(k, self.batch), (
             (ms, ls) if self.terms.dynamic else None)
 
@@ -102,9 +102,9 @@ class Program:
     """The port's training object of a cell, driven through its check
     (module docstring): the model, the K-step call, the data set and the
     feed, and what the comparison needs: `prog` (the program's numbers),
-    `noise_state`, `terms` and, once freed, `rows` (each step's rows in
-    order). half=True feeds every call of the check half of its rows (a
-    fault the comparison has to catch; calibrate.py)."""
+    `noise_state`, `terms`, `recon_masks` and, once freed, `rows` (each
+    step's rows in order). half=True feeds every call of the check half
+    of its rows (a fault the comparison has to catch; calibrate.py)."""
 
     def __init__(self, cfg, traffic, seed, device, half=False, log=None):
         from mvae_tpu_torch.train import loop
@@ -117,13 +117,15 @@ class Program:
         self.feed = feed = Feed(cfg, traffic, seed, device)
         log("rows made")
         terms = feed.terms
+        self.recon_masks = terms.recon_masks
         noise_gen = inputs.generator(seed, "noise", device)
         self.lr, self.beta = cfg["train"]["lr"], cfg["train"]["beta"]
         self.multi = loop.make_multi_train_step(
             self.model, None if terms.dynamic else terms.masks,
             None if terms.dynamic else terms.lambdas, lr=self.lr,
             generator=noise_gen, device=device,
-            recon_support=terms.support() if terms.dynamic else None)
+            recon_support=terms.support() if terms.dynamic else None,
+            recon_masks=terms.recon_masks)
         self.betas = torch.full((feed.k,), self.beta, device=device)
         self.device = device
 
@@ -179,7 +181,7 @@ class Program:
     def reference(self, cfg, seed, precision="float32"):
         return reference_steps(cfg, seed, self.device, self.rows, self.terms,
                                self.noise_state, self.lr, self.beta,
-                               self.checked, precision)
+                               self.checked, precision, self.recon_masks)
 
 
 def run(ctx):
@@ -245,31 +247,35 @@ def as_float(cfg, rows, precision="float32"):
 
 def step_noise(cfg, gen, n_terms, batch, device):
     """One step's noise as the program draws it from the same generator:
-    eps (T, B, L), then the encoder dropout's keep-mask (B, width)."""
+    eps (T, B, L), then the encoder dropout's keep-mask in one draw:
+    (B, width) where one expert's encoder holds a dropout, (E, B, width),
+    a row an encoder in expert order, where E > 1 do."""
     eps = torch.randn((n_terms, batch, cfg["n_latents"]), generator=gen,
                       device=device)
     spec = inputs.keep_spec(cfg)
     keep = None
     if spec is not None:
-        width, rate = spec
-        keep = torch.rand((batch, width), generator=gen,
-                          device=device) < 1.0 - rate
+        encoders, width, rate = spec
+        shape = (batch, width) if encoders == 1 else (encoders, batch, width)
+        keep = torch.rand(shape, generator=gen, device=device) < 1.0 - rate
     return eps, keep
 
 
 def reference_steps(cfg, seed, device, rows, check_terms, noise_state, lr,
-                    beta, checked, precision="float32"):
+                    beta, checked, precision="float32", recon_masks=None):
     """The plain reference through every step of the check
     (common.train_steps) from the seed's weights, on the rows the program
-    trained on, with its terms and its noise: the numbers of
-    checks.train_numbers; checked: the (first, end) steps of the checked
-    call, whose change is read."""
+    trained on, with its terms (and the configuration's recon_masks, or
+    None) and its noise: the numbers of checks.train_numbers; checked:
+    the (first, end) steps of the checked call, whose change is read."""
     fam = importlib.import_module(f"reference.{cfg['reference']}")
     model = fam.Model(cfg)
     params = inputs.make_weights(cfg, seed, device)
     gen = torch.Generator(device=device)
     gen.set_state(noise_state)
     batch = next(iter(rows.values())).shape[0] // len(check_terms)
+    recon = (None if recon_masks is None
+             else torch.as_tensor(recon_masks, device=device))
     first, end = checked
     assert end == len(check_terms)
 
@@ -279,7 +285,8 @@ def reference_steps(cfg, seed, device, rows, check_terms, noise_state, lr,
                                for k, v in rows.items()}, precision)
             eps, keep = step_noise(cfg, gen, ms.shape[0], batch, device)
             yield (x, torch.as_tensor(np.asarray(ms), device=device),
-                   torch.as_tensor(np.asarray(ls), device=device), eps, keep)
+                   torch.as_tensor(np.asarray(ls), device=device), eps, keep,
+                   recon)
 
     ops = ref_common.Ops(None if precision == "float32" else precision)
     with ref_common.no_tf32():

@@ -116,15 +116,38 @@ def sample_subsets(rng, count, n):
     return masks
 
 
+def check_terms(cfg):
+    """Refuse what the harness cannot run as the configuration states it:
+    `terms.recon_masks` beside sampled terms (no published configuration
+    has them; a sampled term's reconstruction would be unstated), or of
+    another shape than `terms.masks`. Raises ValueError naming the key."""
+    t = cfg.get("terms", {})
+    if "recon_masks" not in t:
+        return
+    if t.get("sampled", 0) > 0:
+        raise ValueError("terms.recon_masks is given beside sampled terms "
+                         f"(terms.sampled = {t['sampled']}): the harness "
+                         "takes reconstruction masks for fixed terms only")
+    rm, m = np.shape(t["recon_masks"]), np.shape(t["masks"])
+    if rm != m:
+        raise ValueError(f"terms.recon_masks has the shape {list(rm)}, "
+                         f"terms.masks {list(m)}: they must be equal")
+
+
 class Terms:
     """Each step's (T, M) masks and lambdas: the configuration's fixed
     terms, then its sampled ones (lambda `sampled_lambda`), drawn anew
-    each step from the seed's "terms" stream."""
+    each step from the seed's "terms" stream. The masks pick each term's
+    experts; `recon_masks` (fixed terms only; None without the key) the
+    modalities each term reconstructs, where they are not the masks."""
 
     def __init__(self, cfg, seed):
+        check_terms(cfg)
         t = cfg["terms"]
         self.masks = np.asarray(t["masks"], np.float32)
         self.lambdas = np.asarray(t["lambdas"], np.float32)
+        self.recon_masks = (np.asarray(t["recon_masks"], np.float32)
+                            if "recon_masks" in t else None)
         self.sampled = t.get("sampled", 0)
         self.sampled_lambda = t.get("sampled_lambda", 1.0)
         self.rng = np.random.default_rng(seed_of(seed, "terms"))
@@ -133,9 +156,16 @@ class Terms:
     def dynamic(self):
         return self.sampled > 0
 
+    def recon_weights(self, masks, lambdas):
+        """The reconstruction weights of terms (..., T, M): (recon_masks,
+        else masks) x lambdas."""
+        return (masks if self.recon_masks is None
+                else self.recon_masks) * lambdas
+
     def support(self):
         """(T, M) 0/1 bound of the recon weights known before a step."""
-        fixed = (self.masks * self.lambdas != 0).astype(np.float32)
+        fixed = (self.recon_weights(self.masks, self.lambdas)
+                 != 0).astype(np.float32)
         return np.concatenate(
             [fixed, np.ones((self.sampled, fixed.shape[1]), np.float32)])
 
@@ -154,13 +184,22 @@ class Terms:
 
 
 def keep_spec(cfg):
-    """(width, rate) of the encoders' dropout: its rate and the width of
-    the product before it; None without a dropout."""
-    for stack in cfg["stacks"].values():
+    """(encoders, width, rate) of the encoders' dropout: how many experts'
+    encoders hold one, its rate and the width of the product before it;
+    None without a dropout. The port's model draws one keep-mask row an
+    encoder, in expert order, where more than one holds a dropout."""
+    found = []
+    for e in expand_experts(cfg["experts"], cfg["stacks"]):
         width = None
-        for e in stack:
-            if e[0] == "linear":
-                width = e[2]
-            elif e[0] == "dropout":
-                return width, e[1]
-    return None
+        for layer in (l for _, stack in e["encoder"] for l in stack):
+            if layer[0] == "linear":
+                width = layer[2]
+            elif layer[0] == "dropout":
+                found.append((width, layer[1]))
+                break
+    if not found:
+        return None
+    if len(set(found)) > 1:
+        raise ValueError("the encoders' dropouts differ in width or rate: "
+                         f"{sorted(set(found))}")
+    return (len(found),) + found[0]

@@ -10,13 +10,14 @@ Operations, by the rule of the port's tools/measure.py:count_step: 2 a
 multiply-add of every convolution and matrix product; a convolution's at
 each output position, a transposed one's at each input position; in a
 train step each expert's encoder once, each term's decode only of the
-modalities its loss weights (masks x lambdas != 0), and in the backward
-the same count again for each operand that needs a gradient: every
-weight, and an activation wherever a layer upstream of it is trained
-(a decoder's input z always; an encoder's first product's input, the
-data, never). Elementwise work, the BatchNorms, the losses and the
-optimizer are not counted; nor are decodes a term's loss does not weight
-(the program may run them: they are not needed).
+modalities its loss weights ((recon_masks, else masks) x lambdas != 0,
+inputs.Terms.recon_weights), and in the backward the same count again
+for each operand that needs a gradient: every weight, and an activation
+wherever a layer upstream of it is trained (a decoder's input z always;
+an encoder's first product's input, the data, never). Elementwise work,
+the BatchNorms, the losses and the optimizer are not counted; nor are
+decodes a term's loss does not weight (the program may run them: they
+are not needed).
 """
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -99,7 +100,7 @@ def expert_costs(cfg):
 
 def train_step_flops(cfg, rows, weights):
     """The operations a train step needs at `rows` rows; weights (T, M),
-    the step's masks x lambdas."""
+    the step's reconstruction weights (inputs.Terms.recon_weights)."""
     costs = expert_costs(cfg)
     live = [sum(1 for row in weights if row[m] != 0)
             for m in range(len(costs))]

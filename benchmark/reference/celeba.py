@@ -41,13 +41,19 @@ class Model:
 
     def encode(self, p, ops, inputs, keep, bn, commits):
         """(M, B, L) mu and logvar; in train mode (bn given) each encoder's
-        BatchNorms commit as many times as terms hold its expert."""
+        BatchNorms commit as many times as terms hold its expert. keep:
+        the dropout's keep-mask, (B, width) where one encoder holds a
+        dropout, or (E, B, width), a row for each of the E encoders that
+        do, in expert order."""
         train = bn is not None
-        mus, lvs = [], []
+        mus, lvs, row = [], [], 0
         for m, e in enumerate(self.experts):
+            k = keep
+            if e["dropout"] and keep is not None and keep.ndim == 3:
+                k, row = keep[row], row + 1
             h = self._run(p, ops, e["encoder"], self.expert_input(
                 e["name"], inputs), train=train, bn=bn,
-                times=commits[m] if train else 1, keep=keep)
+                times=commits[m] if train else 1, keep=k)
             mus.append(h[:, :self.n_latents])
             lvs.append(h[:, self.n_latents:])
         return torch.stack(mus), torch.stack(lvs)
@@ -103,5 +109,7 @@ def expand_experts(experts, stacks):
                 "encoder": [(fmt(s), stacks[s]) for s in e["encoder"]],
                 "decoder": [(fmt(s), stacks[s]) for s in e["decoder"]],
                 "bn": any(l[0] == "bn" for s in e["decoder"]
-                          for l in stacks[s])})
+                          for l in stacks[s]),
+                "dropout": any(l[0] == "dropout" for s in e["encoder"]
+                               for l in stacks[s])})
     return out

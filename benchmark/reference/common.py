@@ -234,26 +234,68 @@ def kl_normal(mu, logvar):
                             dim=-1)
 
 
-def elbo(model, p, ops, inputs, masks, lambdas, beta, eps, keep, bn):
+def term_loss(model, p, ops, inputs, mu, logvar, mask, w, beta, eps, bn):
+    """One term of the ELBO: its posterior from the experts `mask` (M,)
+    selects and the prior, the decode of every modality (model.recon, w
+    (M,) its weights), the weighted reconstruction losses plus beta times
+    the KL, the mean over the batch."""
+    q_mu, q_lv = poe(mu, logvar, mask)
+    z = q_mu + eps * torch.exp(0.5 * q_lv)
+    recon = model.recon(p, ops, z, inputs, w, bn)
+    return torch.mean(recon + beta * kl_normal(q_mu, q_lv))
+
+
+def _add(a, b):
+    return b if a is None else a if b is None else a + b
+
+
+def elbo(model, p, ops, inputs, masks, lambdas, beta, eps, keep, bn,
+         recon_masks=None, wrt=None):
     """The multi-term ELBO of one step, as the published training loop
     computes it: each term's posterior from its experts and the prior,
     its decode of every modality (a decoder the term's loss does not
     weight runs for its BatchNorm statistics alone, or not at all where
     it has none), the weighted reconstruction losses plus beta times the
-    KL, the mean over the batch, summed over the terms. model: the
-    family's module (celeba.py, celeba19.py). Returns (total, per_term)."""
-    t_count = masks.shape[0]
+    KL, the mean over the batch, summed over the terms. masks (T, M) pick
+    each term's experts (and how often an encoder's BatchNorms commit);
+    a term's reconstruction weights are (recon_masks, else masks) x
+    lambdas. model: the family's module (celeba.py, celeba19.py).
+    Returns (total, per_term).
+
+    wrt: names of p to take the total's gradient with respect to, a term
+    at a time, so that one term's decodes are held at once: each term's
+    gradient flows into the decoders and into the encoders' outputs,
+    detached, and frees its graph; the encoders' backward runs once, from
+    the terms' summed gradient. Returns (total, per_term, grads), grads
+    name -> tensor, or None where the total does not reach it."""
+    recon = masks if recon_masks is None else recon_masks
     mu, logvar = model.encode(p, ops, inputs, keep, bn,
                               masks.sum(0).round().long().tolist())
-    per_term = []
-    for t in range(t_count):
-        q_mu, q_lv = poe(mu, logvar, masks[t])
-        z = q_mu + eps[t] * torch.exp(0.5 * q_lv)
-        w = masks[t] * lambdas[t]
-        recon = model.recon(p, ops, z, inputs, w, bn)
-        per_term.append(torch.mean(recon + beta * kl_normal(q_mu, q_lv)))
+    terms = range(masks.shape[0])
+    if wrt is None:
+        per_term = torch.stack([
+            term_loss(model, p, ops, inputs, mu, logvar, masks[t],
+                      recon[t] * lambdas[t], beta, eps[t], bn)
+            for t in terms])
+        return per_term.sum(), per_term
+    leaves = [p[k] for k in wrt]
+    mu_d, lv_d = (v.detach().requires_grad_(True) for v in (mu, logvar))
+    grads, d_mu, d_lv, per_term = [None] * len(leaves), None, None, []
+    for t in terms:
+        term = term_loss(model, p, ops, inputs, mu_d, lv_d, masks[t],
+                         recon[t] * lambdas[t], beta, eps[t], bn)
+        *g, g_mu, g_lv = torch.autograd.grad(term, leaves + [mu_d, lv_d],
+                                             allow_unused=True)
+        grads = [_add(a, b) for a, b in zip(grads, g)]
+        d_mu, d_lv = _add(d_mu, g_mu), _add(d_lv, g_lv)
+        per_term.append(term.detach())
+    outs = [(o, d) for o, d in ((mu, d_mu), (logvar, d_lv)) if d is not None]
+    g = torch.autograd.grad([o for o, _ in outs], leaves,
+                            grad_outputs=[d for _, d in outs],
+                            allow_unused=True)
+    grads = [_add(a, b) for a, b in zip(grads, g)]
     per_term = torch.stack(per_term)
-    return per_term.sum(), per_term
+    return per_term.sum(), per_term, dict(zip(wrt, grads))
 
 
 def trained(key):
@@ -266,10 +308,11 @@ def trained(key):
 def train_steps(model, params, ops, steps, lr, beta, keep_after=None):
     """The plain train step, repeated: params name -> float32 tensor (the
     model's state_dict), updated in place; steps: an iterable of (inputs,
-    masks, lambdas, eps, keep) per step. Returns the losses, each
-    parameter's gradient of the first step as Adam gets it, and a copy of
-    params as they are after `keep_after` steps (None without it); leaves
-    params as they are after the last step."""
+    masks, lambdas, eps, keep, recon_masks or None) per step. Returns the
+    losses, each parameter's gradient of the first step as Adam gets it,
+    and a copy of params as they are after `keep_after` steps (None
+    without it); leaves params as they are after the last step. The
+    gradient is taken a term at a time (elbo's wrt)."""
     names = [k for k, v in params.items()
              if v.is_floating_point() and trained(k)]
     for k in names:
@@ -277,16 +320,15 @@ def train_steps(model, params, ops, steps, lr, beta, keep_after=None):
     m = {k: torch.zeros_like(params[k]) for k in names}
     v = {k: torch.zeros_like(params[k]) for k in names}
     losses, first, kept = [], None, None
-    for n, (inputs, masks, lambdas, eps, keep) in enumerate(steps, 1):
+    for n, (inputs, masks, lambdas, eps, keep, recon_masks) in enumerate(
+            steps, 1):
         if n - 1 == keep_after:
             kept = {k: t.detach().clone() for k, t in params.items()}
         bn = BNState()
-        total, _ = elbo(model, params, ops, inputs, masks, lambdas, beta,
-                        eps, keep, bn)
-        grads = torch.autograd.grad(
-            total, [params[k] for k in names], allow_unused=True)
+        total, _, grads = elbo(model, params, ops, inputs, masks, lambdas,
+                               beta, eps, keep, bn, recon_masks, wrt=names)
         grads = {k: (torch.zeros_like(params[k]) if g is None else g)
-                 for k, g in zip(names, grads)}
+                 for k, g in grads.items()}
         if first is None:
             first = {k: g.detach().clone() for k, g in grads.items()}
         losses.append(float(total.detach()))

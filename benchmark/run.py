@@ -161,7 +161,12 @@ def main(argv=None, *, device=None):
         log(f"CUDA context on {torch.cuda.get_device_name(device)}")
     cfg = load_json(HERE / "configs" / f"{cell['config']}.json")
     traffic = load_json(HERE / "traffic" / f"{cell['traffic']}.json")
-    from harness import checks
+    from harness import checks, inputs
+    try:
+        inputs.check_terms(cfg)
+    except ValueError as e:
+        log(f"configuration {cell['config']!r} refused: {e}")
+        return 2
     limits = checks.load_limits(HERE, args.workload)
     loop = importlib.import_module(f"harness.cell_{traffic['loop']}")
     ctx = Context(args, cfg, traffic, device)

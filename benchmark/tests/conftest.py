@@ -61,6 +61,71 @@ def run_cell(root: Path, workload: str, *, trace=0, seed=3000000019,
     return p.returncode, line, p.stderr
 
 
+def vision_config(latents=8):
+    """A vision-shaped configuration: VisionMVAE's six image experts at
+    their published stacks (CelebA's image encoder and decoder, 3, 1, 1,
+    1, 3 and 3 channels), a dropout in each encoder, the joint term and
+    one term a modality, each reconstructing all six modalities at
+    weight 1/6 (recon_masks all ones); n_latents cut to `latents`."""
+    base = json.loads((BENCH / "configs" / "celeba.json").read_text())
+    channels = {"image": 3, "gray": 1, "edge": 1, "mask": 1,
+                "obscured": 3, "watermark": 3}
+    kinds = {"edge": {"kind": "bits", "p": 0.1},
+             "mask": {"kind": "bits", "p": 0.2}}
+    st = base["stacks"]
+    stacks, experts, inputs = {}, [], {}
+    for m, c in channels.items():
+        enc = json.loads(json.dumps(st["image_encoder.features"]))
+        enc[1] = ["conv", c, 32, 4, 2, 1]
+        head = json.loads(json.dumps(st["image_encoder.classifier"]))
+        head[-1] = ["linear", 512, 2 * latents]
+        up = json.loads(json.dumps(st["image_decoder.upsample"]))
+        up[0] = ["linear", latents, 6400]
+        dec = json.loads(json.dumps(st["image_decoder.hallucinate"]))
+        dec[-2] = ["convT", 32, c, 4, 2, 1]
+        names = [f"{m}_encoder.features", f"{m}_encoder.classifier",
+                 f"{m}_decoder.upsample", f"{m}_decoder.hallucinate"]
+        stacks.update(zip(names, (enc, head, up, dec)))
+        experts.append({"name": m, "encoder": names[:2],
+                        "decoder": names[2:]})
+        inputs[m] = {"shape": [64, 64, c],
+                     **kinds.get(m, {"kind": "pixels"})}
+    n = len(channels)
+    masks = [[1] * n] + [[int(i == j) for j in range(n)] for i in range(n)]
+    return {
+        "about": "test: vision-shaped", "reference": "celeba",
+        "port": {"model": "mvae_tpu_torch.models.vision:VisionMVAE",
+                 "kwargs": {}},
+        "compute_dtype": {"train": "bfloat16", "score": "float32"},
+        "n_latents": latents, "inputs": inputs, "experts": experts,
+        "stacks": stacks,
+        "terms": {"masks": masks, "recon_masks": [[1] * n] * (n + 1),
+                  "lambdas": [[1 / n] * n] * (n + 1), "sampled": 0},
+        "train": {"lr": 0.0001, "beta": 1.0},
+        "score": {"proposal": [1] * n, "targets": ["image"]}}
+
+
+def add_cell(root: Path, name, cfg, traffic, limits):
+    """A configuration, a traffic mix, the cell's limits and the
+    BENCHMARK.json entries of a cell `name`, all named `name`, added to
+    the checkout `root` as new files."""
+    bench = root / "benchmark"
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (bench / "traffic" / f"{name}.json").write_text(json.dumps(traffic))
+    (bench / "limits" / f"{name}.json").write_text(json.dumps(
+        {"limits": limits}))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": name, "source": "test",
+                            "file": f"benchmark/configs/{name}.json",
+                            "reduced": [], "why": "test"})
+    spec["workloads"].append({"name": name, "config": name,
+                              "traffic": name, "chips": 1, "why": "test"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "celeba.train.b4096" in m.get("workloads", []):
+            m["workloads"].append(name)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+
 @pytest.fixture
 def checkout(tmp_path):
     return make_checkout(tmp_path / "checkout")

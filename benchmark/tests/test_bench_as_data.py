@@ -1,11 +1,18 @@
 """The harness is driven by data: in a copy of the checkout, a throwaway
 configuration, traffic mix and per-layer metric, each a new file with its
-BENCHMARK.json entry, are found and run by name, no existing file edited."""
+BENCHMARK.json entry, are found and run by name, no existing file edited.
+So is a vision-shaped configuration, whose terms reconstruct modalities
+apart from their experts (terms.recon_masks) and whose six encoders each
+draw a keep-mask row of their own; a run that gives the port the
+posterior masks as its reconstruction masks, or every encoder the first
+keep row, comes out not correct."""
 
 import hashlib
 import json
 
-from conftest import BENCH, run_cell
+import pytest
+
+from conftest import BENCH, add_cell, run_cell, vision_config
 
 
 def digests(root):
@@ -55,5 +62,47 @@ def test_new_config_traffic_and_metric_run_without_edits(checkout):
     assert rc == 0, err[-3000:]
     assert line["metrics"]["throwaway_metric"]["value"] >= 1
     assert "launches_per_step.train" not in line["metrics"]   # not listed
+    after = digests(bench)
+    assert all(after[p] == d for p, d in before.items())
+
+
+# the step's loss weighs the posterior masks; its decode plan, from the
+# recon masks, stays the one batch that VisionMVAE runs
+POSTERIOR_RECON = (
+    "from mvae_tpu_torch.train import loop\n"
+    "_elbo = loop.multi_term_elbo\n"
+    "def posterior(*a, **kw):\n"
+    "    kw['recon_masks'] = None\n"
+    "    return _elbo(*a, **kw)\n"
+    "loop.multi_term_elbo = posterior")
+KEEP_ROW_0 = (
+    "from mvae_tpu_torch.train import loop\n"
+    "_draw = loop.draw_noise\n"
+    "def row0(*a, **kw):\n"
+    "    eps, keep, *rest = _draw(*a, **kw)\n"
+    "    return (eps, keep[:1].expand_as(keep), *rest)\n"
+    "loop.draw_noise = row0")
+VISION_LIMITS = json.loads(
+    (BENCH / "limits" / "celeba19.train.b2048.json").read_text())["limits"]
+
+
+@pytest.mark.parametrize("fault", [None, POSTERIOR_RECON, KEEP_ROW_0],
+                         ids=["sound", "posterior_recon", "keep_row_0"])
+def test_vision_shaped_config_runs_by_name(checkout, fault):
+    """Published stacks, n_latents cut to 8, a batch of 3, celeba19's
+    limits. It trains in float32, so that the comparison reads the
+    plumbing and not bf16's rounding at 3 rows (the sound run reads
+    grad_gap 2.0e-06 to 2.8e-06 in float32 on three seeds, 0.011 to 0.031
+    in bf16; each fault 0.15 or more)."""
+    bench = checkout / "benchmark"
+    before = digests(bench)
+    cfg = vision_config(8)
+    cfg["compute_dtype"]["train"] = "float32"
+    add_cell(checkout, "vision_shaped", cfg,
+             {"loop": "train", "batch": 3, "steps_per_window": 1,
+              "rows": 12}, VISION_LIMITS)
+    rc, line, err = run_cell(checkout, "vision_shaped", patch=fault or "")
+    assert rc == 0, err[-3000:]
+    assert line["correct"] is (fault is None), line["checks"]
     after = digests(bench)
     assert all(after[p] == d for p, d in before.items())

@@ -9,11 +9,17 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from conftest import BENCH
+from conftest import BENCH, vision_config
 from harness import cell_train, inputs, port_calls, yardstick
 from reference import common
 
 CELEBA_B100 = 60028108800      # measure.flops_per_step at B = 100
+# each cell's operations, as the parent of recon_masks counted them: the
+# first 11 steps of the feed at seed 3000000019 (training), one batch
+# (scoring)
+CELL_COUNTS = {"celeba.train.b4096": 27046264700928,
+               "celeba19.train.b2048": 18867459981312,
+               "celeba.score.k100": 648987648000}
 
 
 def config(name):
@@ -65,6 +71,88 @@ def test_score_flops_equal_flop_counter_on_the_reference(name):
                                  dtype=torch.float32),
                     cfg["score"]["targets"], eps, block=k)
     assert yardstick.score_flops(cfg, rows, k) == fc.get_total_flops()
+
+
+@pytest.mark.parametrize("workload", sorted(CELL_COUNTS))
+def test_cells_count_the_parents_operations(workload):
+    spec = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    cell = {w["name"]: w for w in spec["workloads"]}[workload]
+    cfg = config(cell["config"])
+    traffic = json.loads((BENCH / "traffic" /
+                          f"{cell['traffic']}.json").read_text())
+    if traffic["loop"] == "score":
+        count = yardstick.score_flops(cfg, traffic["batch"],
+                                      traffic["samples"])
+    else:
+        feed = cell_train.Feed(cfg, traffic, 3000000019,
+                               torch.device("cpu"))
+        feed.take(1)
+        feed.take(10)
+        count = sum(yardstick.train_step_flops(cfg, traffic["batch"], w)
+                    for w in feed.weights)
+    assert count == CELL_COUNTS[workload]
+
+
+def by_hand(cfg, rows, live):
+    """A train step's operations from stack_products alone: each expert's
+    encoder forward and backward (its first product's input, the data,
+    takes no gradient) and `live` decodes of its decoder, forward and
+    backward."""
+    total = 0
+    for e in cfg["experts"]:
+        shape = tuple(cfg["inputs"][e["name"]]["shape"])
+        first = True
+        for s in e["encoder"]:
+            products, shape = yardstick.stack_products(cfg["stacks"][s],
+                                                       shape)
+            for _, macs in products:
+                total += 2 * macs * (2 if first else 3)
+                first = False
+        shape = (cfg["n_latents"],)
+        for s in e["decoder"]:
+            products, shape = yardstick.stack_products(cfg["stacks"][s],
+                                                       shape)
+            total += live * sum(3 * 2 * macs for _, macs in products)
+    return rows * total
+
+
+def test_all_ones_recon_masks_count_seven_decodes_a_decoder():
+    """Vision's seven terms each reconstruct all six modalities: seven
+    live decodes a decoder; with its posterior masks alone, two (the
+    joint term and the modality's own)."""
+    cfg = vision_config(250)
+    terms = inputs.Terms(cfg, 0)
+    weights = terms.recon_weights(*terms.step())
+    assert weights.shape == (7, 6) and (weights != 0).all()
+    ours = yardstick.train_step_flops(cfg, 100, weights)
+    assert ours == by_hand(cfg, 100, 7)
+    del cfg["terms"]["recon_masks"]
+    terms = inputs.Terms(cfg, 0)
+    assert yardstick.train_step_flops(
+        cfg, 100, terms.recon_weights(*terms.step())) == by_hand(cfg, 100, 2)
+
+
+def test_vision_train_flops_equal_flop_counter_on_the_reference():
+    """FlopCounterMode over the reference's step (forward and the
+    backward a term at a time) counts what the yardstick counts."""
+    cfg = vision_config(8)
+    rows, cpu = 2, torch.device("cpu")
+    fam = __import__("reference.celeba", fromlist=["Model"]).Model(cfg)
+    params = inputs.make_weights(cfg, 3, cpu)
+    names = [k for k in params if params[k].is_floating_point()
+             and common.trained(k)]
+    for k in names:
+        params[k].requires_grad_(True)
+    x = cell_train.as_float(cfg, inputs.make_rows(cfg, rows, 3, cpu))
+    terms = inputs.Terms(cfg, 3)
+    masks, lambdas = (torch.from_numpy(a) for a in terms.step())
+    eps, keep = cell_train.step_noise(cfg, torch.Generator(), 7, rows, cpu)
+    with FlopCounterMode(display=False) as fc:
+        common.elbo(fam, params, common.Ops(), x, masks, lambdas, 1.0, eps,
+                    keep, common.BNState(),
+                    torch.from_numpy(terms.recon_masks), wrt=names)
+    assert fc.get_total_flops() == yardstick.train_step_flops(
+        cfg, rows, terms.recon_weights(masks.numpy(), lambdas.numpy()))
 
 
 def test_kernel_costs():
